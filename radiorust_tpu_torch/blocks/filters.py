@@ -1,0 +1,185 @@
+"""Overlap-save frequency filter (PyTorch port of the JAX package's
+``blocks/filters.py``).
+
+The design pipeline is the JAX package's, on the host in float64: sample
+the frequency-response closure at every DFT bin, inverse FFT, the
+reference's literal half-swap (a block swap of the two floor-halves, the
+last element fixed for odd n), window, rescale to the pre-window energy,
+zero-pad and transform once.  The device step is one overlap-save
+transform per chunk with the previous ``ir_len`` samples carried as
+state; the first output chunk sees a zero history (``valid_from = 1``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .. import numbers as _nums
+from ..numbers import TAU
+from ..ops import filter as _ofilter
+from ..windowing import Kaiser, Rectangular, Window, window_table
+from .base import Block, BoundBlock, StreamSig
+
+__all__ = ["Filter", "deemphasis_factor", "extend_response",
+           "design_response", "design_impulse_response"]
+
+
+def deemphasis_factor(tau: float, frequency):
+    """Complex gain ``1 / (1 + j*2*pi*f*tau)`` of a first-order RC
+    deemphasis low-pass."""
+    frequency = np.asarray(frequency, dtype=np.float64)
+    return 1.0 / (1.0 + 1j * (tau * TAU * frequency))
+
+
+def design_impulse_response(freq_resp: Callable, window: Window, n: int,
+                            sample_rate: float) -> np.ndarray:
+    """The length-n impulse response (complex128): sample the response,
+    inverse FFT, literal half-swap, window, energy-renormalize."""
+    max_bin = (n - 1) // 2
+    bins = np.zeros(n, dtype=np.int64)
+    bins[: max_bin + 1] = np.arange(max_bin + 1)
+    bins[n - max_bin:] = -np.arange(max_bin, 0, -1)
+    freqs = bins.astype(np.float64) * (sample_rate / n)
+    gains = np.array(freq_resp(bins, freqs), dtype=np.complex128)
+    if n % 2 == 0:
+        gains[n // 2] = 0.0  # the Nyquist bin is never sampled
+    ir = np.fft.ifft(gains)
+    # Block-swap [0, half) and [half, 2*half); the last element stays for
+    # odd n.  This equals fftshift for even n only.
+    half = n // 2
+    ir = np.concatenate([ir[half:2 * half], ir[:half], ir[2 * half:]])
+    w = window_table(window, n)
+    energy_pre = float(np.sum(np.abs(ir) ** 2))
+    ir = ir * w
+    energy_post = float(np.sum(np.abs(ir) ** 2))
+    if energy_post > 0.0:
+        ir = ir * np.sqrt(energy_pre / energy_post)
+    return ir
+
+
+def design_response(freq_resp: Callable, window: Window, n: int,
+                    sample_rate: float) -> np.ndarray:
+    """The extended frequency response R[2n] (complex128)."""
+    ir = design_impulse_response(freq_resp, window, n, sample_rate)
+    return extend_response(ir)
+
+
+def extend_response(ir: np.ndarray, pad: int = None) -> np.ndarray:
+    """Zero-pad an m-tap impulse response to ``pad + m`` (front zeros,
+    ``pad`` defaults to m) and transform once; the complex64 round trip
+    matches the reference's cast before the response FFT."""
+    m = ir.shape[-1]
+    if pad is None:
+        pad = m
+    ext = np.concatenate([np.zeros(pad, dtype=np.complex128),
+                          ir.astype(_nums.stream_complex()).astype(
+                              np.complex128)])
+    return np.fft.fft(ext)
+
+
+def _is_real_ir(ir: np.ndarray) -> bool:
+    peak = max(float(np.abs(ir.real).max()), 1e-30)
+    return bool(np.abs(ir.imag).max() <= 1e-9 * peak)
+
+
+def _planes(z: torch.Tensor):
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+class _BoundFilter(BoundBlock):
+    @property
+    def output_is_real(self):
+        return self.input_is_real and self._real_ir
+
+    def __init__(self, sig: StreamSig, freq_resp: Callable, window: Window,
+                 ir_len: Optional[int] = None):
+        self.in_sig = self.out_sig = sig
+        self.valid_from = 1
+        n = sig.chunk_len
+        m = n if ir_len is None else int(ir_len)
+        if not 0 < m <= n:
+            raise ValueError(f"ir_len {m} must be in (0, chunk_len {n}]")
+        self.ir_len = m
+        ir = design_impulse_response(freq_resp, window, m, sig.sample_rate)
+        self._real_ir = _is_real_ir(ir)
+        # Whether the overlap-save kernel takes this geometry.  Where it
+        # does not, the block runs on CPU tensors only (process raises on
+        # CUDA ones).
+        self.kernel_geometry = _ofilter.supported(n, m)
+        self.params = {"response":
+                       extend_response(ir, pad=n).astype(
+                           _nums.stream_complex())}
+
+    def init_state(self):
+        sig = self.in_sig
+        return {"prev": np.zeros((sig.batch, self.ir_len),
+                                 _nums.stream_complex())}
+
+    def process(self, params, state, x, reset):
+        n = self.in_sig.chunk_len
+        m = self.ir_len
+        prev = torch.where(reset[:, None], torch.zeros_like(state["prev"]),
+                           state["prev"])
+        pair_real = (self.input_is_real and self._real_ir
+                     and x.shape[0] % 2 == 0)
+        x_full = x
+        if pair_real:
+            # Two real streams share one complex transform: with a real
+            # impulse response filter(a + ib) = filter(a) + i filter(b).
+            x = torch.complex(x[0::2].real, x[1::2].real)
+            prev = torch.complex(prev[0::2].real, prev[1::2].real)
+        if self.kernel_geometry:
+            g = _ofilter.response_grid(params["response"])
+            outr, outi = _ofilter.fused_overlap_save(
+                *_planes(prev), *_planes(x), *_planes(g))
+            y = torch.complex(outr, outi)
+        elif x.is_cuda:
+            raise ValueError(
+                f"Filter geometry chunk {n}, ir_len {m} is not one the "
+                f"overlap-save kernel takes; bind a chunk with "
+                f"(chunk + ir_len) % 128 == 0")
+        else:
+            spec = (torch.fft.fft(torch.cat([prev, x], dim=-1))
+                    * params["response"])
+            y = torch.fft.ifft(spec)[..., :n]
+        if pair_real:
+            yr = torch.stack([y.real, y.imag], dim=1).reshape(
+                x_full.shape[0], n)
+            y = torch.complex(yr, torch.zeros_like(yr))
+        return {"prev": x_full[..., n - m:]}, y
+
+
+class Filter(Block):
+    """Frequency filter by overlap-save fast convolution.
+
+    ``freq_resp(bins, freqs)`` maps arrays of signed DFT bins and signed
+    frequencies (Hz) to complex gains.  ``ir_len`` (default: the chunk
+    length) sets the impulse-response length; each step filters a whole
+    chunk against an ``ir_len`` history.
+    """
+
+    def __init__(self, freq_resp: Callable, window: Optional[Window] = None,
+                 ir_len: Optional[int] = None):
+        self.freq_resp = freq_resp
+        self.window = (window if window is not None
+                       else Kaiser.with_null_at_bin(2.0))
+        self.ir_len = ir_len
+
+    @classmethod
+    def new(cls, freq_resp: Callable, ir_len: Optional[int] = None):
+        return cls(freq_resp, ir_len=ir_len)
+
+    @classmethod
+    def new_rectangular(cls, freq_resp: Callable,
+                        ir_len: Optional[int] = None):
+        return cls(freq_resp, Rectangular(), ir_len=ir_len)
+
+    @classmethod
+    def with_window(cls, freq_resp: Callable, window: Window):
+        return cls(freq_resp, window)
+
+    def bind(self, sig: StreamSig) -> _BoundFilter:
+        return _BoundFilter(sig, self.freq_resp, self.window, self.ir_len)

@@ -1,0 +1,178 @@
+"""Fused receiver blocks (PyTorch port of the JAX package's
+``blocks/frontend.py``).
+
+- :class:`MixerDecimator` equals ``Chain(FreqShifter.with_shift(s),
+  Downsampler(rate, bw))`` (same mixer tables, same rational plan) in one
+  kernel, :func:`radiorust_tpu_torch.ops.frontend.fused_mix_decimate`.
+- :class:`FmDemodFilter` equals ``Chain(FmDemod(dev), Filter(resp))`` for
+  a real impulse response, in one kernel,
+  :func:`radiorust_tpu_torch.ops.filter.fused_demod_filter`, with stream
+  pairs sharing each transform (so the batch must be even).
+
+Both raise at bind where their kernel does not take the geometry.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..math import round_half_away
+from ..numbers import TAU
+from ..ops import filter as _ofilter
+from ..ops import frontend as _ofront
+from ..ops.polyphase import plan_downsample
+from .base import Block, BoundBlock, StreamSig
+from .filters import _is_real_ir, design_impulse_response, extend_response
+from .transform import (_shift_param_update, fold_phase_state,
+                        start_phasor)
+
+__all__ = ["MixerDecimator", "FmDemodFilter"]
+
+
+class _BoundMixerDecimator(BoundBlock):
+    def __init__(self, sig: StreamSig, shift: float, precision_hz: float,
+                 output_rate: float, bandwidth: float, quality: float):
+        self.in_sig = sig
+        self.current_shift = float(shift)
+        n = sig.chunk_len
+        self.denom = round_half_away((sig.sample_rate / precision_hz))
+        plan = plan_downsample(sig.sample_rate, output_rate, bandwidth,
+                               quality)
+        self.plan = plan
+        self.out_sig = StreamSig(sig.batch, plan.out_len(n), output_rate)
+        if not _ofront.decimate_supported(n, plan):
+            raise ValueError("MixerDecimator kernel constraints unmet; use "
+                             "FreqShifter + Downsampler")
+        # The decimation taps are bind-time constants (as in the JAX
+        # package); only the mixer tables are params.
+        self.params = _shift_param_update(n, self.denom, sig.sample_rate,
+                                          shift)
+        self._taps = {}
+
+    def _kernel_matrix(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._taps:
+            self._taps[key] = torch.from_numpy(self.plan.kernel).to(device)
+        return self._taps[key]
+
+    def init_state(self):
+        b = self.in_sig.batch
+        return {"k0": np.zeros((b,), np.int32),
+                "start_phase": np.zeros((b,), np.float32),
+                "histr": np.zeros((b, self.plan.hist), np.float32),
+                "histi": np.zeros((b, self.plan.hist), np.float32)}
+
+    def process(self, params, state, x, reset):
+        c, s = start_phasor(state, self.denom)
+        ta = params["table_a"]
+        tb = params["table_b"]
+        outr, outi, nhr, nhi = _ofront.fused_mix_decimate(
+            x.real.contiguous(), x.imag.contiguous(),
+            ta.real.contiguous(), ta.imag.contiguous(),
+            tb.real.contiguous(), tb.imag.contiguous(),
+            c, s, state["histr"], state["histi"],
+            self._kernel_matrix(x.device), self.plan.p, self.plan.q)
+        new_state = {"k0": (state["k0"] + params["adv"]) % self.denom,
+                     "start_phase": state["start_phase"],
+                     "histr": nhr,
+                     "histi": nhi}
+        return new_state, torch.complex(outr, outi)
+
+    def shift_params(self, shift: float):
+        self.current_shift = float(shift)
+        return {**self.params,
+                **_shift_param_update(self.in_sig.chunk_len, self.denom,
+                                      self.in_sig.sample_rate, shift)}
+
+    def retune(self, params, state, shift: float):
+        return self.shift_params(shift), fold_phase_state(state, self.denom)
+
+
+class MixerDecimator(Block):
+    """Fused frequency shift + decimation front end."""
+
+    def __init__(self, shift: float, output_rate: float, bandwidth: float,
+                 quality: float = 3.0, precision: float = 1.0):
+        self.shift = float(shift)
+        self.precision = float(precision)
+        self.output_rate = float(output_rate)
+        self.bandwidth = float(bandwidth)
+        self.quality = float(quality)
+
+    def bind(self, sig: StreamSig) -> _BoundMixerDecimator:
+        return _BoundMixerDecimator(sig, self.shift, self.precision,
+                                    self.output_rate, self.bandwidth,
+                                    self.quality)
+
+
+class _BoundFmDemodFilter(BoundBlock):
+    @property
+    def output_is_real(self):
+        return True
+
+    def __init__(self, sig: StreamSig, deviation: float, freq_resp, window,
+                 ir_len=None):
+        self.in_sig = self.out_sig = sig
+        self.valid_from = 1  # overlap-save warmup, like Filter
+        n = sig.chunk_len
+        m = n if ir_len is None else int(ir_len)
+        if not 0 < m <= n:
+            raise ValueError(f"ir_len {m} must be in (0, chunk_len {n}]")
+        self.ir_len = m
+        if not _ofilter.supported(n, m) or sig.batch % 2:
+            raise ValueError("FmDemodFilter kernel constraints unmet "
+                             "(chunk size / even batch); use FmDemod + "
+                             "Filter")
+        ir = design_impulse_response(freq_resp, window, m, sig.sample_rate)
+        if not _is_real_ir(ir):
+            raise ValueError("FmDemodFilter requires a real impulse "
+                             "response (conjugate-symmetric gains)")
+        self.params = {
+            "response": extend_response(ir, pad=n).astype(np.complex64),
+            "factor": np.float32(sig.sample_rate / deviation / TAU),
+        }
+
+    def init_state(self):
+        b = self.in_sig.batch
+        return {"plr": np.zeros((b,), np.float32),
+                "pli": np.zeros((b,), np.float32),
+                "prevd": np.zeros((b, self.ir_len), np.float32),
+                "last_out": np.zeros((b,), np.float32),
+                "have_prev": np.zeros((b,), np.float32)}
+
+    def process(self, params, state, x, reset):
+        n = self.in_sig.chunk_len
+        g = _ofilter.response_grid(params["response"])
+        have = torch.where(reset, torch.zeros_like(state["have_prev"]),
+                           state["have_prev"])
+        # An interrupt also clears the filter tail.
+        prevd = torch.where(reset[:, None], torch.zeros_like(state["prevd"]),
+                            state["prevd"])
+        y, d = _ofilter.fused_demod_filter(
+            x.real.contiguous(), x.imag.contiguous(),
+            state["plr"], state["pli"], prevd, state["last_out"], have,
+            g.real.contiguous(), g.imag.contiguous(), params["factor"])
+        new_state = {"plr": x[:, -1].real.contiguous(),
+                     "pli": x[:, -1].imag.contiguous(),
+                     "prevd": d[:, n - self.ir_len:].contiguous(),
+                     "last_out": d[:, -1].contiguous(),
+                     "have_prev": torch.ones_like(have)}
+        return new_state, torch.complex(y, torch.zeros_like(y))
+
+
+class FmDemodFilter(Block):
+    """Fused quadrature FM demodulator + overlap-save filter (real impulse
+    response; default window rectangular)."""
+
+    def __init__(self, deviation: float, freq_resp, window=None,
+                 ir_len=None):
+        from ..windowing import Rectangular
+        self.deviation = float(deviation)
+        self.freq_resp = freq_resp
+        self.window = window if window is not None else Rectangular()
+        self.ir_len = ir_len
+
+    def bind(self, sig: StreamSig) -> _BoundFmDemodFilter:
+        return _BoundFmDemodFilter(sig, self.deviation, self.freq_resp,
+                                   self.window, self.ir_len)

@@ -1,0 +1,72 @@
+"""Downsampling (PyTorch port of ``Downsampler`` in the JAX package's
+``blocks/resampling.py``, aligned mode: the chunk is a whole number of
+resampling periods and each step emits ``chunk_len * q / p`` samples).
+Phase mode, for other chunk lengths, and ``Upsampler`` are not ported
+yet."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..numbers import stream_complex
+from ..ops import frontend as _ofront
+from ..ops.polyphase import RationalPlan, plan_downsample
+from .base import Block, BoundBlock, StreamSig
+
+__all__ = ["Downsampler"]
+
+
+class _BoundResampler(BoundBlock):
+    @property
+    def output_is_real(self):
+        return self.input_is_real  # real FIR taps preserve realness
+
+    def __init__(self, sig: StreamSig, plan: RationalPlan,
+                 output_rate: float):
+        self.in_sig = sig
+        self.plan = plan
+        self.out_sig = StreamSig(sig.batch, plan.out_len(sig.chunk_len),
+                                 output_rate)
+        self.params = {"kernel": np.asarray(plan.kernel)}
+
+    def init_state(self):
+        return {"hist": np.zeros((self.in_sig.batch, self.plan.hist),
+                                 stream_complex())}
+
+    def process(self, params, state, x, reset):
+        # The reference does not reset resampler state on events, so
+        # ``reset`` is unused.
+        plan = self.plan
+        hist = state["hist"]
+        if self.input_is_real:
+            planes = (x.real.contiguous(),)
+            hp = (hist.real.contiguous(),)
+        else:
+            planes = (x.real.contiguous(), x.imag.contiguous())
+            hp = (hist.real.contiguous(), hist.imag.contiguous())
+        outs, newhs = _ofront.decimate(planes, hp, params["kernel"],
+                                       plan.p, plan.q)
+        if self.input_is_real:
+            y = torch.complex(outs[0], torch.zeros_like(outs[0]))
+            nh = torch.complex(newhs[0], torch.zeros_like(newhs[0]))
+        else:
+            y = torch.complex(outs[0], outs[1])
+            nh = torch.complex(newhs[0], newhs[1])
+        return {"hist": nh}, y
+
+
+class Downsampler(Block):
+    """Reduce the sample rate; aliasing is suppressed below ``bandwidth``
+    and ``quality`` scales the anti-alias FIR length."""
+
+    def __init__(self, output_rate: float, bandwidth: float,
+                 quality: float = 3.0):
+        self.output_rate = float(output_rate)
+        self.bandwidth = float(bandwidth)
+        self.quality = float(quality)
+
+    def bind(self, sig: StreamSig) -> _BoundResampler:
+        plan = plan_downsample(sig.sample_rate, self.output_rate,
+                               self.bandwidth, self.quality)
+        return _BoundResampler(sig, plan, self.output_rate)

@@ -1,0 +1,78 @@
+"""Wideband FM receive chain (PyTorch port of the JAX package's
+``models/wfm.py``):
+
+    IQ 1.024 Msps
+      -> FreqShifter (tune) -> Downsampler to 384 kHz (bw 200 kHz)
+         (or both fused: MixerDecimator)
+      -> Filter low-pass +-100 kHz
+      -> FmDemod (deviation 150 kHz)
+      -> Filter rectangular: deemphasis 50 us, DC block, 20 Hz - 16 kHz
+         (or both fused: FmDemodFilter)
+      -> Downsampler to 48 kHz (bw 40 kHz)
+      -> GainControl (volume)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..blocks.base import Chain
+from ..blocks.filters import Filter, deemphasis_factor
+from ..blocks.modulation import FmDemod
+from ..blocks.resampling import Downsampler
+from ..blocks.transform import FreqShifter, GainControl
+
+__all__ = ["wfm_receiver", "WFM_INPUT_RATE", "WFM_INPUT_CHUNK",
+           "WFM_AUDIO_RATE", "WFM_AUDIO_CHUNK"]
+
+WFM_INPUT_RATE = 1024000.0
+WFM_INPUT_CHUNK = 16384
+WFM_AUDIO_RATE = 48000.0
+WFM_AUDIO_CHUNK = 768
+
+
+def _lowpass_100k(bins, freqs):
+    return np.where(np.abs(freqs) <= 100000.0, 1.0 + 0.0j, 0.0j)
+
+
+def _deemphasis_band(bins, freqs):
+    # DC block (|bin| >= 1), 20 Hz..16 kHz band, 50 us deemphasis.
+    keep = (np.abs(bins) >= 1) & (np.abs(freqs) >= 20.0) \
+        & (np.abs(freqs) <= 16000.0)
+    return np.where(keep, deemphasis_factor(50e-6, freqs), 0.0j)
+
+
+def wfm_receiver(tune_shift: float = 0.0, volume: float = 1.0,
+                 deviation: float = 150000.0,
+                 fuse_deemphasis: bool = False,
+                 fuse_frontend: bool = False,
+                 fuse_demod: bool = False,
+                 fuse_mid: bool = False,
+                 filter_ir_len=None) -> Chain:
+    """The WFM receive chain as a block spec.
+
+    ``fuse_frontend`` replaces FreqShifter + Downsampler with
+    MixerDecimator; ``fuse_demod`` replaces FmDemod + the deemphasis
+    Filter with FmDemodFilter; ``filter_ir_len`` sets both overlap-save
+    filters' IR length apart from the mid-chain chunk.  ``fuse_mid`` and
+    ``fuse_deemphasis`` are not ported yet and raise.
+    """
+    if fuse_mid or fuse_deemphasis:
+        raise NotImplementedError(
+            "fuse_mid and fuse_deemphasis are not ported yet")
+    irl = filter_ir_len
+    if fuse_frontend:
+        from ..blocks.frontend import MixerDecimator
+        head = [MixerDecimator(tune_shift, 384000.0, 200000.0)]
+    else:
+        head = [FreqShifter.with_shift(tune_shift),
+                Downsampler(384000.0, 200000.0)]
+    if fuse_demod:
+        from ..blocks.frontend import FmDemodFilter
+        mid = [Filter.new(_lowpass_100k, ir_len=irl),
+               FmDemodFilter(deviation, _deemphasis_band, ir_len=irl)]
+    else:
+        mid = [Filter.new(_lowpass_100k, ir_len=irl), FmDemod(deviation),
+               Filter.new_rectangular(_deemphasis_band, ir_len=irl)]
+    return Chain(*head, *mid, Downsampler(48000.0, 2.0 * 20000.0),
+                 GainControl(volume))

@@ -1,0 +1,147 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``radiorust_tpu_torch/csrc/`` compile with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at the first kernel launch, into
+``build/radiorust_tpu_torch/<hash of the sources>/`` beside the package,
+so a checkout builds everything it runs from its own sources.  Importing
+this module needs no ``nvcc``; a launch without one raises.
+
+Every C entry point returns ``cudaGetLastError()`` (as an int) after its
+launches; :func:`check` raises on anything but 0.
+
+:func:`on_cuda` is the one dispatch rule of every kernel wrapper: the
+device of the tensors alone decides.  CUDA tensors launch the kernel or
+raise; CPU tensors run the plain PyTorch version.  There is no fallback
+and no switch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+__all__ = ["lib", "check", "stream_handle", "build_dir", "on_cuda",
+           "f32_ptr"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_ROOT = Path(__file__).resolve().parents[2] / "build" / "radiorust_tpu_torch"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: argument types of every entry point (pointers and the
+# stream as void*, sizes as int).
+_SIGNATURES = {
+    "rr_decimate": [_P] * 9 + [_I] * 7 + [_P],
+    "rr_mix_decimate": [_P] * 15 + [_I] * 7 + [_P],
+    "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + [_P] * 14
+                        + [_I, _I, _I, _P]),
+    "rr_demod_filter": [_P] * 11 + [_I] * 3 + [_P] * 13 + [_I, _I, _P],
+}
+
+_lib = None
+
+
+def _sources():
+    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+
+
+def build_dir() -> Path:
+    """Where the library for the current sources lives."""
+    h = hashlib.sha256()
+    for f in _sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return _ROOT / h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda): "
+                       "the port's CUDA kernels cannot be built")
+
+
+def _build(out: Path) -> None:
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    srcs = [str(f) for f in _sources() if f.suffix == ".cu"]
+    # Build to a temporary name and rename: a concurrent process never
+    # loads a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, *srcs]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        so = build_dir() / "libradiorust_kernels.so"
+        if not so.exists():
+            _build(so)
+        handle = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current stream on ``device``, as a pointer value."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """The dispatch rule of every kernel wrapper, decided by the device of
+    its tensors alone: True on CUDA (launch the kernel), False on the CPU
+    (run the plain version).  Mixed or other devices raise."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def f32_ptr(t: torch.Tensor, name: str) -> int:
+    """Device pointer of a contiguous float32 CUDA tensor (raises on
+    anything else: the kernels take no strides or other dtypes)."""
+    if t.dtype != torch.float32 or not t.is_contiguous() or not t.is_cuda:
+        raise ValueError(f"{name}: kernel takes a contiguous float32 CUDA "
+                         f"tensor, got {t.dtype} on {t.device}, "
+                         f"contiguous={t.is_contiguous()}")
+    return t.data_ptr()
