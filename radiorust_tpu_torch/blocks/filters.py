@@ -1,5 +1,5 @@
-"""Overlap-save frequency filter (PyTorch port of the JAX package's
-``blocks/filters.py``).
+"""Overlap-save frequency filter and filter bank (PyTorch port of the JAX
+package's ``blocks/filters.py``).
 
 The design pipeline is the JAX package's, on the host in float64: sample
 the frequency-response closure at every DFT bin, inverse FFT, the
@@ -8,6 +8,8 @@ last element fixed for odd n), window, rescale to the pre-window energy,
 zero-pad and transform once.  The device step is one overlap-save
 transform per chunk with the previous ``ir_len`` samples carried as
 state; the first output chunk sees a zero history (``valid_from = 1``).
+:class:`FilterBank` runs several such filters on one stream, sharing its
+forward transform and its history.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..ops import filter as _ofilter
 from ..windowing import Kaiser, Rectangular, Window, window_table
 from .base import Block, BoundBlock, StreamSig
 
-__all__ = ["Filter", "deemphasis_factor", "extend_response",
+__all__ = ["Filter", "FilterBank", "deemphasis_factor", "extend_response",
            "design_response", "design_impulse_response"]
 
 
@@ -89,6 +91,24 @@ def _planes(z: torch.Tensor):
     return z.real.contiguous(), z.imag.contiguous()
 
 
+class GridCache:
+    """The response-grid planes of the last response tensor a bound block
+    was given, kept while that same tensor comes back unmodified: a step
+    loop passes one params tree, so the grid is built once, and a retune
+    hands in a new tensor, which rebuilds it."""
+
+    def __init__(self):
+        self._resp = None
+        self._version = None
+        self._planes = None
+
+    def planes(self, response: torch.Tensor):
+        if response is not self._resp or response._version != self._version:
+            self._planes = _planes(_ofilter.response_grid(response))
+            self._resp, self._version = response, response._version
+        return self._planes
+
+
 class _BoundFilter(BoundBlock):
     @property
     def output_is_real(self):
@@ -97,7 +117,9 @@ class _BoundFilter(BoundBlock):
     def __init__(self, sig: StreamSig, freq_resp: Callable, window: Window,
                  ir_len: Optional[int] = None):
         self.in_sig = self.out_sig = sig
+        self.window = window
         self.valid_from = 1
+        self._grid = GridCache()
         n = sig.chunk_len
         m = n if ir_len is None else int(ir_len)
         if not 0 < m <= n:
@@ -132,9 +154,9 @@ class _BoundFilter(BoundBlock):
             x = torch.complex(x[0::2].real, x[1::2].real)
             prev = torch.complex(prev[0::2].real, prev[1::2].real)
         if self.kernel_geometry:
-            g = _ofilter.response_grid(params["response"])
             outr, outi = _ofilter.fused_overlap_save(
-                *_planes(prev), *_planes(x), *_planes(g))
+                *_planes(prev), *_planes(x),
+                *self._grid.planes(params["response"]))
             y = torch.complex(outr, outi)
         elif x.is_cuda:
             raise ValueError(
@@ -150,6 +172,16 @@ class _BoundFilter(BoundBlock):
                 x_full.shape[0], n)
             y = torch.complex(yr, torch.zeros_like(yr))
         return {"prev": x_full[..., n - m:]}, y
+
+    def update_params(self, freq_resp: Callable,
+                      window: Optional[Window] = None):
+        """Numpy params of a redesigned response (the analog of the
+        reference's ``Filter::update``)."""
+        w = window if window is not None else self.window
+        ir = design_impulse_response(freq_resp, w, self.ir_len,
+                                     self.in_sig.sample_rate)
+        r = extend_response(ir, pad=self.in_sig.chunk_len)
+        return {"response": r.astype(_nums.stream_complex())}
 
 
 class Filter(Block):
@@ -183,3 +215,97 @@ class Filter(Block):
 
     def bind(self, sig: StreamSig) -> _BoundFilter:
         return _BoundFilter(sig, self.freq_resp, self.window, self.ir_len)
+
+
+class _BoundFilterBank(BoundBlock):
+    """K overlap-save filters sharing one forward transform and one
+    history.  Each band is designed exactly as a standalone
+    :class:`Filter`, so band j's output equals ``Filter(freq_resps[j])``
+    on the same stream.  A graph-only multi-output block: ``process``
+    returns a tuple of K chunks."""
+
+    def __init__(self, sig: StreamSig, freq_resps, window: Window,
+                 ir_len: Optional[int] = None):
+        self.in_sig = self.out_sig = sig
+        self.window = window
+        self.valid_from = 1
+        self._grid = GridCache()
+        n = sig.chunk_len
+        m = n if ir_len is None else int(ir_len)
+        if not 0 < m <= n:
+            raise ValueError(f"ir_len {m} must be in (0, chunk_len {n}]")
+        self.ir_len = m
+        irs = [design_impulse_response(fr, window, m, sig.sample_rate)
+               for fr in freq_resps]
+        self.num_outputs = len(irs)
+        self.out_sigs = (sig,) * self.num_outputs
+        self._real_irs = tuple(_is_real_ir(ir) for ir in irs)
+        # Whether the bank kernel takes this geometry; where it does not,
+        # the block runs on CPU tensors only (process raises on CUDA ones).
+        self.kernel_geometry = _ofilter.bank_supported(
+            n, self.num_outputs, m, sig.batch)
+        self.params = {"responses": np.stack(
+            [extend_response(ir, pad=n).astype(_nums.stream_complex())
+             for ir in irs])}
+
+    @property
+    def outputs_real(self):
+        return tuple(self.input_is_real and r for r in self._real_irs)
+
+    def init_state(self):
+        sig = self.in_sig
+        return {"prev": np.zeros((sig.batch, self.ir_len),
+                                 _nums.stream_complex())}
+
+    def process(self, params, state, x, reset):
+        n = self.in_sig.chunk_len
+        m = self.ir_len
+        k = self.num_outputs
+        prev = torch.where(reset[:, None], torch.zeros_like(state["prev"]),
+                           state["prev"])
+        if self.kernel_geometry:
+            outr, outi = _ofilter.fused_filter_bank(
+                *_planes(prev), *_planes(x),
+                *self._grid.planes(params["responses"]))
+            ys = torch.complex(outr, outi).unbind(1)
+        elif x.is_cuda:
+            raise ValueError(
+                f"FilterBank geometry chunk {n}, ir_len {m} is not one the "
+                f"bank kernel takes; bind a chunk with "
+                f"(chunk + ir_len) % 128 == 0")
+        else:
+            spec = torch.fft.fft(torch.cat([prev, x], dim=-1))
+            ys = torch.fft.ifft(spec[None] * params["responses"][:, None],
+                                dim=-1)[..., :n].unbind(0)
+        return {"prev": x[..., n - m:]}, tuple(ys)
+
+    def update_params(self, freq_resps, window: Optional[Window] = None):
+        """Numpy params of every band's redesigned response."""
+        w = window if window is not None else self.window
+        return {"responses": np.stack(
+            [extend_response(
+                design_impulse_response(fr, w, self.ir_len,
+                                        self.in_sig.sample_rate),
+                pad=self.in_sig.chunk_len).astype(_nums.stream_complex())
+             for fr in freq_resps])}
+
+
+class FilterBank(Block):
+    """Several :class:`Filter` bands over one stream, sharing the forward
+    transform: a multi-output block for
+    :meth:`radiorust_tpu_torch.blocks.graph.Graph.bank`, which returns one
+    node per band."""
+
+    def __init__(self, freq_resps, window: Optional[Window] = None,
+                 ir_len: Optional[int] = None):
+        self.freq_resps = tuple(freq_resps)
+        if not self.freq_resps:
+            raise ValueError("FilterBank needs at least one band")
+        self.window = (window if window is not None
+                       else Kaiser.with_null_at_bin(2.0))
+        self.num_outputs = len(self.freq_resps)
+        self.ir_len = ir_len
+
+    def bind(self, sig: StreamSig) -> _BoundFilterBank:
+        return _BoundFilterBank(sig, self.freq_resps, self.window,
+                                self.ir_len)

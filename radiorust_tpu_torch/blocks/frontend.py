@@ -8,8 +8,12 @@
   a real impulse response, in one kernel,
   :func:`radiorust_tpu_torch.ops.filter.fused_demod_filter`, with stream
   pairs sharing each transform (so the batch must be even).
+- :class:`FilterDemodFilter` equals ``Chain(Filter(resp), FmDemod(dev),
+  Filter(deemph))`` in one kernel,
+  :func:`radiorust_tpu_torch.ops.filter.fused_filter_demod_filter` (even
+  batch, both filters at one IR length).
 
-Both raise at bind where their kernel does not take the geometry.
+Each raises at bind where its kernel does not take the geometry.
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ from ..ops import filter as _ofilter
 from ..ops import frontend as _ofront
 from ..ops.polyphase import plan_downsample
 from .base import Block, BoundBlock, StreamSig
-from .filters import _is_real_ir, design_impulse_response, extend_response
+from .filters import (GridCache, _is_real_ir, design_impulse_response,
+                      extend_response)
 from .transform import (_shift_param_update, fold_phase_state,
                         start_phasor)
 
-__all__ = ["MixerDecimator", "FmDemodFilter"]
+__all__ = ["MixerDecimator", "FmDemodFilter", "FilterDemodFilter"]
 
 
 class _BoundMixerDecimator(BoundBlock):
@@ -115,6 +120,7 @@ class _BoundFmDemodFilter(BoundBlock):
                  ir_len=None):
         self.in_sig = self.out_sig = sig
         self.valid_from = 1  # overlap-save warmup, like Filter
+        self._grid = GridCache()
         n = sig.chunk_len
         m = n if ir_len is None else int(ir_len)
         if not 0 < m <= n:
@@ -143,7 +149,6 @@ class _BoundFmDemodFilter(BoundBlock):
 
     def process(self, params, state, x, reset):
         n = self.in_sig.chunk_len
-        g = _ofilter.response_grid(params["response"])
         have = torch.where(reset, torch.zeros_like(state["have_prev"]),
                            state["have_prev"])
         # An interrupt also clears the filter tail.
@@ -152,7 +157,7 @@ class _BoundFmDemodFilter(BoundBlock):
         y, d = _ofilter.fused_demod_filter(
             x.real.contiguous(), x.imag.contiguous(),
             state["plr"], state["pli"], prevd, state["last_out"], have,
-            g.real.contiguous(), g.imag.contiguous(), params["factor"])
+            *self._grid.planes(params["response"]), params["factor"])
         new_state = {"plr": x[:, -1].real.contiguous(),
                      "pli": x[:, -1].imag.contiguous(),
                      "prevd": d[:, n - self.ir_len:].contiguous(),
@@ -176,3 +181,103 @@ class FmDemodFilter(Block):
     def bind(self, sig: StreamSig) -> _BoundFmDemodFilter:
         return _BoundFmDemodFilter(sig, self.deviation, self.freq_resp,
                                    self.window, self.ir_len)
+
+
+class _BoundFilterDemodFilter(BoundBlock):
+    @property
+    def output_is_real(self):
+        return True
+
+    def __init__(self, sig: StreamSig, freq_resp, window, deviation: float,
+                 deemph_resp, deemph_window, ir_len=None):
+        self.in_sig = self.out_sig = sig
+        # Two cascaded overlap-save warmups: chunk 0 sees zero tails in
+        # both filters, chunk 1 still sees chunk 0's demod as its tail.
+        self.valid_from = 2
+        self.window = window
+        self.deemph_window = deemph_window
+        self._grids = (GridCache(), GridCache())
+        n = sig.chunk_len
+        m = n if ir_len is None else int(ir_len)
+        if not 0 < m <= n:
+            raise ValueError(f"ir_len {m} must be in (0, chunk_len {n}]")
+        self.ir_len = m
+        if not _ofilter.supported(n, m) or sig.batch % 2:
+            raise ValueError("FilterDemodFilter kernel constraints unmet "
+                             "(chunk size / even batch); use Filter + "
+                             "FmDemod + Filter")
+        ir2 = design_impulse_response(deemph_resp, deemph_window, m,
+                                      sig.sample_rate)
+        if not _is_real_ir(ir2):
+            raise ValueError("FilterDemodFilter requires a real deemphasis "
+                             "impulse response (conjugate-symmetric gains)")
+        ir1 = design_impulse_response(freq_resp, window, m, sig.sample_rate)
+        self.params = {
+            "response1": extend_response(ir1, pad=n).astype(np.complex64),
+            "response2": extend_response(ir2, pad=n).astype(np.complex64),
+            "factor": np.float32(sig.sample_rate / deviation / TAU),
+        }
+
+    def init_state(self):
+        b, m = self.in_sig.batch, self.ir_len
+        return {"prev": np.zeros((b, m), np.complex64),
+                "plr": np.zeros((b,), np.float32),
+                "pli": np.zeros((b,), np.float32),
+                "prevd": np.zeros((b, m), np.float32),
+                "last_out": np.zeros((b,), np.float32),
+                "have_prev": np.zeros((b,), np.float32)}
+
+    def process(self, params, state, x, reset):
+        n, m = self.in_sig.chunk_len, self.ir_len
+        # An interrupt clears both filter tails and the demod continuity.
+        prev = torch.where(reset[:, None], torch.zeros_like(state["prev"]),
+                           state["prev"])
+        prevd = torch.where(reset[:, None], torch.zeros_like(state["prevd"]),
+                            state["prevd"])
+        have = torch.where(reset, torch.zeros_like(state["have_prev"]),
+                           state["have_prev"])
+        y, d, flr, fli = _ofilter.fused_filter_demod_filter(
+            prev.real.contiguous(), prev.imag.contiguous(),
+            x.real.contiguous(), x.imag.contiguous(),
+            state["plr"], state["pli"], prevd, state["last_out"], have,
+            *self._grids[0].planes(params["response1"]),
+            *self._grids[1].planes(params["response2"]), params["factor"])
+        new_state = {"prev": x[:, n - m:],
+                     "plr": flr,
+                     "pli": fli,
+                     "prevd": d[:, n - m:].contiguous(),
+                     "last_out": d[:, -1].contiguous(),
+                     "have_prev": torch.ones_like(have)}
+        return new_state, torch.complex(y, torch.zeros_like(y))
+
+    def update_filter_params(self, freq_resp, window=None):
+        """Numpy params with the channel filter's response redesigned (the
+        analog of the reference's ``Filter::update``)."""
+        w = window if window is not None else self.window
+        ir = design_impulse_response(freq_resp, w, self.ir_len,
+                                     self.in_sig.sample_rate)
+        r = extend_response(ir, pad=self.in_sig.chunk_len)
+        return {**self.params, "response1": r.astype(np.complex64)}
+
+
+class FilterDemodFilter(Block):
+    """Fused channel filter + FM demodulator + deemphasis filter (default
+    windows: Kaiser null at bin 2 for the channel filter, rectangular for
+    the deemphasis filter, whose impulse response must be real)."""
+
+    def __init__(self, freq_resp, deviation: float, deemph_resp,
+                 window=None, deemph_window=None, ir_len=None):
+        from ..windowing import Kaiser, Rectangular
+        self.freq_resp = freq_resp
+        self.deviation = float(deviation)
+        self.deemph_resp = deemph_resp
+        self.window = (window if window is not None
+                       else Kaiser.with_null_at_bin(2.0))
+        self.deemph_window = (deemph_window if deemph_window is not None
+                              else Rectangular())
+        self.ir_len = ir_len
+
+    def bind(self, sig: StreamSig) -> _BoundFilterDemodFilter:
+        return _BoundFilterDemodFilter(sig, self.freq_resp, self.window,
+                                       self.deviation, self.deemph_resp,
+                                       self.deemph_window, self.ir_len)

@@ -58,15 +58,30 @@ class _BoundResampler(BoundBlock):
 
 class Downsampler(Block):
     """Reduce the sample rate; aliasing is suppressed below ``bandwidth``
-    and ``quality`` scales the anti-alias FIR length."""
+    and ``quality`` scales the anti-alias FIR length.
+
+    ``prefilter=(freq_resp, window)`` folds a preceding overlap-save
+    Filter into the decimating FIR (an exact composition of LTI stages;
+    the filter's impulse response is designed at the bound chunk length,
+    as a standalone :class:`~radiorust_tpu_torch.blocks.filters.Filter`
+    would design it)."""
 
     def __init__(self, output_rate: float, bandwidth: float,
-                 quality: float = 3.0):
+                 quality: float = 3.0, prefilter=None):
         self.output_rate = float(output_rate)
         self.bandwidth = float(bandwidth)
         self.quality = float(quality)
+        self.prefilter = prefilter
 
     def bind(self, sig: StreamSig) -> _BoundResampler:
+        pre_ir = None
+        if self.prefilter is not None:
+            from .filters import design_impulse_response
+            freq_resp, window = self.prefilter
+            pre_ir = design_impulse_response(
+                freq_resp, window, sig.chunk_len,
+                sig.sample_rate).astype(np.complex64)
         plan = plan_downsample(sig.sample_rate, self.output_rate,
-                               self.bandwidth, self.quality)
+                               self.bandwidth, self.quality,
+                               prefilter_ir=pre_ir)
         return _BoundResampler(sig, plan, self.output_rate)

@@ -1,8 +1,11 @@
-"""Gain and frequency shifting (PyTorch port of the JAX package's
-``blocks/transform.py``; the mixer tables are designed on the host in
-float64 exactly as there)."""
+"""Gain, elementwise maps, fan-in and frequency shifting (PyTorch port of
+the JAX package's ``blocks/transform.py``; the mixer tables are designed on
+the host in float64 exactly as there).  The functions of
+:class:`MapSample` and :class:`Combine` take and return torch tensors."""
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -12,7 +15,7 @@ from ..math import round_half_away
 from ..numbers import TAU
 from .base import Block, BoundBlock, StreamSig
 
-__all__ = ["GainControl", "FreqShifter"]
+__all__ = ["GainControl", "MapSample", "Nop", "Combine", "FreqShifter"]
 
 
 class _BoundGain(BoundBlock):
@@ -36,6 +39,110 @@ class GainControl(Block):
 
     def bind(self, sig: StreamSig) -> _BoundGain:
         return _BoundGain(sig, self.gain)
+
+
+class _BoundMap(BoundBlock):
+    @property
+    def output_is_real(self):
+        return self._real_output
+
+    def __init__(self, sig: StreamSig, fn: Callable, fn_params=None,
+                 real_output: bool = False):
+        self.in_sig = self.out_sig = sig
+        self.fn = fn
+        self._real_output = bool(real_output)
+        self._parameterized = fn_params is not None
+        self.params = fn_params if self._parameterized else ()
+
+    def process(self, params, state, x, reset):
+        y = self.fn(x, params) if self._parameterized else self.fn(x)
+        if self._real_output and y.is_complex():
+            # Enforce the declaration: downstream real paths (pair-packed
+            # filters, one-plane decimation) drop the imaginary plane.
+            y = torch.complex(y.real, torch.zeros_like(y.real))
+        return state, y
+
+
+class MapSample(Block):
+    """Apply an elementwise function of torch tensors to every sample.
+    :meth:`with_params` gives the function a params tree, converted to
+    tensors like every other param, so it can be tuned without
+    rebinding."""
+
+    def __init__(self, fn: Callable = lambda x: x,
+                 real_output: bool = False):
+        self.fn = fn
+        self.fn_params = None
+        # A promise that ``fn`` emits zero imaginary parts, enforced by
+        # truncation so that every downstream path agrees.
+        self.real_output = bool(real_output)
+
+    @classmethod
+    def with_params(cls, fn: Callable, params,
+                    real_output: bool = False) -> "MapSample":
+        """``fn(x, params) -> y`` with ``params`` a tree of numpy leaves."""
+        self = cls.__new__(cls)
+        MapSample.__init__(self, fn, real_output)
+        self.fn_params = params
+        return self
+
+    def bind(self, sig: StreamSig) -> _BoundMap:
+        return _BoundMap(sig, self.fn, self.fn_params, self.real_output)
+
+
+class Nop(MapSample):
+    """Identity block forwarding samples unchanged."""
+
+    def __init__(self):
+        super().__init__(lambda x: x)
+
+
+class _BoundCombine(BoundBlock):
+    def __init__(self, sigs, fn: Callable, preserves_real: bool):
+        sigs = tuple(sigs)
+        first = sigs[0]
+        for s in sigs[1:]:
+            if (s.batch, s.chunk_len, s.sample_rate) != (
+                    first.batch, first.chunk_len, first.sample_rate):
+                raise ValueError(
+                    f"Combine inputs must share one signature; got {sigs}")
+        self.in_sigs = sigs
+        self.in_sig = self.out_sig = first
+        self.fn = fn
+        self._preserves_real = preserves_real
+        #: Per-input realness flags, set by the binding graph.
+        self.input_is_real_flags = [False] * len(sigs)
+
+    @property
+    def output_is_real(self):
+        flags = list(self.input_is_real_flags)
+        if len(flags) == 1:
+            # Single-input use in a chain: realness comes through the
+            # scalar ``input_is_real``.
+            flags[0] = flags[0] or self.input_is_real
+        return self._preserves_real and all(flags)
+
+    def process(self, params, state, xs, reset):
+        if not isinstance(xs, tuple):
+            xs = (xs,)  # single-input use in a chain
+        return state, self.fn(*xs)
+
+
+class Combine(Block):
+    """Elementwise fan-in of several equal-signature streams,
+    ``fn(*chunks) -> chunk``, for a graph node with several upstream nodes
+    (``g.add(Combine(fn), (a, b))``).  ``preserves_real=True`` declares that
+    ``fn`` maps all-real inputs to a real output."""
+
+    def __init__(self, fn: Callable, preserves_real: bool = False):
+        self.fn = fn
+        self.preserves_real = bool(preserves_real)
+
+    def bind(self, sig: StreamSig) -> _BoundCombine:
+        return self.bind_multi((sig,))
+
+    def bind_multi(self, sigs) -> _BoundCombine:
+        return _BoundCombine(sigs, self.fn, self.preserves_real)
 
 
 def _inner_block(chunk_len: int) -> int:

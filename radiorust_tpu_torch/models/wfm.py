@@ -7,7 +7,8 @@
       -> Filter low-pass +-100 kHz
       -> FmDemod (deviation 150 kHz)
       -> Filter rectangular: deemphasis 50 us, DC block, 20 Hz - 16 kHz
-         (or both fused: FmDemodFilter)
+         (or both fused: FmDemodFilter; or all three from the low-pass on:
+         FilterDemodFilter; or the deemphasis folded into the next FIR)
       -> Downsampler to 48 kHz (bw 40 kHz)
       -> GainControl (volume)
 """
@@ -21,6 +22,7 @@ from ..blocks.filters import Filter, deemphasis_factor
 from ..blocks.modulation import FmDemod
 from ..blocks.resampling import Downsampler
 from ..blocks.transform import FreqShifter, GainControl
+from ..windowing import Rectangular
 
 __all__ = ["wfm_receiver", "WFM_INPUT_RATE", "WFM_INPUT_CHUNK",
            "WFM_AUDIO_RATE", "WFM_AUDIO_CHUNK"]
@@ -53,13 +55,12 @@ def wfm_receiver(tune_shift: float = 0.0, volume: float = 1.0,
 
     ``fuse_frontend`` replaces FreqShifter + Downsampler with
     MixerDecimator; ``fuse_demod`` replaces FmDemod + the deemphasis
-    Filter with FmDemodFilter; ``filter_ir_len`` sets both overlap-save
-    filters' IR length apart from the mid-chain chunk.  ``fuse_mid`` and
-    ``fuse_deemphasis`` are not ported yet and raise.
+    Filter with FmDemodFilter; ``fuse_mid`` replaces the channel Filter,
+    FmDemod and the deemphasis Filter with FilterDemodFilter;
+    ``fuse_deemphasis`` folds the deemphasis filter's impulse response into
+    the final decimating FIR.  ``filter_ir_len`` sets the overlap-save
+    filters' IR length apart from the mid-chain chunk.
     """
-    if fuse_mid or fuse_deemphasis:
-        raise NotImplementedError(
-            "fuse_mid and fuse_deemphasis are not ported yet")
     irl = filter_ir_len
     if fuse_frontend:
         from ..blocks.frontend import MixerDecimator
@@ -67,12 +68,20 @@ def wfm_receiver(tune_shift: float = 0.0, volume: float = 1.0,
     else:
         head = [FreqShifter.with_shift(tune_shift),
                 Downsampler(384000.0, 200000.0)]
-    if fuse_demod:
+    tail = [Downsampler(48000.0, 2.0 * 20000.0)]
+    if fuse_mid:
+        from ..blocks.frontend import FilterDemodFilter
+        mid = [FilterDemodFilter(_lowpass_100k, deviation, _deemphasis_band,
+                                 ir_len=irl)]
+    elif fuse_demod:
         from ..blocks.frontend import FmDemodFilter
         mid = [Filter.new(_lowpass_100k, ir_len=irl),
                FmDemodFilter(deviation, _deemphasis_band, ir_len=irl)]
+    elif fuse_deemphasis:
+        mid = [Filter.new(_lowpass_100k, ir_len=irl), FmDemod(deviation)]
+        tail = [Downsampler(48000.0, 2.0 * 20000.0,
+                            prefilter=(_deemphasis_band, Rectangular()))]
     else:
         mid = [Filter.new(_lowpass_100k, ir_len=irl), FmDemod(deviation),
                Filter.new_rectangular(_deemphasis_band, ir_len=irl)]
-    return Chain(*head, *mid, Downsampler(48000.0, 2.0 * 20000.0),
-                 GainControl(volume))
+    return Chain(*head, *mid, *tail, GainControl(volume))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``radiorust_tpu_torch/csrc/`` compile with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at the first kernel launch, into
+``sm_90a`` (one ``nvcc`` per source, all started together) and link into
+one shared library with a plain C interface, loaded with ``ctypes``.  The
+build happens at the first kernel launch, into
 ``build/radiorust_tpu_torch/<hash of the sources>/`` beside the package,
 so a checkout builds everything it runs from its own sources.  Importing
 this module needs no ``nvcc``; a launch without one raises.
@@ -33,8 +34,9 @@ __all__ = ["lib", "check", "stream_handle", "build_dir", "on_cuda",
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2] / "build" / "radiorust_tpu_torch"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +48,10 @@ _SIGNATURES = {
     "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + [_P] * 14
                         + [_I, _I, _I, _P]),
     "rr_demod_filter": [_P] * 11 + [_I] * 3 + [_P] * 13 + [_I, _I, _P],
+    "rr_filter_demod_filter": [_P] * 17 + [_I] * 3 + [_P] * 15 + [_I, _I,
+                                                                  _P],
+    "rr_filter_bank": [_P] * 4 + [_I] * 4 + [_P] * 16 + [_I, _I, _P],
+    "rr_pfb_demod": [_P] * 7 + [_I] * 3 + [_P],
 }
 
 _lib = None
@@ -80,19 +86,36 @@ def _nvcc() -> str:
 def _build(out: Path) -> None:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    srcs = [str(f) for f in _sources() if f.suffix == ".cu"]
-    # Build to a temporary name and rename: a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
+    srcs = [f for f in _sources() if f.suffix == ".cu"]
+    objdir = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        # One nvcc per source, all running at once; then one link.
+        objs = [str(objdir / f"{f.stem}.o") for f in srcs]
+        cmds = [[nvcc, *_NVCC_FLAGS, "-c", "-o", o, str(f)]
+                for o, f in zip(objs, srcs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        runs = [(c, *p.communicate(), p.returncode)
+                for c, p in zip(cmds, procs)]
+        # Link to a temporary name and rename: a concurrent process never
+        # loads a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        if not any(rc for *_, rc in runs):
+            link = [nvcc, *_ARCH, "-shared", "-o", tmp, *objs]
+            res = subprocess.run(link, capture_output=True, text=True)
+            runs.append((link, res.stdout, res.stderr, res.returncode))
+        (out.parent / "build.log").write_text("".join(
+            " ".join(c) + "\n" + so + se for c, so, se, _ in runs))
+        failed = [(c, se, rc) for c, _, se, rc in runs if rc]
+        if failed:
+            os.unlink(tmp)
+            c, se, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{se}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
 
 
 def lib() -> ctypes.CDLL:

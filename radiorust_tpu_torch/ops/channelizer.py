@@ -1,0 +1,183 @@
+"""Polyphase filterbank channelizer, with or without a per-channel FM
+demod.
+
+Counterparts of the JAX package's ``ops/channelizer.py`` (plain tensor
+code there too: the branch DFT is a ``torch.matmul``) and
+``ops/pallas_channelizer.py``:
+
+- :func:`pfb_channelize`: the critically sampled M-channel analysis
+  filterbank, a K-tap branch FIR (:func:`branch_fir`) then an M-point DFT
+  across branches (:func:`dft_channels`); channel ``c`` is centred at
+  ``+c * rate / M`` (numpy bin convention);
+- :func:`fused_pfb_demod` of ``fused_pfb_demod``: the same for M = 64,
+  then the quadrature FM demod of every channel against its previous
+  frame, in one pass.  On CUDA it launches the kernel of
+  ``csrc/pfb_demod.cu`` and counts the launch in its ``launches``
+  attribute; on the CPU it runs :func:`fused_pfb_demod_plain`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..math import sinc
+from ..windowing import Kaiser
+from . import _build
+from .filter import _factor_vector
+
+__all__ = ["design_prototype", "branch_fir", "dft_channels",
+           "pfb_channelize", "fused_pfb_demod", "fused_pfb_demod_plain",
+           "pfb_demod_supported", "HIST_FRAMES"]
+
+M = 64            # channels of the fused kernel (kM in csrc/pfb_demod.cu)
+HIST_FRAMES = 2   # warm-up frames recomputed per chunk (continuity + drop)
+_TILE = 32        # frames per block (kTile in csrc/pfb_demod.cu)
+_SMEM_LIMIT = 227 * 1024
+
+
+def design_prototype(num_channels: int, taps_per_branch: int,
+                     kaiser_null_bins: float = 1.3) -> np.ndarray:
+    """Windowed-sinc prototype low-pass of ``M * K`` taps (float64): cutoff
+    at half a channel spacing, Kaiser window, normalised so a tone at a
+    channel centre keeps its amplitude through the branch DFT."""
+    m, k = num_channels, taps_per_branch
+    n = m * k
+    window = Kaiser.with_null_at_bin(kaiser_null_bins * k)
+    x = (np.arange(n, dtype=np.float64) + 0.5) - n / 2.0
+    h = sinc(x / m) * window.relative_value_at(x * 2.0 / n)
+    return (h / np.sum(h)).astype(np.float64)
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_planes(m: int):
+    w = np.exp(-2j * np.pi * np.outer(np.arange(m), np.arange(m)) / m)
+    return (w.real.astype(np.float32), w.imag.astype(np.float32))
+
+
+_device_dft = {}
+
+
+def _dft_tensors(m: int, device):
+    """The DFT planes on ``device``, uploaded once."""
+    key = (m, str(device))
+    if key not in _device_dft:
+        _device_dft[key] = tuple(torch.from_numpy(p).to(device)
+                                 for p in _dft_planes(m))
+    return _device_dft[key]
+
+
+def branch_fir(fr: torch.Tensor, fi: torch.Tensor, taps: torch.Tensor,
+               t_out: int):
+    """K-tap polyphase branch FIR as K shifted multiply-adds: ``fr/fi``
+    [b, T + K - 1, M] frame planes, ``taps`` [K, M]; returns (vr, vi)
+    [b, t_out, M]."""
+    k = taps.shape[0]
+    b, _, m = fr.shape
+    vr = torch.zeros((b, t_out, m), dtype=torch.float32, device=fr.device)
+    vi = torch.zeros_like(vr)
+    for j in range(k):
+        tj = taps[j][None, None, :].to(torch.float32)
+        vr = vr + fr[:, j: j + t_out, :] * tj
+        vi = vi + fi[:, j: j + t_out, :] * tj
+    return vr, vi
+
+
+def dft_channels(vr: torch.Tensor, vi: torch.Tensor, dr: torch.Tensor,
+                 di: torch.Tensor) -> torch.Tensor:
+    """Branch DFT as a complex matrix product: ``vr/vi`` [b, T, M] branch
+    values, ``dr/di`` [M, C] DFT columns; returns complex [b, T, C]."""
+    yr = torch.matmul(vr, dr) - torch.matmul(vi, di)
+    yi = torch.matmul(vr, di) + torch.matmul(vi, dr)
+    return torch.complex(yr, yi)
+
+
+def pfb_channelize(xp: torch.Tensor, taps: torch.Tensor,
+                   num_channels: int) -> torch.Tensor:
+    """Critically sampled analysis filterbank: ``xp`` [batch, hist + n]
+    complex64 with ``hist = (K - 1) * M`` history samples prepended,
+    ``taps`` [K, M] (``taps[k, m] = h[k*M + m]``).  Returns [batch, M,
+    n / M] complex64, one decimated stream per channel."""
+    b = xp.shape[0]
+    k, m = taps.shape
+    total = xp.shape[-1]
+    t_out = total // m - (k - 1)
+    frames = xp.reshape(b, total // m, m)
+    vr, vi = branch_fir(frames.real, frames.imag, taps, t_out)
+    dr, di = _dft_tensors(m, xp.device)
+    y = dft_channels(vr, vi, dr, di)                 # [b, T, M]
+    return y.transpose(1, 2).contiguous()
+
+
+def _smem_bytes(k: int) -> int:
+    return 4 * (2 * (_TILE + k) * M + k * M + 2 * M * M + 2 * (_TILE + 1) * M)
+
+
+def pfb_demod_supported(n: int, num_channels: int,
+                        taps_per_branch: int) -> bool:
+    """Whether the fused kernel takes this geometry: 64 channels, whole
+    frames per chunk, and a block's staged span, taps and DFT within
+    shared memory."""
+    return (num_channels == M and n % M == 0 and n >= M
+            and taps_per_branch >= 1
+            and _smem_bytes(taps_per_branch) <= _SMEM_LIMIT)
+
+
+def fused_pfb_demod_plain(xr, xi, factor, taps):
+    """Plain PyTorch version of :func:`fused_pfb_demod`: :func:`branch_fir`,
+    :func:`dft_channels` (``torch.matmul``) and ``torch.atan2``."""
+    b, total = xr.shape
+    k, m = taps.shape
+    frames = total // m - (k - 1)
+    vr, vi = branch_fir(xr.reshape(b, total // m, m),
+                        xi.reshape(b, total // m, m), taps, frames)
+    dr, di = _dft_tensors(m, xr.device)
+    y = dft_channels(vr, vi, dr, di)                 # [b, T, M]
+    prev = torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], dim=1)
+    pre = y.real * prev.real + y.imag * prev.imag
+    pim = y.imag * prev.real - y.real * prev.imag
+    fac = _factor_vector(factor, b, xr.device)
+    d = torch.atan2(pim, pre) * fac[:, None, None]
+    return d.reshape(b, frames * m)
+
+
+def fused_pfb_demod(xr, xi, factor, taps):
+    """Channelize + demodulate one chunk.
+
+    ``xr/xi``: [batch, (K + 1) * M + n] float32 planes, ``HIST_FRAMES +
+    K - 1`` frames of raw-input history before the n new samples;
+    ``factor``: demod factor, a scalar or [batch]; ``taps``: [K, M]
+    branch-major prototype.  Returns ``d`` [batch, 2 * M + n] float32,
+    frame-major (frame t, channel c at ``t * M + c``); the first
+    ``HIST_FRAMES`` frames are warm-up for the caller to drop (frame 0
+    has no predecessor and demodulates against 0).
+    """
+    b, total = xr.shape
+    k, m = taps.shape
+    if m != M or total % M or total // M - (k - 1) < 1:
+        raise ValueError(f"fused_pfb_demod takes {M} channels and whole "
+                         f"frames; got taps {tuple(taps.shape)}, "
+                         f"{total} samples")
+    if not _build.on_cuda(xr, xi, taps):
+        return fused_pfb_demod_plain(xr, xi, factor, taps)
+    if _smem_bytes(k) > _SMEM_LIMIT:
+        raise ValueError(f"{k} taps per branch: the block's span does not "
+                         f"fit shared memory")
+    dev = xr.device
+    wr, wi = _dft_tensors(M, dev)
+    fac = _factor_vector(factor, b, dev)
+    d = torch.empty((b, total - (k - 1) * M), dtype=torch.float32,
+                    device=dev)
+    ptr = _build.f32_ptr
+    fused_pfb_demod.launches += 1
+    err = _build.lib().rr_pfb_demod(
+        ptr(xr, "xr"), ptr(xi, "xi"), fac.data_ptr(), ptr(taps, "taps"),
+        wr.data_ptr(), wi.data_ptr(), d.data_ptr(), b, total, k,
+        _build.stream_handle(dev))
+    _build.check(err, "fused_pfb_demod")
+    return d
+
+
+fused_pfb_demod.launches = 0

@@ -5,10 +5,16 @@ Counterparts of ``radiorust_tpu/ops/pallas_filter.py``:
 
 - :func:`fused_overlap_save` of ``fused_overlap_save``: one overlap-save
   step on [prev m || cur n] complex planes against a response grid;
+- :func:`fused_filter_bank` of ``fused_filter_bank``: K overlap-save
+  filters of one stream sharing its forward transform, output
+  [batch, K, n];
 - :func:`fused_demod_filter` of ``fused_demod_filter``: quadrature FM
   demod with its continuity state, then the overlap-save filter on the
   real demodulated streams, stream pairs packed as re/im of one
-  transform (exact for a real impulse response).
+  transform (exact for a real impulse response);
+- :func:`fused_filter_demod_filter` of ``fused_filter_demod_filter``:
+  the complex channel filter, then the demod and filter above, carrying
+  the last *filtered* sample.
 
 Layout (as the JAX package's): time t = i2 + n2*i1 and frequency
 k = k1 + n1*k2 on an n1 x n2 grid of the N = m + n point transform, with
@@ -31,9 +37,11 @@ import torch
 
 from . import _build
 
-__all__ = ["kernel_factors", "supported", "response_grid",
-           "fused_overlap_save", "fused_overlap_save_plain",
-           "fused_demod_filter", "fused_demod_filter_plain"]
+__all__ = ["kernel_factors", "supported", "bank_supported",
+           "response_grid", "fused_overlap_save", "fused_overlap_save_plain",
+           "fused_filter_bank", "fused_filter_bank_plain",
+           "fused_demod_filter", "fused_demod_filter_plain",
+           "fused_filter_demod_filter", "fused_filter_demod_filter_plain"]
 
 N2 = 128          # the lane factor of the grid layout
 _MAX_N1 = 768     # a 32-column strip of n1 rows must fit shared memory
@@ -55,12 +63,23 @@ def supported(n: int, m: int = None) -> bool:
     return f is not None and 0 < m and f[0] <= _MAX_N1
 
 
+def bank_supported(n: int, K: int, m: int = None, batch: int = None) -> bool:
+    """Whether the bank kernel takes K bands of n new samples per step
+    against an m-tap history: the transform geometry of :func:`supported`,
+    and (for a known ``batch``) a band scratch of K * batch * (n + m)
+    samples that 32-bit row indices reach."""
+    if K < 1 or not supported(n, m):
+        return False
+    m = n if m is None else m
+    return batch is None or K * batch * (n + m) < 2 ** 31
+
+
 def response_grid(response: torch.Tensor) -> torch.Tensor:
-    """Map a complex response R[N] to the [n1, n2] grid (k = k1 + n1*k2)
-    with the inverse transform's 1/N folded in."""
+    """Map a complex response R[..., N] to the [..., n1, n2] grid
+    (k = k1 + n1*k2) with the inverse transform's 1/N folded in."""
     N = response.shape[-1]
     n1, n2 = kernel_factors(N)
-    g = response.reshape(n2, n1).transpose(0, 1)
+    g = response.reshape(*response.shape[:-1], n2, n1).transpose(-2, -1)
     # Divide re and im apart: torch's complex-by-real division rounds
     # differently from the JAX package's grid.
     return torch.complex(g.real / N, g.imag / N)
@@ -106,14 +125,20 @@ def _check_geometry(n: int, m: int):
                          f"(m + n) / {N2} <= {_MAX_N1})")
 
 
+def _grid_vector(resp_gr, resp_gi) -> torch.Tensor:
+    """Grid planes [..., n1, n2] back to the response vector [..., N] at
+    k = k1 + n1*k2."""
+    g = torch.complex(resp_gr, resp_gi).transpose(-2, -1)
+    return g.reshape(*g.shape[:-2], -1)
+
+
 def fused_overlap_save_plain(prevr, previ, curr, curi, resp_gr, resp_gi):
     """Plain PyTorch version of :func:`fused_overlap_save` (``torch.fft``
     on the whole [prev || cur] buffer)."""
     n = curr.shape[-1]
     z = torch.complex(torch.cat([prevr, curr], dim=-1),
                       torch.cat([previ, curi], dim=-1))
-    # Grid [k1, k2] back to the response vector at k = k1 + n1*k2.
-    g = torch.complex(resp_gr, resp_gi).transpose(0, 1).reshape(-1)
+    g = _grid_vector(resp_gr, resp_gi)
     y = torch.fft.ifft(torch.fft.fft(z) * g, norm="forward")[:, :n]
     return y.real.contiguous(), y.imag.contiguous()
 
@@ -153,6 +178,62 @@ def fused_overlap_save(prevr, previ, curr, curi, resp_gr, resp_gi):
 
 
 fused_overlap_save.launches = 0
+
+
+def fused_filter_bank_plain(prevr, previ, curr, curi, resp_gr, resp_gi):
+    """Plain PyTorch version of :func:`fused_filter_bank` (one
+    ``torch.fft`` forward, K response multiplies, K inverses)."""
+    n = curr.shape[-1]
+    z = torch.complex(torch.cat([prevr, curr], dim=-1),
+                      torch.cat([previ, curi], dim=-1))
+    g = _grid_vector(resp_gr, resp_gi)                  # [K, N]
+    spec = torch.fft.fft(z)[:, None, :] * g[None]       # [b, K, N]
+    y = torch.fft.ifft(spec, norm="forward")[..., :n]
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def fused_filter_bank(prevr, previ, curr, curi, resp_gr, resp_gi):
+    """K overlap-save filters over each stream, sharing its forward
+    transform.
+
+    ``prevr/previ``: [batch, m] history planes; ``curr/curi``: [batch, n]
+    chunk planes; ``resp_gr/gi``: [K, n1, n2] stacked response grids
+    (:func:`response_grid` per band).  Returns (outr, outi) float32
+    [batch, K, n]: band k of stream s at ``out[s, k]``.
+    """
+    b, n = curr.shape
+    m = prevr.shape[1]
+    K = resp_gr.shape[0]
+    tensors = (prevr, previ, curr, curi, resp_gr, resp_gi)
+    if not _build.on_cuda(*tensors):
+        return fused_filter_bank_plain(*tensors)
+    _check_geometry(n, m)
+    if not bank_supported(n, K, m, b):
+        raise ValueError(f"filter bank K={K}, batch={b}, N={n + m} is "
+                         f"past the kernel's 32-bit row indices")
+    dev = curr.device
+    N = m + n
+    n1, ho, consts = _constants(N, n, dev)
+    ptr = _build.f32_ptr
+    fr, fi = (torch.empty((b, N), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    br, bi = (torch.empty((K * b, N), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    outr, outi = (torch.empty((b, K, n), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    names = ("prevr", "previ", "curr", "curi")
+    fused_filter_bank.launches += 1
+    err = _build.lib().rr_filter_bank(
+        *(ptr(t, nm) for t, nm in zip(tensors, names)), m, n, b, K,
+        *(c.data_ptr() for c in consts),
+        ptr(resp_gr, "resp_gr"), ptr(resp_gi, "resp_gi"),
+        fr.data_ptr(), fi.data_ptr(), br.data_ptr(), bi.data_ptr(),
+        outr.data_ptr(), outi.data_ptr(), n1, ho, _build.stream_handle(dev))
+    _build.check(err, "fused_filter_bank")
+    return outr, outi
+
+
+fused_filter_bank.launches = 0
 
 
 def _factor_vector(factor, b: int, device) -> torch.Tensor:
@@ -225,3 +306,74 @@ def fused_demod_filter(curr, curi, prev_last_r, prev_last_i, prevd,
 
 
 fused_demod_filter.launches = 0
+
+
+def fused_filter_demod_filter_plain(prevr, previ, curr, curi, prev_last_r,
+                                    prev_last_i, prevd, last_out, have_prev,
+                                    r1_gr, r1_gi, r2_gr, r2_gi, factor):
+    """Plain PyTorch version of :func:`fused_filter_demod_filter`: the
+    plain channel filter, then the plain demod filter on its output."""
+    f1r, f1i = fused_overlap_save_plain(prevr, previ, curr, curi, r1_gr,
+                                        r1_gi)
+    y, d = fused_demod_filter_plain(f1r, f1i, prev_last_r, prev_last_i,
+                                    prevd, last_out, have_prev, r2_gr, r2_gi,
+                                    factor)
+    return y, d, f1r[:, -1].contiguous(), f1i[:, -1].contiguous()
+
+
+def fused_filter_demod_filter(prevr, previ, curr, curi, prev_last_r,
+                              prev_last_i, prevd, last_out, have_prev,
+                              r1_gr, r1_gi, r2_gr, r2_gi, factor):
+    """Channel filter + FM demod + deemphasis filter of one chunk step.
+
+    ``prevr/previ``: [batch, m] history planes of the complex input;
+    ``curr/curi``: [batch, n] chunk planes; ``prev_last_*``: [batch] last
+    *filtered* sample of the previous step (returned by the previous
+    call); ``prevd``: [batch, m] demodulated history (the same m);
+    ``last_out``/``have_prev``: [batch] demod continuity (have_prev as a
+    0/1 float); ``r1_*``/``r2_*``: response grids of the channel and the
+    deemphasis filter (the latter from a real impulse response);
+    ``factor``: demod factor, a scalar or [batch].  Returns (y [batch, n],
+    d [batch, n], flr, fli [batch] last filtered sample).  The batch must
+    be even.
+    """
+    b, n = curr.shape
+    m = prevr.shape[1]
+    if prevd.shape[1] != m:
+        raise ValueError("merged kernel requires equal channel/deemphasis "
+                         "history lengths")
+    if b % 2:
+        raise ValueError(f"batch {b} must be even (stream pairs share a "
+                         f"transform)")
+    tensors = (prevr, previ, curr, curi, prev_last_r, prev_last_i, prevd,
+               last_out, have_prev, r1_gr, r1_gi, r2_gr, r2_gi)
+    if not _build.on_cuda(*tensors):
+        return fused_filter_demod_filter_plain(*tensors, factor)
+    _check_geometry(n, m)
+    dev = curr.device
+    N = m + n
+    n1, ho, consts = _constants(N, n, dev)
+    fac = _factor_vector(factor, b, dev)
+    names = ("prevr", "previ", "curr", "curi", "prev_last_r", "prev_last_i",
+             "prevd", "last_out", "have_prev")
+    ptrs = [_build.f32_ptr(t, nm) for t, nm in zip(tensors, names)]
+    grids = [_build.f32_ptr(t, "response grid") for t in tensors[9:]]
+    fr, fi, dout, y = (torch.empty((b, n), dtype=torch.float32, device=dev)
+                       for _ in range(4))
+    zr, zi = (torch.empty((b // 2, N), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    scr_r, scr_i = (torch.empty((b, N), dtype=torch.float32, device=dev)
+                    for _ in range(2))
+    flr, fli = (torch.empty((b,), dtype=torch.float32, device=dev)
+                for _ in range(2))
+    fused_filter_demod_filter.launches += 1
+    err = _build.lib().rr_filter_demod_filter(
+        *ptrs, fac.data_ptr(), fr.data_ptr(), fi.data_ptr(), dout.data_ptr(),
+        zr.data_ptr(), zi.data_ptr(), flr.data_ptr(), fli.data_ptr(), b, n,
+        m, *(c.data_ptr() for c in consts), *grids, scr_r.data_ptr(),
+        scr_i.data_ptr(), y.data_ptr(), n1, ho, _build.stream_handle(dev))
+    _build.check(err, "fused_filter_demod_filter")
+    return y, dout, flr, fli
+
+
+fused_filter_demod_filter.launches = 0

@@ -14,18 +14,25 @@
 
 from .blocks.base import (Block, BoundBlock, Chain, StreamSig, no_reset,
                           scan)
-from .blocks.filters import Filter, deemphasis_factor
-from .blocks.frontend import FmDemodFilter, MixerDecimator
+from .blocks.channelize import Channelizer, ChannelizerDemod
+from .blocks.filters import Filter, FilterBank, deemphasis_factor
+from .blocks.frontend import FilterDemodFilter, FmDemodFilter, MixerDecimator
+from .blocks.graph import BoundGraph, Graph, NodeRef, graph_scan
 from .blocks.modulation import FmDemod
 from .blocks.resampling import Downsampler
-from .blocks.transform import FreqShifter, GainControl
+from .blocks.transform import (Combine, FreqShifter, GainControl, MapSample,
+                               Nop)
 from .convert import tree_to_numpy, tree_to_torch
 from .windowing import CustomWindow, Kaiser, Rectangular, Window
 
 __all__ = [
     "Block", "BoundBlock", "Chain", "StreamSig", "no_reset", "scan",
-    "Filter", "deemphasis_factor", "FmDemodFilter", "MixerDecimator",
+    "Channelizer", "ChannelizerDemod",
+    "Filter", "FilterBank", "deemphasis_factor",
+    "FilterDemodFilter", "FmDemodFilter", "MixerDecimator",
+    "Graph", "BoundGraph", "NodeRef", "graph_scan",
     "FmDemod", "Downsampler", "FreqShifter", "GainControl",
+    "MapSample", "Nop", "Combine",
     "tree_to_numpy", "tree_to_torch",
     "CustomWindow", "Kaiser", "Rectangular", "Window",
 ]

@@ -112,7 +112,70 @@ def test_wfm_port_fused_equals_unfused():
 
 
 def test_wfm_fuse_mid_not_ported():
-    with pytest.raises(NotImplementedError):
-        wfm_receiver(fuse_mid=True)
-    with pytest.raises(NotImplementedError):
-        wfm_receiver(fuse_deemphasis=True)
+    # Both flags are ported now: they bind to the fused blocks.
+    sig = StreamSig(2, 24576, RATE)
+    mid = wfm_receiver(fuse_mid=True, filter_ir_len=6144).bind(sig)
+    assert [type(b).__name__ for b in mid.blocks] == [
+        "_BoundFreqShifter", "_BoundResampler", "_BoundFilterDemodFilter",
+        "_BoundResampler", "_BoundGain"]
+    assert mid.valid_from == 2
+    deemph = wfm_receiver(fuse_deemphasis=True).bind(sig)
+    assert len(deemph.blocks) == 6
+    assert deemph.blocks[4].plan.kernel.shape == (1, 288 + 9216 - 1 + 7)
+
+
+FUSE_MID = dict(BENCH, fuse_demod=False, fuse_mid=True)
+
+
+def test_wfm_fuse_mid_matches_jax_and_unfused():
+    sig = (2, 24576, RATE)
+    xs = fm_tones([900.0, 2100.0], 4, sig[1], -100e3)
+    jb, _, want = run_jax(FUSE_MID, sig, xs)
+    tb, _, got = run_port(FUSE_MID, sig, xs, params=jb.params)
+    _, _, unfused = run_port(dict(FUSE_MID, fuse_mid=False), sig, xs)
+    v = tb.valid_from
+    assert v == jb.valid_from == 2
+    np.testing.assert_allclose(got[v:], want[v:], atol=ATOL)
+    np.testing.assert_allclose(got[v:], unfused[v:], atol=ATOL)
+    assert np.abs(want[v:]).max() > 0.1
+
+
+def test_wfm_fuse_mid_state_handoff_and_update():
+    sig = (2, 24576, RATE)
+    xs = fm_tones([1000.0, 3000.0], 4, sig[1], -100e3)
+    _, _, want = run_jax(FUSE_MID, sig, xs)
+    _, jstate, _ = run_jax(FUSE_MID, sig, xs[:2])
+    tb, tstate, got = run_port(FUSE_MID, sig, xs[2:], state=jstate)
+    np.testing.assert_allclose(got, want[2:], atol=ATOL)
+    assert set(tree_to_numpy(tstate)[1]) == {
+        "prev", "plr", "pli", "prevd", "last_out", "have_prev"}
+    # update_filter_params redesigns the channel response only, as JAX's.
+    from radiorust_tpu.models.wfm import _lowpass_100k
+    narrow = lambda bins, freqs: np.where(np.abs(freqs) <= 80000.0, 1 + 0j,
+                                          0j)
+    jb = jwfm_receiver(**FUSE_MID).bind(JSig(*sig))
+    want_p = jb.blocks[1].update_filter_params(narrow)
+    got_p = tb.blocks[1].update_filter_params(narrow)
+    for k in ("response1", "response2", "factor"):
+        np.testing.assert_array_equal(got_p[k], want_p[k])
+    assert not np.array_equal(got_p["response1"],
+                              tb.blocks[1].update_filter_params(
+                                  _lowpass_100k)["response1"])
+
+
+def test_wfm_fuse_deemphasis_matches_unfused_and_jax():
+    sig = (1, 16384, RATE)
+    xs = fm_tones([1000.0], 4, sig[1])
+    _, _, plain = run_port({}, sig, xs)
+    jb, _, want = run_jax(dict(fuse_deemphasis=True), sig, xs)
+    tb, _, got = run_port(dict(fuse_deemphasis=True), sig, xs,
+                          params=jb.params)
+    np.testing.assert_array_equal(tb.blocks[4].plan.kernel,
+                                  jb.blocks[4].plan.kernel)
+    np.testing.assert_allclose(got[1:], plain[1:], atol=2e-4)
+    # Across packages from valid_from + 1: chunk 1's 6438-tap decimation
+    # window still reaches into chunk 0's demod of the channel filter's
+    # warm-up, which is chaotic in the last bits.
+    v = tb.valid_from
+    assert v == jb.valid_from == 1
+    np.testing.assert_allclose(got[v + 1:], want[v + 1:], atol=ATOL)
