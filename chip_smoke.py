@@ -6,12 +6,13 @@
 1. Prints the card (name, power limit), the torch and CUDA versions, and
    turns TF32 off.
 2. Builds the port's CUDA kernels from ``radiorust_tpu_torch/csrc`` (at
-   first use, one nvcc per source) and holds each of the seven kernels
+   first use, one nvcc per source) and holds each of the nine kernels
    against its plain PyTorch version on the same CUDA tensors at the
-   shapes of the path that runs it (and #1 at the ``fuse_deemphasis``
-   plan too).
-3. Drives four paths, 16 chunks each, with every launch counter set to 0
-   just before and read just after, and checks that each kernel of the
+   shapes of the path that runs it (#1 also at the ``fuse_deemphasis``
+   and 256k -> 32k plans, #3 and #4 also at the geometries of paths E-G;
+   #9, which no block calls, at path F's AGC shape).
+3. Drives seven paths, 16 chunks each, with every launch counter set to
+   0 just before and read just after, and checks that each kernel of the
    path was launched, that the output is finite and right, and that the
    first streams equal the same path run on CPU tensors:
 
@@ -25,9 +26,22 @@
       and R apart by more than 30 dB, their level ratio within 10% of
       design, the pilot's median magnitude above 0.05;
    D. ``channelized_receiver(fuse=True)`` at ``StreamSig(4, 65536,
-      16.384e6)``: FM tones in four channels; each peaks at its tone.
+      16.384e6)``: FM tones in four channels; each peaks at its tone;
+   E. ``morse_audio_chain()`` at ``StreamSig(64, 4096, 48000)`` and
+      ``morse_rf_chain()`` at ``StreamSig(64, 4096, 128000)``: keyer
+      envelopes; the audio peaks at 700 Hz and follows the keying, the
+      slew stage steps at most ``slew_rate / rate``, the RF has unit
+      magnitude and demodulates to 700 Hz;
+   F. ``am_receiver(tune_shift=-30e3, agc=True)`` at ``StreamSig(64,
+      8192, 256000)``: AM stations with a 6 dB fade halfway; each peaks
+      at its tone and the AGC holds the level within 15%;
+   G. ``isb_receiver(tune_shift=-30e3, agc=True)`` at ``{"iq":
+      StreamSig(64, 8192, 256000)}``: a tone on each sideband; each
+      output peaks at its own tone, the other below 0.02 of it.
 4. Times each path and each kernel beside its plain version with CUDA
-   events; ``--profile`` adds each path's device time by kernel
+   events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
+   repetitions), and ``AgcControl``'s associative scan beside #9 at path
+   F's shape; ``--profile`` adds each path's device time by kernel
    (torch.profiler).
 
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -64,6 +78,18 @@ SEPARATION_DB = 30.0  # stereo: each ear over the other's tone
 LEVEL_REL = 0.10      # stereo: L/R level ratio vs design
 PILOT_MIN = 0.05      # stereo: median pilot magnitude
 F_L, F_R, A_L, A_R = 1000.0, 2500.0, 0.25, 0.15
+MORSE_CHUNK, MORSE_RATE, MORSE_RF_RATE = 4096, 48000.0, 128000.0
+MORSE_TONE = 700.0
+MESSAGES = ("CQ CQ DE K1ABC K", "TEST DE W1AW", "QRZ? DE DL1XYZ",
+            "<SK> 73 DE G4ABC")
+AN_CHUNK, AN_RATE, AN_OFFSET = 8192, 256000.0, 30000.0
+SLEW_ATOL = 1e-5      # #8 kernel vs plain, max |diff| (test_pallas_scan.py)
+AGC_ATOL, GAIN_ATOL = 2e-4, 2e-3   # #9 outputs and carried gain, the same
+UNIT_ATOL = 1e-5      # morse RF: | |y| - 1 |
+KEYING_RATIO = 10.0   # morse audio: key-down level over key-up level
+FADE_REL = 0.15       # AM with AGC: RMS after a 6 dB fade vs before
+ISB_TONE_HZ = 40.0    # ISB: each sideband peaks within this of its tone
+ISB_REJECT = 0.02     # ISB: the other sideband's tone over the wanted one
 
 
 def card() -> str:
@@ -74,9 +100,9 @@ def card() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean ms per call of ``fn`` on the current stream, after warm-up."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -145,6 +171,69 @@ def channel_fm(t_chunks, streams, n, deviation=16000.0):
     return np.repeat(x, streams, axis=1)
 
 
+def keyer_input(streams, rate):
+    """[T, streams, MORSE_CHUNK] complex64 keyer envelopes: MESSAGES in
+    turn at 30 down to 15 wpm (PARIS), one keyer per stream."""
+    from radiorust_tpu_torch.blocks.morse import Keyer, Speed
+    return np.stack([
+        Keyer(MORSE_CHUNK, rate, Speed.from_paris_wpm(30 - s % 16),
+              MESSAGES[s % len(MESSAGES)]).envelope(T)
+        for s in range(streams)], axis=1)
+
+
+def am_tones(streams):
+    """Audio tone (Hz) of AM station s: 300 to 4080 Hz."""
+    return 300.0 + 60.0 * np.arange(streams)
+
+
+def isb_tones(streams):
+    """(upper, lower) sideband tones (Hz) of stream s, 155 Hz or more
+    apart."""
+    s = np.arange(streams)
+    return 500.0 + 15.0 * s, 1600.0 + 20.0 * s
+
+
+def am_stations(streams):
+    """[T, streams, AN_CHUNK] complex64: AM (modulation 0.5) of each
+    stream's tone on a carrier at AN_OFFSET Hz whose amplitude drops 6 dB
+    (0.8 to 0.4) halfway, synthesized in float64."""
+    ts = np.arange(T * AN_CHUNK) / AN_RATE
+    car = np.exp(2j * np.pi * AN_OFFSET * ts)
+    fade = np.where(np.arange(T * AN_CHUNK) < T * AN_CHUNK // 2, 0.8, 0.4)
+    out = np.empty((T, streams, AN_CHUNK), np.complex64)
+    for s, f in enumerate(am_tones(streams)):
+        x = fade * (1.0 + 0.5 * np.sin(2 * np.pi * f * ts)) * car
+        out[:, s, :] = x.astype(np.complex64).reshape(T, AN_CHUNK)
+    return out
+
+
+def isb_signal(streams):
+    """[T, streams, AN_CHUNK] complex64: each stream's upper tone above
+    and lower tone below a suppressed carrier at AN_OFFSET Hz, 0.5
+    each."""
+    ts = np.arange(T * AN_CHUNK) / AN_RATE
+    out = np.empty((T, streams, AN_CHUNK), np.complex64)
+    for s, (fu, fl) in enumerate(zip(*isb_tones(streams))):
+        x = 0.5 * (np.exp(2j * np.pi * (AN_OFFSET + fu) * ts)
+                   + np.exp(2j * np.pi * (AN_OFFSET - fl) * ts))
+        out[:, s, :] = x.astype(np.complex64).reshape(T, AN_CHUNK)
+    return out
+
+
+def level_at(signal, rate, f):
+    """Windowed spectrum peak within 2 bins of ``f``."""
+    n = len(signal)
+    spec = np.abs(np.fft.rfft(signal * np.hanning(n)))
+    i = int(round(f * n / rate))
+    return float(spec[max(i - 2, 0): i + 3].max())
+
+
+def held(mask, width):
+    """Where ``mask`` holds over the whole window of +-``width`` samples."""
+    k = np.ones(2 * width + 1)
+    return np.convolve(mask.astype(np.float64), k, "same") >= len(k) - 0.5
+
+
 def peak_hz(signal, rate):
     spec = np.abs(np.fft.rfft(signal * np.hanning(len(signal))))
     return np.fft.rfftfreq(len(signal), 1 / rate)[np.argmax(spec)]
@@ -199,17 +288,22 @@ def main() -> None:
     if not (HERE / "radiorust_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: radiorust_tpu_torch is not beside this script")
     sys.path.insert(0, str(HERE))
-    from radiorust_tpu_torch.blocks.base import StreamSig, scan
-    from radiorust_tpu_torch.blocks.filters import deemphasis_factor
+    from radiorust_tpu_torch.blocks.base import Chain, StreamSig, scan
+    from radiorust_tpu_torch.blocks.filters import (SlewRateLimiter,
+                                                    deemphasis_factor)
     from radiorust_tpu_torch.blocks.graph import graph_scan
     from radiorust_tpu_torch.convert import tree_to_torch
+    from radiorust_tpu_torch.models.analog import am_receiver, isb_receiver
     from radiorust_tpu_torch.models.channelizer import channelized_receiver
+    from radiorust_tpu_torch.models.morse_tx import (morse_audio_chain,
+                                                     morse_rf_chain)
     from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
     from radiorust_tpu_torch.models.wfm import wfm_receiver
     from radiorust_tpu_torch.ops import _build
     from radiorust_tpu_torch.ops import channelizer as och
     from radiorust_tpu_torch.ops import filter as ofl
     from radiorust_tpu_torch.ops import frontend as ofe
+    from radiorust_tpu_torch.ops import scan as osc
 
     t_start = time.perf_counter()
     name = card()
@@ -248,23 +342,39 @@ def main() -> None:
     bound_st = wfm_stereo_receiver(**STEREO).bind({"iq": sig})
     ch_sig = StreamSig(CH_BATCH, CH_CHUNK, CH_RATE)
     bound_ch = channelized_receiver(fuse=True).bind(ch_sig)
+    bound_e = morse_audio_chain().bind(StreamSig(BATCH, MORSE_CHUNK,
+                                                 MORSE_RATE))
+    bound_erf = morse_rf_chain().bind(StreamSig(BATCH, MORSE_CHUNK,
+                                                MORSE_RF_RATE))
+    an_sig = StreamSig(BATCH, AN_CHUNK, AN_RATE)
+    bound_f = am_receiver(tune_shift=-AN_OFFSET, agc=True).bind(an_sig)
+    bound_g = isb_receiver(tune_shift=-AN_OFFSET, agc=True).bind(
+        {"iq": an_sig})
     kernels = []
 
     def check(name, source, replaces, bound_, kernel, plain, args,
-              outputs=None, record=True):
+              outputs=None, record=True, absolute=False,
+              plain_timing=(3, 20)):
+        """Kernel vs plain on the same CUDA tensors: max |diff| /
+        max |ref| within ``bound_`` (max |diff| if ``absolute``);
+        ``plain_timing`` = (warm-up calls, timed calls) of the plain
+        version."""
         got = kernel(*args)
         want = plain(*args)
         got = got if outputs is None else outputs(got)
         want = want if outputs is None else outputs(want)
         abs_err, rel = compare(got, want)
         ms = cuda_ms(lambda: kernel(*args))
-        plain_ms = cuda_ms(lambda: plain(*args))
+        warmup, reps = plain_timing
+        plain_ms = cuda_ms(lambda: plain(*args), reps=reps, warmup=warmup)
+        err, kind = (abs_err, "max|diff|") if absolute else (rel, "rel")
         print(f"{name}: max|diff|={abs_err:.3e} max|diff|/max|ref|="
-              f"{rel:.3e} (bound {bound_:g}); kernel {ms * 1e3:.1f} us, "
-              f"plain {plain_ms * 1e3:.1f} us per call {tag}")
-        if not rel <= bound_:
+              f"{rel:.3e} (bound {bound_:g} on {kind}); kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us per call "
+              f"{tag}")
+        if not err <= bound_:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version ({rel:.3e} > {bound_:g})")
+                                 f"version ({err:.3e} > {bound_:g})")
         if record:
             kernels.append(dict(name=name, route="cuda", source=source,
                                 replaces=replaces, max_abs_err=abs_err,
@@ -363,12 +473,75 @@ def main() -> None:
           outputs=occupied_frames)
     if not bool(torch.isfinite(och.fused_pfb_demod(*ch_args)).all()):
         raise AssertionError("fused_pfb_demod: non-finite output")
+
+    # #8 at path E's shape, both forms; the rsqrt form is the block's.
+    # Random inputs slew at every sample, the longest run of the clamp.
+    md = torch.tensor(np.float32(100.0) / np.float32(MORSE_RATE),
+                      device=dev)
+    slew_args = (randn(BATCH, MORSE_CHUNK), randn(BATCH, MORSE_CHUNK),
+                 randn(BATCH), randn(BATCH), md)
+    for rsqrt in (False, True):
+        check("slew_scan" if rsqrt else "slew_scan, sqrt/divide form",
+              "radiorust_tpu_torch/csrc/scan.cu",
+              "radiorust_tpu/ops/pallas_scan.py:191", SLEW_ATOL,
+              lambda *a, r=rsqrt: osc.slew_scan(*a, rsqrt=r),
+              lambda *a, r=rsqrt: osc.slew_scan_plain(*a, rsqrt=r),
+              slew_args, record=rsqrt, absolute=True, plain_timing=(1, 3))
+
+    # #9 at path F's AGC shape, in the loop's contracting regime (rate *
+    # |x| well below 2), as the JAX package's kernel test feeds it.  The
+    # knobs are device scalars, as a block's params are: Python floats
+    # would time a host-to-device copy per call.
+    n_aud = bound_f.out_sig.chunk_len
+    agc_args = (0.2 * randn(BATCH, n_aud), 0.2 * randn(BATCH, n_aud),
+                torch.ones(BATCH, device=dev),
+                *(torch.tensor(v, device=dev) for v in (5e-3, 1.0, 100.0)))
+    check("agc_scan", "radiorust_tpu_torch/csrc/scan.cu",
+          "radiorust_tpu/ops/pallas_scan.py:216", AGC_ATOL,
+          osc.agc_scan, osc.agc_scan_plain, agc_args,
+          outputs=lambda r: r[:2], absolute=True, plain_timing=(1, 3))
+    gain_err = float((osc.agc_scan(*agc_args)[2]
+                      - osc.agc_scan_plain(*agc_args)[2]).abs().max())
+    print(f"agc_scan carried gain: max|diff|={gain_err:.3e} "
+          f"(bound {GAIN_ATOL:g})")
+    if not gain_err <= GAIN_ATOL:
+        raise AssertionError("agc_scan: carried gain disagrees")
+
+    # #3, #4 and #1 at the geometries of paths E-G.
+    filt_e = bound_e.blocks[1]
+    filt_f = bound_f.blocks[3]       # pair-packed: two real streams each
+    bank_g = next(b for b in bound_g.bound
+                  if type(b).__name__ == "_BoundFilterBank")
+    for label, filt, rows in (("E", filt_e, BATCH), ("F", filt_f, BATCH // 2)):
+        m, n = filt.ir_len, filt.in_sig.chunk_len
+        check(f"fused_overlap_save at path {label}'s geometry (m = n = {n}, "
+              f"n1 = {(m + n) // 128}, batch {rows})", "", "", FILTER_BOUND,
+              ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
+              (randn(rows, m), randn(rows, m), randn(rows, n),
+               randn(rows, n), *grid_planes(filt.params["response"])),
+              record=False)
+    m, n = bank_g.ir_len, bank_g.in_sig.chunk_len
+    check(f"fused_filter_bank at path G's geometry (K = "
+          f"{bank_g.num_outputs}, N = {m + n})", "", "", FILTER_BOUND,
+          ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
+          (randn(BATCH, m), randn(BATCH, m), randn(BATCH, n),
+           randn(BATCH, n), *grid_planes(bank_g.params["responses"])),
+          record=False)
+    aplan = bound_f.blocks[1].plan
+    check(f"decimate at the 256k -> 32k plan ({aplan.kernel.shape[1]} taps, "
+          f"{aplan.p}:{aplan.q}, two planes)", "", "", FIR_BOUND,
+          ofe.decimate, ofe.decimate_plain,
+          ((randn(BATCH, AN_CHUNK), randn(BATCH, AN_CHUNK)),
+           (randn(BATCH, aplan.hist), randn(BATCH, aplan.hist)),
+           torch.from_numpy(aplan.kernel).to(dev), aplan.p, aplan.q),
+          outputs=flat, record=False)
     t0 = phase("kernel checks", t0)
 
     # -- the paths ------------------------------------------------------------
     wrappers = [ofe.decimate, ofe.fused_mix_decimate, ofl.fused_overlap_save,
                 ofl.fused_filter_bank, ofl.fused_demod_filter,
-                ofl.fused_filter_demod_filter, och.fused_pfb_demod]
+                ofl.fused_filter_demod_filter, och.fused_pfb_demod,
+                osc.slew_scan, osc.agc_scan]
 
     def drive(label, run, want):
         """Run a path with every launch counter at 0 just before and read
@@ -522,13 +695,200 @@ def main() -> None:
           CH_BATCH * CH_CHUNK)
     t0 = phase("path D", t0)
 
+    # Path E: the morse transmit chains on keyer envelopes.
+    def morse_path(label, maker, rate):
+        xs_host = keyer_input(BATCH, rate)
+        bound_ = maker().bind(StreamSig(BATCH, MORSE_CHUNK, rate))
+        xs = torch.from_numpy(xs_host).to(dev)
+        params = tree_to_torch(bound_.params, dev)
+        state0 = tree_to_torch(bound_.init_state(), dev)
+        (_, ys), launches = drive(
+            label, lambda: scan(bound_, params, state0, xs),
+            [osc.slew_scan, ofl.fused_overlap_save])
+        assert ys.shape == (T, BATCH, MORSE_CHUNK), ys.shape
+        finite(label, [ys])
+        v = bound_.valid_from
+        small = maker().bind(StreamSig(2, MORSE_CHUNK, rate))
+        _, ys_cpu = scan(small, tree_to_torch(small.params, "cpu"),
+                         tree_to_torch(small.init_state(), "cpu"),
+                         torch.from_numpy(xs_host[:v + 4, :2]))
+        ys_host = ys.cpu().numpy()
+        vs_cpu(label, ys_host[v:v + 4, :2], ys_cpu.numpy()[v:], CPU_ATOL)
+        timed(label, lambda: scan(bound_, params, state0, xs),
+              BATCH * MORSE_CHUNK)
+        return xs_host, ys_host, v, launches
+
+    key_e, ys_e, v, launches_e = morse_path("E audio", morse_audio_chain,
+                                            MORSE_RATE)
+    # The 100 Hz low-pass has a linear-phase impulse response of ir_len =
+    # chunk taps centred at chunk / 2: the output lags the keying by that.
+    lag, edge = MORSE_CHUNK // 2, 1200
+    for s in (0, 1, BATCH - 1):
+        peak = peak_hz(ys_e[v:, s].real.reshape(-1), MORSE_RATE)
+        key = key_e[:, s].real.reshape(-1)
+        lagged = np.concatenate([np.zeros(lag), key[:-lag]])
+        mag = np.abs(ys_e[:, s].reshape(-1))
+        down, up = held(lagged > 0.5, edge), held(lagged < 0.5, edge)
+        down[:v * MORSE_CHUNK] = up[:v * MORSE_CHUNK] = False
+        on, off = float(mag[down].mean()), float(mag[up].mean())
+        print(f"path E audio stream {s}: peak {peak:.1f} Hz (tone "
+              f"{MORSE_TONE:g}); key-down level {on:.4f} over "
+              f"{int(down.sum())} samples, key-up {off:.2e} over "
+              f"{int(up.sum())}")
+        if abs(peak - MORSE_TONE) > TONE_HZ:
+            raise AssertionError(f"path E audio stream {s}: peak {peak} Hz")
+        if not (down.any() and up.any() and on > KEYING_RATIO * off):
+            raise AssertionError(f"path E audio stream {s}: the output "
+                                 f"does not follow the keying")
+    # The slew stage alone: no step exceeds slew_rate / rate (beyond the
+    # rounding of the float32 outputs, under 1e-6 at |y| <= 1).
+    slew = Chain(SlewRateLimiter(100.0)).bind(
+        StreamSig(BATCH, MORSE_CHUNK, MORSE_RATE))
+    _, ys_slew = scan(slew, tree_to_torch(slew.params, dev),
+                      tree_to_torch(slew.init_state(), dev),
+                      torch.from_numpy(key_e).to(dev))
+    y = ys_slew.cpu().numpy().transpose(1, 0, 2).reshape(BATCH, -1)
+    steps = np.abs(np.diff(y, axis=1, prepend=np.zeros((BATCH, 1),
+                                                       np.complex64)))
+    max_diff = float(md)
+    print(f"path E slew stage: largest step {steps.max():.6e}, limit "
+          f"{max_diff:.6e}")
+    if not max_diff * (1 - 1e-3) <= steps.max() <= max_diff + 1e-6:
+        raise AssertionError("path E: the slew stage steps past its limit "
+                             "or never reaches it")
+
+    _, ys_rf, v, launches_erf = morse_path("E rf", morse_rf_chain,
+                                           MORSE_RF_RATE)
+    unit = float(np.abs(np.abs(ys_rf) - 1.0).max())
+    print(f"path E rf: max | |y| - 1 | = {unit:.3e} (bound {UNIT_ATOL:g})")
+    if not unit <= UNIT_ATOL:
+        raise AssertionError("path E rf: not of unit magnitude")
+    for s in (0, 1, BATCH - 1):
+        y = ys_rf[v:, s].reshape(-1).astype(np.complex128)
+        peak = peak_hz(np.angle(y[1:] * np.conj(y[:-1])), MORSE_RF_RATE)
+        print(f"path E rf stream {s}: demodulated peak {peak:.1f} Hz")
+        if abs(peak - MORSE_TONE) > TONE_HZ:
+            raise AssertionError(f"path E rf stream {s}: peak {peak} Hz")
+    t0 = phase("path E", t0)
+
+    # Path F: the AM receiver with AGC.
+    audio_rate = bound_f.out_sig.sample_rate
+    xs_host = am_stations(BATCH)
+    xs = torch.from_numpy(xs_host).to(dev)
+    params = tree_to_torch(bound_f.params, dev)
+    state0 = tree_to_torch(bound_f.init_state(), dev)
+    (_, ys), launches_f = drive(
+        "F", lambda: scan(bound_f, params, state0, xs),
+        [ofe.decimate, ofl.fused_overlap_save])
+    assert ys.shape == (T, BATCH, n_aud), ys.shape
+    finite("F", [ys])
+    v = bound_f.valid_from
+    out = ys.cpu().numpy().real
+    for s in (0, 1, BATCH - 1):
+        tone = am_tones(BATCH)[s]
+        peak = peak_hz(out[v:, s].reshape(-1), audio_rate)
+        flat_s = out[:, s].reshape(-1)
+        half = len(flat_s) // 2
+        before = np.sqrt(np.mean(flat_s[half - 4096:half] ** 2))
+        after = np.sqrt(np.mean(flat_s[-4096:] ** 2))
+        print(f"path F stream {s}: tone {tone:.1f} Hz, peak {peak:.1f} Hz; "
+              f"RMS {before:.4f} before the 6 dB fade, {after:.4f} after")
+        if abs(peak - tone) > TONE_HZ:
+            raise AssertionError(f"path F stream {s}: peak {peak} Hz")
+        if not abs(after / before - 1.0) < FADE_REL:
+            raise AssertionError(f"path F stream {s}: the AGC did not hold "
+                                 f"the level through the fade")
+    small = am_receiver(tune_shift=-AN_OFFSET, agc=True).bind(
+        StreamSig(2, AN_CHUNK, AN_RATE))
+    _, ys_cpu = scan(small, tree_to_torch(small.params, "cpu"),
+                     tree_to_torch(small.init_state(), "cpu"),
+                     torch.from_numpy(xs_host[:v + 4, :2]))
+    vs_cpu("F", ys.cpu().numpy()[v:v + 4, :2], ys_cpu.numpy()[v:],
+           CPU_ATOL)
+    timed("F", lambda: scan(bound_f, params, state0, xs), BATCH * AN_CHUNK)
+    # AgcControl's log-depth associative scan beside the sequential AGC
+    # kernel (#9) at the block's shape and knobs.  The route stays the
+    # associative scan, as in the JAX package.
+    agc, p_agc = bound_f.blocks[-1], params[-1]
+    x_agc = torch.complex(randn(BATCH, n_aud), torch.zeros(BATCH, n_aud,
+                                                          device=dev))
+    g0 = torch.ones(BATCH, device=dev)
+    no_reset = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+    seq_args = (*planes(x_agc), g0, p_agc["rate"], p_agc["reference"],
+                p_agc["max_gain"])
+    st_scan, y_scan = agc.process(p_agc, {"gain": g0}, x_agc, no_reset)
+    y_seq_r, y_seq_i, g_seq = osc.agc_scan(*seq_args)
+    ab_err = float((torch.view_as_real(y_scan)
+                    - torch.stack([y_seq_r, y_seq_i], -1)).abs().max())
+    scan_ms = cuda_ms(lambda: agc.process(p_agc, {"gain": g0}, x_agc,
+                                          no_reset))
+    seq_ms = cuda_ms(lambda: osc.agc_scan(*seq_args))
+    print(f"path F AGC at {BATCH} x {n_aud}: AgcControl.process "
+          f"(associative scan) {scan_ms * 1e3:.1f} us, agc_scan kernel (#9) "
+          f"{seq_ms * 1e3:.1f} us per call; outputs max|diff|={ab_err:.3e} "
+          f"(bound {AGC_ATOL:g}) {tag}")
+    if not ab_err <= AGC_ATOL:
+        raise AssertionError("path F: AgcControl and agc_scan disagree")
+    t0 = phase("path F", t0)
+
+    # Path G: the ISB receiver graph.
+    xs_host = isb_signal(BATCH)
+    xs = {"iq": torch.from_numpy(xs_host).to(dev)}
+    params = tree_to_torch(bound_g.params, dev)
+    state0 = tree_to_torch(bound_g.init_state(), dev)
+    (_, ys), launches_g = drive(
+        "G", lambda: graph_scan(bound_g, params, state0, xs),
+        [ofe.decimate, ofl.fused_filter_bank])
+    finite("G", ys.values())
+    v = max(bound_g.valid_from.values())
+    upper, lower = isb_tones(BATCH)
+    usb, lsb = (ys[k].cpu().numpy().real for k in ("usb", "lsb"))
+    assert usb.shape == lsb.shape == (T, BATCH, n_aud), usb.shape
+    for s in (0, 1, BATCH - 1):
+        # From two chunks after the warm-up on: the AGC has settled.
+        a_u = usb[v + 2:, s].reshape(-1)
+        a_l = lsb[v + 2:, s].reshape(-1)
+        p_u, p_l = peak_hz(a_u, audio_rate), peak_hz(a_l, audio_rate)
+        rej_u = (level_at(a_u, audio_rate, lower[s])
+                 / level_at(a_u, audio_rate, upper[s]))
+        rej_l = (level_at(a_l, audio_rate, upper[s])
+                 / level_at(a_l, audio_rate, lower[s]))
+        print(f"path G stream {s}: usb tone {upper[s]:.0f} Hz peak "
+              f"{p_u:.1f} Hz, other sideband at {rej_u:.2e}; lsb tone "
+              f"{lower[s]:.0f} Hz peak {p_l:.1f} Hz, other at {rej_l:.2e}")
+        if (abs(p_u - upper[s]) > ISB_TONE_HZ
+                or abs(p_l - lower[s]) > ISB_TONE_HZ):
+            raise AssertionError(f"path G stream {s}: a sideband peaks off "
+                                 f"its tone")
+        if not (rej_u < ISB_REJECT and rej_l < ISB_REJECT):
+            raise AssertionError(f"path G stream {s}: the other sideband "
+                                 f"leaks through")
+    small = isb_receiver(tune_shift=-AN_OFFSET, agc=True).bind(
+        {"iq": StreamSig(2, AN_CHUNK, AN_RATE)})
+    _, ys_cpu = graph_scan(small, tree_to_torch(small.params, "cpu"),
+                           tree_to_torch(small.init_state(), "cpu"),
+                           {"iq": torch.from_numpy(xs_host[:v + 4, :2])})
+    for k, vk in bound_g.valid_from.items():
+        vs_cpu(f"G {k}", ys[k][vk:v + 4, :2].cpu().numpy(),
+               ys_cpu[k][vk:].numpy(), CPU_ATOL)
+    timed("G", lambda: graph_scan(bound_g, params, state0, xs),
+          BATCH * AN_CHUNK)
+    t0 = phase("path G", t0)
+
     # Each kernel's launches are those of the path it was checked at.
+    # agc_scan has no block path (AgcControl runs the associative scan):
+    # its count on path F, where it was held, is 0.
     path_of = {"decimate": launches_a, "fused_mix_decimate": launches_a,
                "fused_overlap_save": launches_a,
                "fused_demod_filter": launches_a,
                "fused_filter_demod_filter": launches_b,
                "fused_filter_bank": launches_c,
-               "fused_pfb_demod": launches_d}
+               "fused_pfb_demod": launches_d,
+               "slew_scan": launches_e,
+               "agc_scan": launches_f}
+    print(f"launches on paths E rf {launches_erf['slew_scan']} (slew_scan), "
+          f"F {launches_f['decimate']} (decimate), G "
+          f"{launches_g['fused_filter_bank']} (fused_filter_bank)")
     for k in kernels:
         k["launches"] = path_of[k["name"]][k["name"]]
         print(f"  {k['name']}: kernel {k['ms'] * 1e3:.1f} us, plain "

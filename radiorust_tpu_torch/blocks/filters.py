@@ -1,5 +1,5 @@
-"""Overlap-save frequency filter and filter bank (PyTorch port of the JAX
-package's ``blocks/filters.py``).
+"""Overlap-save frequency filter, filter bank and slew-rate limiter
+(PyTorch port of the JAX package's ``blocks/filters.py``).
 
 The design pipeline is the JAX package's, on the host in float64: sample
 the frequency-response closure at every DFT bin, inverse FFT, the
@@ -9,7 +9,8 @@ zero-pad and transform once.  The device step is one overlap-save
 transform per chunk with the previous ``ir_len`` samples carried as
 state; the first output chunk sees a zero history (``valid_from = 1``).
 :class:`FilterBank` runs several such filters on one stream, sharing its
-forward transform and its history.
+forward transform and its history.  :class:`SlewRateLimiter` is a
+per-sample recurrence on the scan kernel (``ops/scan.py``).
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ import torch
 from .. import numbers as _nums
 from ..numbers import TAU
 from ..ops import filter as _ofilter
+from ..ops import scan as _oscan
 from ..windowing import Kaiser, Rectangular, Window, window_table
 from .base import Block, BoundBlock, StreamSig
 
-__all__ = ["Filter", "FilterBank", "deemphasis_factor", "extend_response",
-           "design_response", "design_impulse_response"]
+__all__ = ["Filter", "FilterBank", "SlewRateLimiter", "deemphasis_factor",
+           "extend_response", "design_response", "design_impulse_response"]
 
 
 def deemphasis_factor(tau: float, frequency):
@@ -309,3 +311,33 @@ class FilterBank(Block):
     def bind(self, sig: StreamSig) -> _BoundFilterBank:
         return _BoundFilterBank(sig, self.freq_resps, self.window,
                                 self.ir_len)
+
+
+class _BoundSlewRateLimiter(BoundBlock):
+    def __init__(self, sig: StreamSig, slew_rate: float):
+        self.in_sig = self.out_sig = sig
+        self.params = _nums.stream_real()(slew_rate)
+
+    def init_state(self):
+        return {"prev": np.zeros((self.in_sig.batch,), _nums.stream_complex())}
+
+    def process(self, params, state, x, reset):
+        # Each output feeds the next clamp, so the sample loop runs in the
+        # scan kernel (rsqrt form); events do not reset the limiter.  The
+        # divisor is a tensor: a scalar one would be a reciprocal multiply
+        # on CUDA, one rounding away from the JAX package's division.
+        max_diff = params / torch.full_like(params, self.in_sig.sample_rate)
+        yr, yi, pr, pi = _oscan.slew_scan(
+            *_planes(x), *_planes(state["prev"]), max_diff, rsqrt=True)
+        return {"prev": torch.complex(pr, pi)}, torch.complex(yr, yi)
+
+
+class SlewRateLimiter(Block):
+    """Limits the slew rate of IQ values: each output moves at most
+    ``slew_rate / sample_rate`` from the previous one."""
+
+    def __init__(self, slew_rate: float):
+        self.slew_rate = float(slew_rate)
+
+    def bind(self, sig: StreamSig) -> _BoundSlewRateLimiter:
+        return _BoundSlewRateLimiter(sig, self.slew_rate)

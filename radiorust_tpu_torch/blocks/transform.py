@@ -1,7 +1,10 @@
-"""Gain, elementwise maps, fan-in and frequency shifting (PyTorch port of
-the JAX package's ``blocks/transform.py``; the mixer tables are designed on
-the host in float64 exactly as there).  The functions of
-:class:`MapSample` and :class:`Combine` take and return torch tensors."""
+"""Gain, squelch, AGC, elementwise maps, fan-in and frequency shifting
+(PyTorch port of the JAX package's ``blocks/transform.py``; the mixer
+tables are designed on the host in float64 exactly as there).  The
+functions of :class:`MapSample` and :class:`Combine` take and return torch
+tensors.  :class:`Squelch` and :class:`AgcControl` run their per-sample
+recurrences as exact log-depth associative scans
+(``ops/assoc_scan.py``), as the JAX package does."""
 
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import torch
 from .. import numbers as _nums
 from ..math import round_half_away
 from ..numbers import TAU
+from ..ops.assoc_scan import associative_scan
 from .base import Block, BoundBlock, StreamSig
 
-__all__ = ["GainControl", "MapSample", "Nop", "Combine", "FreqShifter"]
+__all__ = ["GainControl", "AgcControl", "Squelch", "MapSample", "Nop",
+           "Combine", "FreqShifter"]
 
 
 class _BoundGain(BoundBlock):
@@ -39,6 +44,149 @@ class GainControl(Block):
 
     def bind(self, sig: StreamSig) -> _BoundGain:
         return _BoundGain(sig, self.gain)
+
+
+class _BoundSquelch(BoundBlock):
+    @property
+    def output_is_real(self):
+        return self.input_is_real  # gating by a real mask preserves realness
+
+    def __init__(self, sig: StreamSig, threshold: float, alpha: float):
+        self.in_sig = self.out_sig = sig
+        rdt = _nums.stream_real()
+        self.params = {"threshold": rdt(threshold), "alpha": rdt(alpha)}
+
+    def init_state(self):
+        return {"env": np.zeros((self.in_sig.batch,), _nums.stream_real())}
+
+    def process(self, params, state, x, reset):
+        # The smoothed power e[n] = alpha e[n-1] + (1-alpha) |x[n]|^2 is a
+        # first-order linear recurrence: compose its per-sample affine
+        # maps (a, b) with a log-depth scan.
+        alpha = params["alpha"]
+        e_prev = torch.where(reset, torch.zeros_like(state["env"]),
+                             state["env"])
+        p = (x * torch.conj(x)).real
+        a = alpha.expand(p.shape)
+        b = (1.0 - alpha) * p
+
+        def comb(earlier, later):
+            a1, b1 = earlier
+            a2, b2 = later
+            return a1 * a2, b2 + a2 * b1
+
+        big_a, big_b = associative_scan(comb, (a, b))
+        env = big_a * e_prev[:, None] + big_b
+        gate = (env > params["threshold"]).to(x.real.dtype)
+        return {"env": env[:, -1]}, x * gate
+
+
+class Squelch(Block):
+    """Mute the stream while its smoothed power sits below a threshold.
+
+    A one-pole power envelope ``e += (1-alpha)(|x|^2 - e)`` gates the
+    samples; ``threshold`` is linear power of the unit-full-scale stream.
+    A stream reset clears the envelope (the gate re-opens only after the
+    smoother re-converges).
+    """
+
+    def __init__(self, threshold: float = 1e-4, alpha: float = 0.999):
+        if not 0.0 < alpha < 1.0:
+            raise ValueError("alpha must be in (0, 1)")
+        self.threshold = float(threshold)
+        self.alpha = float(alpha)
+
+    def bind(self, sig: StreamSig) -> _BoundSquelch:
+        return _BoundSquelch(sig, self.threshold, self.alpha)
+
+
+# Slope and offset cap of the composed clamped-affine maps: under
+# sustained overdrive the slope products grow exponentially and would
+# overflow float32 to inf, then compose to NaN.  At |a| = 1e18 the
+# unclamped interval of initial gains is narrower than max_gain / 1e18,
+# far below float32 resolution of [0, max_gain], so the cap is exact for
+# every representable gain while 1e18^2 stays finite.
+_AGC_CAP = 1e18
+
+
+def _agc_elems(params, x):
+    """Per-sample clamped-affine maps of the AGC loop: sample n sends the
+    loop gain through ``g -> clip(a g + b, lo, hi)`` with
+    ``a = 1 - rate |x[n]|``, ``b = rate reference``."""
+    absx = torch.abs(x)
+    a = torch.clamp(1.0 - params["rate"] * absx, -_AGC_CAP, _AGC_CAP)
+    b = (params["rate"] * params["reference"]).expand(a.shape)
+    lo = torch.zeros_like(a)
+    hi = params["max_gain"].expand(a.shape)
+    return a, b, lo, hi
+
+
+def _agc_compose(e1, e2):
+    """``(f2 . f1)(g)`` of clamped-affine maps ``f(g) = clip(a g + b, lo,
+    hi)``, ``e1`` the earlier.  The family is closed under composition for
+    either slope sign, so the element stays four numbers and the scan is
+    exact; slope and offset saturate at ``_AGC_CAP``."""
+    a1, b1, l1, h1 = e1
+    a2, b2, l2, h2 = e2
+    a = torch.clamp(a1 * a2, -_AGC_CAP, _AGC_CAP)
+    b = torch.clamp(a2 * b1 + b2, -_AGC_CAP, _AGC_CAP)
+    inner_lo = torch.minimum(a2 * l1, a2 * h1) + b2
+    inner_hi = torch.maximum(a2 * l1, a2 * h1) + b2
+    return (a, b, torch.clamp(inner_lo, l2, h2),
+            torch.clamp(inner_hi, l2, h2))
+
+
+class _BoundAgc(BoundBlock):
+    @property
+    def output_is_real(self):
+        return self.input_is_real  # real gain preserves realness
+
+    def __init__(self, sig: StreamSig, reference: float, rate: float,
+                 max_gain: float):
+        self.in_sig = self.out_sig = sig
+        rdt = _nums.stream_real()
+        self.params = {"reference": rdt(reference), "rate": rdt(rate),
+                       "max_gain": rdt(max_gain)}
+
+    def init_state(self):
+        return {"gain": np.ones((self.in_sig.batch,), _nums.stream_real())}
+
+    def process(self, params, state, x, reset):
+        # y[n] = g[n] x[n];  g[n+1] = clip(g[n] + rate (ref - |y[n]|)).
+        # With g >= 0, |y| = |x| g, so the update is the clamped-affine map
+        # g' = clip(a g + b) with a = 1 - rate |x|, b = rate ref; such maps
+        # compose, so the loop is one log-depth scan.  The gain is a
+        # tuning state and carries across stream breaks: ``reset`` is
+        # unused.
+        pa, pb, plo, phi = associative_scan(_agc_compose,
+                                            _agc_elems(params, x))
+        g0 = state["gain"]
+        g_inc = torch.clamp(pa * g0[:, None] + pb, plo, phi)
+        # y[n] uses the gain before sample n's update (exclusive form).
+        g_exc = torch.cat([g0[:, None], g_inc[:, :-1]], dim=-1)
+        return {"gain": g_inc[:, -1]}, x * g_exc
+
+
+class AgcControl(Block):
+    """Automatic gain control: drives the output envelope toward
+    ``reference`` with loop gain ``rate`` per sample, the gain clamped to
+    ``[0, max_gain]`` (``g += rate * (reference - |g*x|)``).
+
+    The loop contracts, and the scan matches the per-sample recurrence to
+    float32, while ``rate * |x| < 2``.  Under sustained overdrive beyond
+    that the recurrence is chaotic: outputs and state stay finite and
+    inside ``[0, max_gain]``, but are one valid shadowing of the chaos,
+    not bit-reproducible against a sequential evaluation.
+    """
+
+    def __init__(self, reference: float = 1.0, rate: float = 1e-3,
+                 max_gain: float = 65536.0):
+        self.reference = float(reference)
+        self.rate = float(rate)
+        self.max_gain = float(max_gain)
+
+    def bind(self, sig: StreamSig) -> _BoundAgc:
+        return _BoundAgc(sig, self.reference, self.rate, self.max_gain)
 
 
 class _BoundMap(BoundBlock):

@@ -52,6 +52,8 @@ _SIGNATURES = {
                                                                   _P],
     "rr_filter_bank": [_P] * 4 + [_I] * 4 + [_P] * 16 + [_I, _I, _P],
     "rr_pfb_demod": [_P] * 7 + [_I] * 3 + [_P],
+    "rr_slew_scan": [_P] * 9 + [_I] * 3 + [_P],
+    "rr_agc_scan": [_P] * 7 + [_I] * 2 + [_P],
 }
 
 _lib = None

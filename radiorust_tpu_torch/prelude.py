@@ -15,24 +15,31 @@
 from .blocks.base import (Block, BoundBlock, Chain, StreamSig, no_reset,
                           scan)
 from .blocks.channelize import Channelizer, ChannelizerDemod
-from .blocks.filters import Filter, FilterBank, deemphasis_factor
+from .blocks.filters import (Filter, FilterBank, SlewRateLimiter,
+                             deemphasis_factor)
 from .blocks.frontend import FilterDemodFilter, FmDemodFilter, MixerDecimator
 from .blocks.graph import BoundGraph, Graph, NodeRef, graph_scan
-from .blocks.modulation import FmDemod
+from .blocks.modulation import FmDemod, FmMod
+from .blocks.morse import Keyer, Speed, encode
 from .blocks.resampling import Downsampler
-from .blocks.transform import (Combine, FreqShifter, GainControl, MapSample,
-                               Nop)
+from .blocks.transform import (AgcControl, Combine, FreqShifter, GainControl,
+                               MapSample, Nop, Squelch)
 from .convert import tree_to_numpy, tree_to_torch
+from .signal import (BufferOverflow, Disconnection, Event, Samples,
+                     SamplesLost, Warmup)
 from .windowing import CustomWindow, Kaiser, Rectangular, Window
 
 __all__ = [
     "Block", "BoundBlock", "Chain", "StreamSig", "no_reset", "scan",
     "Channelizer", "ChannelizerDemod",
-    "Filter", "FilterBank", "deemphasis_factor",
+    "Filter", "FilterBank", "SlewRateLimiter", "deemphasis_factor",
     "FilterDemodFilter", "FmDemodFilter", "MixerDecimator",
     "Graph", "BoundGraph", "NodeRef", "graph_scan",
-    "FmDemod", "Downsampler", "FreqShifter", "GainControl",
-    "MapSample", "Nop", "Combine",
+    "FmMod", "FmDemod", "Keyer", "Speed", "encode", "Downsampler",
+    "AgcControl", "FreqShifter", "GainControl", "MapSample", "Nop",
+    "Combine", "Squelch",
     "tree_to_numpy", "tree_to_torch",
+    "Event", "Samples", "Disconnection", "SamplesLost", "BufferOverflow",
+    "Warmup",
     "CustomWindow", "Kaiser", "Rectangular", "Window",
 ]

@@ -1,5 +1,6 @@
 """The port stands alone: it imports and runs with jax blocked, no module
-of it imports jax, and on CPU tensors no kernel is launched."""
+of it imports jax, on CPU tensors no kernel is launched, and its prelude
+exports every name of the JAX package's prelude that has been ported."""
 
 import ast
 import pathlib
@@ -7,8 +8,15 @@ import subprocess
 import sys
 
 import radiorust_tpu_torch
+from radiorust_tpu_torch import prelude
 
 PKG = pathlib.Path(radiorust_tpu_torch.__file__).parent
+JAX_PRELUDE = PKG.parent / "radiorust_tpu" / "prelude.py"
+# Names of the JAX package's prelude whose modules are not ported yet.
+NOT_PORTED = {"Fourier", "Overlapper", "rechunk", "Upsampler", "jit_step",
+              "make_scan", "pack_wire", "unpack_wire", "bandwidth",
+              "bandwidth_jax", "level", "level_jax", "rescale_energy",
+              "rescale_energy_jax"}
 
 SCRIPT = r"""
 import sys
@@ -20,11 +28,14 @@ from radiorust_tpu_torch import prelude  # noqa: F401
 from radiorust_tpu_torch.blocks.base import StreamSig, scan
 from radiorust_tpu_torch.blocks.graph import graph_scan
 from radiorust_tpu_torch.convert import tree_to_torch
+from radiorust_tpu_torch.models.analog import am_receiver, isb_receiver
 from radiorust_tpu_torch.models.channelizer import channelized_receiver
+from radiorust_tpu_torch.models.morse_tx import morse_rf_chain
 from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
 from radiorust_tpu_torch.models.wfm import wfm_receiver
 from radiorust_tpu_torch.ops import channelizer as och, filter as ofl
-from radiorust_tpu_torch.ops import frontend as ofe
+from radiorust_tpu_torch.ops import frontend as ofe, scan as osc
+from radiorust_tpu_torch.prelude import Keyer, Speed
 
 sig = StreamSig(2, 24576, 1024000.0)
 b = wfm_receiver(tune_shift=100e3, fuse_frontend=True, fuse_demod=True,
@@ -50,11 +61,28 @@ ch = channelized_receiver(fuse=True).bind(StreamSig(1, 4096, 16384000.0))
 _, ys = scan(ch, tree_to_torch(ch.params, "cpu"),
              tree_to_torch(ch.init_state(), "cpu"), xs[:, :1, :4096])
 assert ys.shape == (2, 64, 64) and bool(torch.isfinite(ys.real).all())
+rf = morse_rf_chain().bind(StreamSig(2, 256, 8000.0))
+key = np.stack([Keyer(256, 8000.0, Speed.from_paris_wpm(w), "E").envelope(2)
+                for w in (30, 40)], axis=1)
+_, ys = scan(rf, tree_to_torch(rf.params, "cpu"),
+             tree_to_torch(rf.init_state(), "cpu"), torch.from_numpy(key))
+assert ys.shape == (2, 2, 256) and bool(torch.isfinite(ys.real).all())
+am = am_receiver(-30e3, agc=True).bind(StreamSig(2, 8192, 256000.0))
+iq = torch.from_numpy(np.exp(1j * rng.standard_normal((1, 2, 8192)))
+                      .astype(np.complex64))
+_, ys = scan(am, tree_to_torch(am.params, "cpu"),
+             tree_to_torch(am.init_state(), "cpu"), iq)
+assert ys.shape == (1, 2, 1024) and bool(torch.isfinite(ys.real).all())
+isb = isb_receiver(-30e3).bind({"iq": StreamSig(2, 8192, 256000.0)})
+_, ys = graph_scan(isb, tree_to_torch(isb.params, "cpu"),
+                   tree_to_torch(isb.init_state(), "cpu"), {"iq": iq})
+assert set(ys) == {"usb", "lsb"}
 wrappers = [ofe.decimate, ofe.fused_mix_decimate, ofl.fused_overlap_save,
             ofl.fused_filter_bank, ofl.fused_demod_filter,
-            ofl.fused_filter_demod_filter, och.fused_pfb_demod]
+            ofl.fused_filter_demod_filter, och.fused_pfb_demod,
+            osc.slew_scan, osc.agc_scan]
 counts = [w.launches for w in wrappers]
-assert counts == [0] * 7, counts
+assert counts == [0] * 9, counts
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("OK")
@@ -82,3 +110,16 @@ def test_no_module_of_the_port_imports_jax():
             for name in names:
                 assert name.split(".")[0] not in ("jax", "jaxlib",
                                                   "radiorust_tpu"), (f, name)
+
+
+def test_prelude_exports_the_ported_jax_names():
+    tree = ast.parse(JAX_PRELUDE.read_text())
+    jax_names = next(
+        {ast.literal_eval(e) for e in node.value.elts}
+        for node in tree.body if isinstance(node, ast.Assign)
+        and node.targets[0].id == "__all__")
+    assert NOT_PORTED <= jax_names
+    missing = jax_names - NOT_PORTED - set(prelude.__all__)
+    assert not missing, missing
+    for name in prelude.__all__:
+        assert getattr(prelude, name) is not None, name
