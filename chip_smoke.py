@@ -9,8 +9,9 @@
    first use, one nvcc per source) and holds each of the nine kernels
    against its plain PyTorch version on the same CUDA tensors at the
    shapes of the path that runs it (#1 also at the ``fuse_deemphasis``
-   and 256k -> 32k plans, #3 and #4 also at the geometries of paths E-G;
-   #9, which no block calls, at path F's AGC shape).
+   and 256k -> 32k plans, #3 and #4 also at the geometries of paths E-G
+   and at column lengths n1 = 77 and, #3, n1 = 768; #9, which no block
+   calls, at path F's AGC shape).
 3. Drives seven paths, 16 chunks each, with every launch counter set to
    0 just before and read just after, and checks that each kernel of the
    path was launched, that the output is finite and right, and that the
@@ -40,9 +41,10 @@
       output peaks at its own tone, the other below 0.02 of it.
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
-   repetitions), and ``AgcControl``'s associative scan beside #9 at path
-   F's shape; ``--profile`` adds each path's device time by kernel
-   (torch.profiler).
+   repetitions; the overlap-save kernels also as a CUDA graph replay,
+   their device time without the wrapper's host work), and
+   ``AgcControl``'s associative scan beside #9 at path F's shape;
+   ``--profile`` adds each path's device time by kernel (torch.profiler).
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
@@ -113,6 +115,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean ms per replay of ``fn`` captured in a CUDA graph: the device
+    time of its launches without the wrapper's host work.  ``fn`` has run
+    before (tables uploaded, library loaded)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps=reps)
 
 
 def compare(got, want):
@@ -354,11 +366,12 @@ def main() -> None:
 
     def check(name, source, replaces, bound_, kernel, plain, args,
               outputs=None, record=True, absolute=False,
-              plain_timing=(3, 20)):
+              plain_timing=(3, 20), graphed=False):
         """Kernel vs plain on the same CUDA tensors: max |diff| /
         max |ref| within ``bound_`` (max |diff| if ``absolute``);
         ``plain_timing`` = (warm-up calls, timed calls) of the plain
-        version."""
+        version; ``graphed`` adds the kernel's device time per call from
+        a CUDA graph replay."""
         got = kernel(*args)
         want = plain(*args)
         got = got if outputs is None else outputs(got)
@@ -368,10 +381,12 @@ def main() -> None:
         warmup, reps = plain_timing
         plain_ms = cuda_ms(lambda: plain(*args), reps=reps, warmup=warmup)
         err, kind = (abs_err, "max|diff|") if absolute else (rel, "rel")
+        device = (f" (device {graph_ms(lambda: kernel(*args)) * 1e3:.1f} us "
+                  f"in a CUDA graph)" if graphed else "")
         print(f"{name}: max|diff|={abs_err:.3e} max|diff|/max|ref|="
               f"{rel:.3e} (bound {bound_:g} on {kind}); kernel "
-              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us per call "
-              f"{tag}")
+              f"{ms * 1e3:.1f} us{device}, plain {plain_ms * 1e3:.1f} us "
+              f"per call {tag}")
         if not err <= bound_:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version ({err:.3e} > {bound_:g})")
@@ -421,7 +436,8 @@ def main() -> None:
           "radiorust_tpu/ops/pallas_filter.py:547", FILTER_BOUND,
           ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
           (randn(BATCH, m), randn(BATCH, m), randn(BATCH, n_mid),
-           randn(BATCH, n_mid), *grid_planes(filt.params["response"])))
+           randn(BATCH, n_mid), *grid_planes(filt.params["response"])),
+          graphed=True)
 
     # FM at the mid-chain rate, continuous across [history || chunk]:
     # where the filtered signal has a magnitude, its demod is not chaotic.
@@ -433,7 +449,8 @@ def main() -> None:
           ofl.fused_demod_filter, ofl.fused_demod_filter_plain,
           (*planes(fm[:, m:]), *planes(last), randn(BATCH, m),
            randn(BATCH), have, *grid_planes(demod.params["response"]),
-           torch.tensor(demod.params["factor"], device=dev)))
+           torch.tensor(demod.params["factor"], device=dev)),
+          graphed=True)
 
     fdf = bound_mid.blocks[1]
     check("fused_filter_demod_filter",
@@ -444,7 +461,8 @@ def main() -> None:
            randn(BATCH, m), randn(BATCH), have,
            *grid_planes(fdf.params["response1"]),
            *grid_planes(fdf.params["response2"]),
-           torch.tensor(fdf.params["factor"], device=dev)))
+           torch.tensor(fdf.params["factor"], device=dev)),
+          graphed=True)
 
     bank = next(b for b in bound_st.bound
                 if type(b).__name__ == "_BoundFilterBank")
@@ -454,7 +472,8 @@ def main() -> None:
           ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
           (mpx_prev, torch.zeros_like(mpx_prev), mpx_cur,
            torch.zeros_like(mpx_cur),
-           *grid_planes(bank.params["responses"])))
+           *grid_planes(bank.params["responses"])),
+          graphed=True)
 
     chd = bound_ch.blocks[0]
     ch_x = torch.from_numpy(channel_fm(1, CH_BATCH, chd.hist_len + CH_CHUNK)
@@ -519,14 +538,36 @@ def main() -> None:
               ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
               (randn(rows, m), randn(rows, m), randn(rows, n),
                randn(rows, n), *grid_planes(filt.params["response"])),
-              record=False)
+              record=False, graphed=True)
     m, n = bank_g.ir_len, bank_g.in_sig.chunk_len
     check(f"fused_filter_bank at path G's geometry (K = "
           f"{bank_g.num_outputs}, N = {m + n})", "", "", FILTER_BOUND,
           ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
           (randn(BATCH, m), randn(BATCH, m), randn(BATCH, n),
            randn(BATCH, n), *grid_planes(bank_g.params["responses"])),
-          record=False)
+          record=False, graphed=True)
+
+    # The FFT's other column plans, on random responses: n1 = 77 = 7 * 11
+    # (two generic prime passes) and n1 = 768 (the widest shared-memory
+    # plan, 16-column strips), at m = n = 64 * n1.
+    def random_grids(bands, N):
+        return planes(ofl.response_grid(torch.complex(randn(bands, N),
+                                                      randn(bands, N))))
+
+    for n1, rows in ((77, 8), (768, 4)):
+        n = 64 * n1
+        gr, gi = random_grids(1, 2 * n)
+        check(f"fused_overlap_save at n1 = {n1} (m = n = {n}, batch "
+              f"{rows})", "", "", FILTER_BOUND, ofl.fused_overlap_save,
+              ofl.fused_overlap_save_plain,
+              (*(randn(rows, n) for _ in range(4)), gr[0], gi[0]),
+              record=False, graphed=True)
+    n = 64 * 77
+    check(f"fused_filter_bank at n1 = 77 (K = 2, m = n = {n}, batch 8)", "",
+          "", FILTER_BOUND, ofl.fused_filter_bank,
+          ofl.fused_filter_bank_plain,
+          (*(randn(8, n) for _ in range(4)), *random_grids(2, 2 * n)),
+          record=False, graphed=True)
     aplan = bound_f.blocks[1].plan
     check(f"decimate at the 256k -> 32k plan ({aplan.kernel.shape[1]} taps, "
           f"{aplan.p}:{aplan.q}, two planes)", "", "", FIR_BOUND,

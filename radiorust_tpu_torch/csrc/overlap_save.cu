@@ -1,4 +1,4 @@
-// Overlap-save filter by a dense four-step DFT, with an optional FM-demod
+// Overlap-save filter by a four-step FFT, with an optional FM-demod
 // prologue.
 //
 // Replaces four TPU kernels of radiorust_tpu/ops/pallas_filter.py:
@@ -12,14 +12,18 @@
 //                       _make_filter_demod_filter_kernel :833)
 //
 // What it computes, per stream, on z = [prev (m) || cur (n)], N = m + n =
-// n1 * n2, time t = i2 + n2*i1, frequency k = k1 + n1*k2:
-//   T[k1,i2] = sum_i1 D1[k1,i1] z[i1,i2];   U = T * tw           (launch 1)
-//   V[k1,k2] = sum_i2 U[k1,i2] D2[i2,k2];   P = V * G[k1,k2]
-//   Q[k1,i2] = sum_k2 P[k1,k2] conj(D2)[k2,i2];  S = Q * conj(tw) (launch 2)
-//   y[i1,i2] = sum_k1 E1[k1,i1] S[k1,i2]  for t < n               (launch 3)
-// G is the response grid with the 1/N of the inverse folded in, E1 =
-// conj(D1)[:, :ho].  The factor matrices come from the host (float64
-// design, cast to float32), exactly as the TPU kernel takes them.
+// n1 * n2 with n2 = 128, time t = i2 + n2*i1, frequency k = k1 + n1*k2:
+//   T[k1,i2] = FFT_n1 of column i2 of z[i1,i2];   U = T * tw       (launch 1)
+//   V[k1,k2] = FFT_128 of row k1 of U;   P = V * G[k1,k2]
+//   S[k1,i2] = inverse FFT_128 of row k1 of P, times conj(tw)      (launch 2)
+//   y[i1,i2] = inverse FFT_n1 of column i2 of S, for t < n          (launch 3)
+// with tw[k1,i2] = exp(-2 pi i k1 i2 / N) and G the response grid with
+// the 1/N of the inverse folded in.  The TPU kernel ran each stage as a
+// dense DFT on its matrix unit; the H100 has no float32 matrix unit at
+// this precision, so here each stage is a radix FFT.  Every twiddle and
+// root comes from float32 tables designed in float64 on the host
+// (ops/filter.py _tables: the n1 column roots, the 128 row roots, tw) and
+// the column pass order from its radices (ops/filter.py fft_radices).
 // The demod form first computes d = atan2(Im, Re of x * conj(x[-1])) *
 // factor (first sample from the carried last sample, or the carried last
 // output after a break), writes d, and packs stream 2j into the real and
@@ -34,200 +38,464 @@
 // filtered intermediate in VMEM; here it is a [b, n] device buffer (4.7 MB
 // at batch 64 x 9216) that the 50 MB L2 holds between the launches.
 //
-// What bounds it on an H100: the dense DFT costs 8*(n1 + 2*n2 + ho) flops
-// per sample per stream, about 60 MFLOP per stream and step at the
-// receive chain's 120 x 128 transform, against 16 bytes per sample of
-// device-memory traffic per launch: it is bound by the float32 FMA rate
-// and by shared-memory operand reads, not by device memory.  The bank
-// costs 8*(n1 + n2) flops per sample forward once and 8*(n2 + ho) per
-// sample and band inverse: 6.7 GFLOP for the stereo decoder's three bands
-// at batch 64, against 10.6 GFLOP for three separate filters.
+// What bounds it on an H100: bytes.  Each launch reads and writes about
+// 16 bytes per sample and stream (two float planes in, two out); the
+// flops are some 160 per sample over all three launches at the receive
+// chain's 120 x 128 transform (column passes 8, 3, 5; row passes 4 and
+// 2^5, forward and inverse), about 3 flops per byte where the card
+// balances at 20.  A prime column length p runs one generic pass of 8p
+// flops per sample (n1 = 761: the dense DFT's cost, no more).  The bank
+// reads the forward rows once for its K bands and writes K inverse rows.
+// The dense four-step DFT this replaces cost 8 * (n1 + 256 + ho) flops
+// per sample (3584 at n1 = 120) and was bound by FMA issue and
+// shared-memory operand loads.
 //
 // What the design does about it: three launches over a [X, N] complex
-// scratch (two float planes) that the wrapper allocates.  Launches 1 and 3
-// stage a 32-column strip of one stream's n1 x n2 grid in shared memory,
-// and each warp walks one row of D1 (or E1) that all its lanes read at the
-// same address.  Launch 2 keeps the whole n2 x n2 D2 in shared memory and
-// runs several grid rows per block, so D2 is read from device memory once
-// per block.  Plain float32 FMA, no tensor cores and no TF32: a radix FFT
-// and tensor-core DFT stages are later work.
+// scratch (two float planes) that the wrapper allocates, each touching
+// device memory once per sample.  Launches 1 and 3 stage a strip of C
+// columns (32, or 16 for n1 > 447, so that two strip buffers of n1 rows
+// and the column roots fit shared memory up to n1 = 768) of one stream's
+// grid with 16-byte cp.async copies (four loads where a chunk straddles
+// the prev || cur seam or is misaligned) and run the column FFT as
+// Stockham passes between the two buffers: radix 8, 4, 2, 3 and 5
+// butterflies, one thread per butterfly and column, and one generic pass
+// (one thread per output) for any other prime.  Launch 2 holds one grid
+// row in one warp, 4 complex values a lane, and runs the 128-point FFT in
+// registers: a radix-4 pass across the lane's values, then five radix-2
+// passes across lanes through __shfl_xor_sync; no matrix sits in shared
+// memory, so 9 blocks of 4 rows fit an SM (56 registers a thread) and
+// even 512 rows spread over 128 blocks.  Plain float32 FMA: no tensor
+// cores, TF32 or library FFT.  Measured on an H100 80GB HBM3 at 700 W,
+// the three launches move 44 MB in 28.7 us at the receive chain's batch
+// 64 (~1.5 TB/s, mostly from L2): each launch is one short wave, and its
+// tail and the gaps between launches bound it before either roofline.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kCols = 32;     // grid columns per block in launches 1 and 3
-constexpr int kRowsY = 8;     // threadIdx.y extent in launches 1 and 3
-constexpr int kN2 = 128;      // the port's fixed lane factor
-constexpr int kRowsPerBlock = 4;  // grid rows in flight per block, launch 2
-constexpr int kMidBlocks = 264;   // two waves of 132 SMs
+constexpr int kN2 = 128;          // the port's fixed lane factor
+constexpr int kColThreads = 256;  // threads of a column block: (C, 256 / C)
+constexpr int kRowWarps = 4;      // grid rows, one per warp, of a row block
+constexpr size_t kMaxSmem = 232448;  // shared bytes a block may use (H100)
+static_assert(32 * kRowWarps == kN2, "a row block loads one root each");
 
-// Launch 1: stage-1 DFT over i1 of one 32-column strip, then the twiddle.
-// grid (n2 / kCols, X), block (kCols, kRowsY), shared 2 * n1 * kCols floats.
-__global__ void os_forward1(const float* __restrict__ prevr,
-                            const float* __restrict__ previ, int prev_stride,
-                            const float* __restrict__ curr,
-                            const float* __restrict__ curi, int cur_stride,
-                            int m, const float* __restrict__ d1r,
-                            const float* __restrict__ d1i,
-                            const float* __restrict__ twr,
-                            const float* __restrict__ twi,
-                            float* __restrict__ ar, float* __restrict__ ai,
-                            int n1, int n2) {
-  extern __shared__ float smem[];
-  float* zr = smem;
-  float* zi = smem + n1 * kCols;
-  const int s = blockIdx.y;
-  const int tx = threadIdx.x;
-  const int c = blockIdx.x * kCols + tx;
-  for (int i1 = threadIdx.y; i1 < n1; i1 += kRowsY) {
-    const int t = i1 * n2 + c;
-    float vr, vi;
-    if (t < m) {
-      vr = prevr[(size_t)s * prev_stride + t];
-      vi = previ[(size_t)s * prev_stride + t];
-    } else {
-      vr = curr[(size_t)s * cur_stride + (t - m)];
-      vi = curi[(size_t)s * cur_stride + (t - m)];
+// Tables of one transform geometry (ops/filter.py _tables), unpacked.
+struct Plan {
+  const float* r1r;  // n1 column roots exp(-2 pi i j / n1), re and im
+  const float* r1i;
+  const float* r2r;  // 128 row roots exp(-2 pi i j / 128)
+  const float* r2i;
+  const float* twr;  // [n1, 128] four-step twiddle
+  const float* twi;
+  const int* radix;  // column radices, in pass order
+  int npass;
+  int n1;
+};
+
+Plan make_plan(const float* tables, const int* radix, int npass, int n1) {
+  Plan p;
+  p.r1r = tables;
+  p.r1i = tables + n1;
+  p.r2r = tables + 2 * n1;
+  p.r2i = p.r2r + kN2;
+  p.twr = p.r2i + kN2;
+  p.twi = p.twr + (size_t)n1 * kN2;
+  p.radix = radix;
+  p.npass = npass;
+  p.n1 = n1;
+  return p;
+}
+
+struct cf {
+  float r, i;
+};
+__device__ __forceinline__ cf operator+(cf a, cf b) {
+  return {a.r + b.r, a.i + b.i};
+}
+__device__ __forceinline__ cf operator-(cf a, cf b) {
+  return {a.r - b.r, a.i - b.i};
+}
+__device__ __forceinline__ cf cmul(cf a, cf b) {
+  return {fmaf(a.r, b.r, -a.i * b.i), fmaf(a.r, b.i, a.i * b.r)};
+}
+__device__ __forceinline__ cf scale(cf a, float s) {
+  return {a.r * s, a.i * s};
+}
+// Root j of a table, conjugated for the inverse.
+template <bool kInv>
+__device__ __forceinline__ cf root(const float* wr, const float* wi, int j) {
+  return {wr[j], kInv ? -wi[j] : wi[j]};
+}
+// x times the quarter root: -i forward, +i inverse.
+template <bool kInv>
+__device__ __forceinline__ cf quarter(cf x) {
+  return kInv ? cf{-x.i, x.r} : cf{x.i, -x.r};
+}
+
+// DFT_p of a[0..p) in place, p in {2, 3, 4, 5, 8}; the inverse with the
+// conjugate roots (unnormalised).
+template <bool kInv>
+__device__ __forceinline__ void dft4(cf& a0, cf& a1, cf& a2, cf& a3) {
+  const cf t0 = a0 + a2, t1 = a0 - a2, t2 = a1 + a3;
+  const cf t3 = quarter<kInv>(a1 - a3);
+  a0 = t0 + t2;
+  a1 = t1 + t3;
+  a2 = t0 - t2;
+  a3 = t1 - t3;
+}
+
+template <int P, bool kInv>
+__device__ __forceinline__ void butterfly(cf* a) {
+  if constexpr (P == 2) {
+    const cf t = a[0] - a[1];
+    a[0] = a[0] + a[1];
+    a[1] = t;
+  } else if constexpr (P == 3) {
+    const float s3 = 0.866025403784438646763723170752936183f;
+    const cf t = a[1] + a[2];
+    const cf u = a[0] - scale(t, 0.5f);
+    const cf v = quarter<kInv>(scale(a[1] - a[2], s3));
+    a[0] = a[0] + t;
+    a[1] = u + v;
+    a[2] = u - v;
+  } else if constexpr (P == 4) {
+    dft4<kInv>(a[0], a[1], a[2], a[3]);
+  } else if constexpr (P == 5) {
+    const float c1 = 0.309016994374947424102293417182819059f;
+    const float c2 = -0.809016994374947424102293417182819059f;
+    const float s1 = 0.951056516295153572116439333379382143f;
+    const float s2 = 0.587785252292473129168705954639072769f;
+    const cf t1 = a[1] + a[4], t2 = a[2] + a[3];
+    const cf d1 = a[1] - a[4], d2 = a[2] - a[3];
+    const cf u1 = a[0] + scale(t1, c1) + scale(t2, c2);
+    const cf u2 = a[0] + scale(t1, c2) + scale(t2, c1);
+    const cf v1 = quarter<kInv>(scale(d1, s1) + scale(d2, s2));
+    const cf v2 = quarter<kInv>(scale(d1, s2) - scale(d2, s1));
+    a[0] = a[0] + t1 + t2;
+    a[1] = u1 + v1;
+    a[4] = u1 - v1;
+    a[2] = u2 + v2;
+    a[3] = u2 - v2;
+  } else {
+    static_assert(P == 8, "specialised radices are 2, 3, 4, 5 and 8");
+    const float h = 0.707106781186547524400844362104849039f;
+    cf e[4] = {a[0], a[2], a[4], a[6]};
+    cf o[4] = {a[1], a[3], a[5], a[7]};
+    dft4<kInv>(e[0], e[1], e[2], e[3]);
+    dft4<kInv>(o[0], o[1], o[2], o[3]);
+    // o[r] times the eighth root to the r: (1 -+ i) h, -+i, (-1 -+ i) h.
+    o[1] = kInv ? cf{h * (o[1].r - o[1].i), h * (o[1].r + o[1].i)}
+                : cf{h * (o[1].r + o[1].i), h * (o[1].i - o[1].r)};
+    o[2] = quarter<kInv>(o[2]);
+    o[3] = kInv ? cf{-h * (o[3].r + o[3].i), h * (o[3].r - o[3].i)}
+                : cf{h * (o[3].i - o[3].r), -h * (o[3].r + o[3].i)};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[r] = e[r] + o[r];
+      a[r + 4] = e[r] - o[r];
     }
-    zr[i1 * kCols + tx] = vr;
-    zi[i1 * kCols + tx] = vi;
-  }
-  __syncthreads();
-  const size_t N = (size_t)n1 * n2;
-  for (int k1 = threadIdx.y; k1 < n1; k1 += kRowsY) {
-    const float* dr = d1r + (size_t)k1 * n1;
-    const float* di = d1i + (size_t)k1 * n1;
-    float accr = 0.f, acci = 0.f;
-    for (int i1 = 0; i1 < n1; ++i1) {
-      const float a = dr[i1], b = di[i1];
-      const float x = zr[i1 * kCols + tx], y = zi[i1 * kCols + tx];
-      accr = fmaf(a, x, fmaf(-b, y, accr));
-      acci = fmaf(a, y, fmaf(b, x, acci));
-    }
-    const float wr = twr[(size_t)k1 * n2 + c], wi = twi[(size_t)k1 * n2 + c];
-    ar[s * N + (size_t)k1 * n2 + c] = accr * wr - acci * wi;
-    ai[s * N + (size_t)k1 * n2 + c] = accr * wi + acci * wr;
   }
 }
 
-// Launch 2: per grid row (stream, k1): n2-point DFT, then for each of
-// nbands responses: multiply, inverse n2-point DFT, conjugate twiddle,
-// written to row band * rows + row of the output scratch.  The filter runs
-// it in place with one band; the bank reads each forward row once for all
-// its bands.
-// grid kMidBlocks (grid-stride over rows), block (kN2, kRowsPerBlock),
-// shared D2 (2 * kN2 * kN2 floats) + 2 * kRowsPerBlock * kN2 floats.
-__global__ void __launch_bounds__(kN2 * kRowsPerBlock)
-os_middle(const float* ar, const float* ai, float* outr, float* outi,
-          const float* __restrict__ d2r, const float* __restrict__ d2i,
-          const float* __restrict__ gr, const float* __restrict__ gi,
-          const float* __restrict__ twr, const float* __restrict__ twi,
-          int rows, int n1, int nbands) {
-  extern __shared__ float smem[];
-  float* sd2r = smem;
-  float* sd2i = sd2r + kN2 * kN2;
-  float* ur = sd2i + kN2 * kN2;
-  float* ui = ur + kRowsPerBlock * kN2;
-  const int tid = threadIdx.y * kN2 + threadIdx.x;
-  for (int i = tid; i < kN2 * kN2; i += kN2 * kRowsPerBlock) {
-    sd2r[i] = d2r[i];
-    sd2i[i] = d2i[i];
+// One Stockham pass of radix P down the C columns of a strip: butterfly
+// (k < s, q < m) reads x[k + s*(q + m*j)], j < P, and writes
+// y[k + s*(P*q + r)] = DFT_P[r] * w^(q*r*stride), w the n1 column root.
+// Element e of column c sits at e * C + c of each plane.
+template <int P, bool kInv>
+__device__ void radix_pass(const float* xr, const float* xi, float* yr,
+                           float* yi, int m, int s, int stride,
+                           const float* wr, const float* wi) {
+  const int C = blockDim.x, c = threadIdx.x;
+  for (int b = threadIdx.y; b < m * s; b += blockDim.y) {
+    const int k = b % s, q = b / s;
+    cf a[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int at = (k + s * (q + m * j)) * C + c;
+      a[j] = {xr[at], xi[at]};
+    }
+    butterfly<P, kInv>(a);
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const cf v = r ? cmul(a[r], root<kInv>(wr, wi, q * r * stride)) : a[r];
+      const int at = (k + s * (P * q + r)) * C + c;
+      yr[at] = v.r;
+      yi[at] = v.i;
+    }
   }
-  const int tx = threadIdx.x;
-  float* rr = ur + threadIdx.y * kN2;
-  float* ri = ui + threadIdx.y * kN2;
-  for (int g = blockIdx.x * kRowsPerBlock; g < rows;
-       g += gridDim.x * kRowsPerBlock) {
-    const int row = g + threadIdx.y;
-    const bool live = row < rows;
-    const int k1 = row % n1;
-    const size_t at = (size_t)row * kN2 + tx;
-    __syncthreads();  // D2 staged; previous iteration done with rr/ri
-    if (live) {
-      rr[tx] = ar[at];
-      ri[tx] = ai[at];
+}
+
+// The same pass for any other prime p, one thread per output (k, q, r):
+// DFT_p row r against the roots w^((j*r mod p) * n1/p), 8p flops.
+template <bool kInv>
+__device__ void generic_pass(const float* xr, const float* xi, float* yr,
+                             float* yi, int p, int m, int s, int stride,
+                             int n1, const float* wr, const float* wi) {
+  const int C = blockDim.x, c = threadIdx.x, step = n1 / p;
+  for (int o = threadIdx.y; o < n1; o += blockDim.y) {
+    const int r = o % p, kq = o / p, k = kq % s, q = kq / s;
+    float accr = 0.f, acci = 0.f;
+    int e = 0;  // j * r mod p
+    for (int j = 0; j < p; ++j) {
+      const int at = (k + s * (q + m * j)) * C + c;
+      const cf w = root<kInv>(wr, wi, e * step);
+      const float x = xr[at], y = xi[at];
+      accr = fmaf(x, w.r, fmaf(-y, w.i, accr));
+      acci = fmaf(x, w.i, fmaf(y, w.r, acci));
+      e += r;
+      if (e >= p) e -= p;
+    }
+    cf v = {accr, acci};
+    if (r) v = cmul(v, root<kInv>(wr, wi, q * r * stride));
+    const int at = (k + s * (p * q + r)) * C + c;
+    yr[at] = v.r;
+    yi[at] = v.i;
+  }
+}
+
+// The length-n1 FFT down every column of the strip in buf (planes re, im
+// of n1 x C, then a second such pair): the plan's Stockham passes, from
+// one buffer to the other.  Returns the buffer holding the result, in
+// natural order.  Entered and left with the block synchronised.
+template <bool kInv>
+__device__ const float* column_fft(float* buf, int plane, const Plan& pl,
+                                   const float* wr, const float* wi) {
+  float* x = buf;
+  float* y = buf + 2 * plane;
+  int n = pl.n1, s = 1;
+  for (int ps = 0; ps < pl.npass; ++ps) {
+    const int p = pl.radix[ps], m = n / p, stride = pl.n1 / n;
+    const float *xr = x, *xi = x + plane;
+    float *yr = y, *yi = y + plane;
+    switch (p) {
+      case 2: radix_pass<2, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
+      case 3: radix_pass<3, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
+      case 4: radix_pass<4, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
+      case 5: radix_pass<5, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
+      case 8: radix_pass<8, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
+      default:
+        generic_pass<kInv>(xr, xi, yr, yi, p, m, s, stride, pl.n1, wr, wi);
     }
     __syncthreads();
-    float vr = 0.f, vi = 0.f;
-    if (live) {
-      for (int i2 = 0; i2 < kN2; ++i2) {   // V[k2 = tx]
-        const float a = rr[i2], b = ri[i2];
-        const float c = sd2r[i2 * kN2 + tx], d = sd2i[i2 * kN2 + tx];
-        vr = fmaf(a, c, fmaf(-b, d, vr));
-        vi = fmaf(a, d, fmaf(b, c, vi));
-      }
-    }
-    for (int band = 0; band < nbands; ++band) {
-      float pr = 0.f, pi = 0.f;
-      if (live) {
-        const size_t gat = ((size_t)band * n1 + k1) * kN2 + tx;
-        const float g0 = gr[gat], g1 = gi[gat];
-        pr = vr * g0 - vi * g1;
-        pi = vr * g1 + vi * g0;
-      }
-      __syncthreads();  // every row of the block is done reading rr/ri
-      if (live) {
-        rr[tx] = pr;
-        ri[tx] = pi;
-      }
-      __syncthreads();
-      if (live) {
-        float qr = 0.f, qi = 0.f;
-        for (int k2 = 0; k2 < kN2; ++k2) {   // Q[i2 = tx], times conj(D2)
-          const float a = rr[k2], b = ri[k2];
-          const float c = sd2r[k2 * kN2 + tx], d = sd2i[k2 * kN2 + tx];
-          qr = fmaf(a, c, fmaf(b, d, qr));
-          qi = fmaf(b, c, fmaf(-a, d, qi));
-        }
-        const float wr = twr[(size_t)k1 * kN2 + tx];
-        const float wi = twi[(size_t)k1 * kN2 + tx];
-        const size_t out = ((size_t)band * rows + row) * kN2 + tx;
-        outr[out] = qr * wr + qi * wi;
-        outi[out] = qi * wr - qr * wi;
-      }
+    float* t = x;
+    x = y;
+    y = t;
+    n = m;
+    s *= p;
+  }
+  return x;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Samples t..t+3 of [prev (m) || cur] into shared dst: one 16-byte
+// cp.async where they lie on one side of the seam at an aligned address,
+// else four loads.
+__device__ __forceinline__ void stage4(float* dst, const float* prev,
+                                       const float* cur, int t, int m) {
+  const float* src =
+      t + 4 <= m ? prev + t : (t >= m ? cur + (t - m) : nullptr);
+  if (src != nullptr && ((uintptr_t)src & 15) == 0) {
+    cp_async16(dst, src);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dst[e] = t + e < m ? prev[t + e] : cur[t + e - m];
+}
+
+size_t strip_bytes(int n1, int cols) {
+  return sizeof(float) * (4 * (size_t)n1 * cols + 2 * (size_t)n1);
+}
+
+int strip_cols(int n1) { return strip_bytes(n1, 32) <= kMaxSmem ? 32 : 16; }
+
+// Launch 1: the column FFT of one strip of C columns of stream s's
+// [prev || cur] grid, then the twiddle, written to scratch row s.
+// grid (128 / C, X), block (C, kColThreads / C), shared strip_bytes(n1, C).
+__global__ void __launch_bounds__(kColThreads)
+    os_forward_columns(const float* __restrict__ prevr,
+                       const float* __restrict__ previ, int prev_stride,
+                       const float* __restrict__ curr,
+                       const float* __restrict__ curi, int cur_stride, int m,
+                       Plan pl, float* __restrict__ ar,
+                       float* __restrict__ ai) {
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);
+  const int n1 = pl.n1, C = blockDim.x, plane = n1 * C;
+  float* wr = buf + 4 * plane;
+  float* wi = wr + n1;
+  const int s = blockIdx.y, c0 = blockIdx.x * C, tx = threadIdx.x;
+  const int tid = threadIdx.y * C + tx, nt = C * blockDim.y;
+  const float* pr = prevr + (size_t)s * prev_stride;
+  const float* pi = previ + (size_t)s * prev_stride;
+  const float* cr = curr + (size_t)s * cur_stride;
+  const float* ci = curi + (size_t)s * cur_stride;
+  const int quads = C / 4;
+  for (int ch = tid; ch < n1 * quads; ch += nt) {
+    const int i1 = ch / quads, cc = 4 * (ch % quads);
+    const int t = i1 * kN2 + c0 + cc;
+    stage4(buf + i1 * C + cc, pr, cr, t, m);
+    stage4(buf + plane + i1 * C + cc, pi, ci, t, m);
+  }
+  for (int i = tid; i < n1; i += nt) {
+    wr[i] = pl.r1r[i];
+    wi[i] = pl.r1i[i];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const float* x = column_fft<false>(buf, plane, pl, wr, wi);
+  const size_t N = (size_t)n1 * kN2;
+  for (int k1 = threadIdx.y; k1 < n1; k1 += blockDim.y) {
+    const int at = k1 * kN2 + c0 + tx;
+    const cf v = cmul({x[k1 * C + tx], x[plane + k1 * C + tx]},
+                      {pl.twr[at], pl.twi[at]});
+    ar[s * N + at] = v.r;
+    ai[s * N + at] = v.i;
+  }
+}
+
+// 128-point FFT of one grid row held by one warp: lane l holds x[l + 32j]
+// in v[j]; on return it holds X[4 * brev5(l) + j].  A radix-4 pass across
+// the lane's values with twiddle w^(l*j), then radix-2 decimation in
+// frequency across lanes l ^ h, h = 16 .. 1.
+__device__ __forceinline__ void row_fft(cf* v, int lane, const float* wr,
+                                        const float* wi) {
+  dft4<false>(v[0], v[1], v[2], v[3]);
+#pragma unroll
+  for (int j = 1; j < 4; ++j) v[j] = cmul(v[j], root<false>(wr, wi, lane * j));
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1) {
+    const bool upper = lane & h;
+    const cf w = root<false>(wr, wi, (lane & (h - 1)) * (64 / h));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const cf p = {__shfl_xor_sync(0xffffffffu, v[j].r, h),
+                    __shfl_xor_sync(0xffffffffu, v[j].i, h)};
+      v[j] = upper ? cmul(p - v[j], w) : v[j] + p;
     }
   }
 }
 
-// Launch 3: inverse stage 1 over k1 for rows i1 < ho, written where t < n.
-// Scratch stream s lands on output row (s % row_mod) * row_mul + s / row_mod
-// (the identity for row_mod = X, row_mul = 1; the bank's [b, K, n] layout
-// for row_mod = b, row_mul = K).
-// grid (n2 / kCols, X), block (kCols, kRowsY), shared 2 * n1 * kCols floats.
-__global__ void os_inverse1(const float* __restrict__ ar,
-                            const float* __restrict__ ai,
-                            const float* __restrict__ e1r,
-                            const float* __restrict__ e1i,
-                            float* __restrict__ outr,
-                            float* __restrict__ outi, int out_stride, int n,
-                            int n1, int n2, int ho, int row_mod,
-                            int row_mul) {
-  extern __shared__ float smem[];
-  float* sr = smem;
-  float* si = smem + n1 * kCols;
-  const int s = blockIdx.y;
-  const size_t o = (size_t)(s % row_mod) * row_mul + s / row_mod;
-  const int tx = threadIdx.x;
-  const int c = blockIdx.x * kCols + tx;
-  const size_t N = (size_t)n1 * n2;
-  for (int k1 = threadIdx.y; k1 < n1; k1 += kRowsY) {
-    sr[k1 * kCols + tx] = ar[s * N + (size_t)k1 * n2 + c];
-    si[k1 * kCols + tx] = ai[s * N + (size_t)k1 * n2 + c];
-  }
-  __syncthreads();
-  for (int i1 = threadIdx.y; i1 < ho; i1 += kRowsY) {
-    float accr = 0.f, acci = 0.f;
-    for (int k1 = 0; k1 < n1; ++k1) {
-      const float a = e1r[(size_t)k1 * ho + i1], b = e1i[(size_t)k1 * ho + i1];
-      const float x = sr[k1 * kCols + tx], y = si[k1 * kCols + tx];
-      accr = fmaf(a, x, fmaf(-b, y, accr));
-      acci = fmaf(a, y, fmaf(b, x, acci));
+// The inverse of row_fft (unnormalised): from X[4 * brev5(l) + j] in v[j]
+// to x[l + 32j], by radix-2 decimation in time across lanes, h = 1 .. 16,
+// the conjugate twiddle, and the inverse radix-4 pass.
+__device__ __forceinline__ void row_ifft(cf* v, int lane, const float* wr,
+                                         const float* wi) {
+#pragma unroll
+  for (int h = 1; h <= 16; h <<= 1) {
+    const bool upper = lane & h;
+    const cf w = root<true>(wr, wi, (lane & (h - 1)) * (64 / h));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (upper) v[j] = cmul(v[j], w);
+      const cf p = {__shfl_xor_sync(0xffffffffu, v[j].r, h),
+                    __shfl_xor_sync(0xffffffffu, v[j].i, h)};
+      v[j] = upper ? p - v[j] : v[j] + p;
     }
-    const int t = i1 * n2 + c;
+  }
+#pragma unroll
+  for (int j = 1; j < 4; ++j) v[j] = cmul(v[j], root<true>(wr, wi, lane * j));
+  dft4<true>(v[0], v[1], v[2], v[3]);
+}
+
+// Launch 2: per grid row (stream, k1), one warp: the 128-point FFT, then
+// for each of nbands responses: multiply, inverse FFT, conjugate twiddle,
+// written to row band * rows + row of the output scratch.  The filter runs
+// it in place with one band (each warp reads its row before it writes);
+// the bank reads each forward row once for all its bands.
+// grid ceil(rows / kRowWarps), block 32 * kRowWarps.
+__global__ void __launch_bounds__(32 * kRowWarps)
+    os_rows(const float* ar, const float* ai, float* outr, float* outi,
+            Plan pl, const float* __restrict__ gr,
+            const float* __restrict__ gi, int rows, int nbands) {
+  __shared__ float wr[kN2], wi[kN2];
+  wr[threadIdx.x] = pl.r2r[threadIdx.x];
+  wi[threadIdx.x] = pl.r2i[threadIdx.x];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps: the shuffles see all 32 lanes
+  const int k1 = row % pl.n1;
+  const size_t at = (size_t)row * kN2 + lane;
+  cf v[4], tw[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[j] = {ar[at + 32 * j], ai[at + 32 * j]};
+    const int t = k1 * kN2 + lane + 32 * j;
+    tw[j] = {pl.twr[t], -pl.twi[t]};
+  }
+  row_fft(v, lane, wr, wi);
+  const int k2 = 4 * (__brev(lane) >> 27);
+  for (int band = 0; band < nbands; ++band) {
+    const size_t g = ((size_t)band * pl.n1 + k1) * kN2 + k2;
+    cf y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = cmul(v[j], {gr[g + j], gi[g + j]});
+    row_ifft(y, lane, wr, wi);
+    const size_t out = ((size_t)band * rows + row) * kN2 + lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const cf z = cmul(y[j], tw[j]);
+      outr[out + 32 * j] = z.r;
+      outi[out + 32 * j] = z.i;
+    }
+  }
+}
+
+// Launch 3: the inverse column FFT of one strip of scratch row s, rows
+// i1 < ho written where t < n, to output row (s % row_mod) * row_mul +
+// s / row_mod (the identity for row_mod = X, row_mul = 1; the bank's
+// [b, K, n] layout for row_mod = b, row_mul = K).
+// grid (128 / C, X), block (C, kColThreads / C), shared strip_bytes(n1, C).
+__global__ void __launch_bounds__(kColThreads)
+    os_inverse_columns(const float* __restrict__ ar,
+                       const float* __restrict__ ai, Plan pl,
+                       float* __restrict__ outr, float* __restrict__ outi,
+                       int out_stride, int n, int ho, int row_mod,
+                       int row_mul) {
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);
+  const int n1 = pl.n1, C = blockDim.x, plane = n1 * C, N = n1 * kN2;
+  float* wr = buf + 4 * plane;
+  float* wi = wr + n1;
+  const int s = blockIdx.y, c0 = blockIdx.x * C, tx = threadIdx.x;
+  const int tid = threadIdx.y * C + tx, nt = C * blockDim.y;
+  const float* sr = ar + (size_t)s * N;
+  const float* si = ai + (size_t)s * N;
+  const int quads = C / 4;
+  for (int ch = tid; ch < n1 * quads; ch += nt) {
+    const int k1 = ch / quads, cc = 4 * (ch % quads);
+    const int t = k1 * kN2 + c0 + cc;
+    // One source: with the seam at N every chunk comes from sr.
+    stage4(buf + k1 * C + cc, sr, sr, t, N);
+    stage4(buf + plane + k1 * C + cc, si, si, t, N);
+  }
+  for (int i = tid; i < n1; i += nt) {
+    wr[i] = pl.r1r[i];
+    wi[i] = pl.r1i[i];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const float* x = column_fft<true>(buf, plane, pl, wr, wi);
+  const size_t o = (size_t)(s % row_mod) * row_mul + s / row_mod;
+  for (int i1 = threadIdx.y; i1 < ho; i1 += blockDim.y) {
+    const int t = i1 * kN2 + c0 + tx;
     if (t < n) {
-      outr[o * out_stride + t] = accr;
-      outi[o * out_stride + t] = acci;
+      outr[o * out_stride + t] = x[i1 * C + tx];
+      outi[o * out_stride + t] = x[plane + i1 * C + tx];
     }
   }
 }
@@ -287,68 +555,61 @@ int set_smem(const void* fn, size_t bytes) {
 // band); launch 3 writes it to output row s * nbands + k.
 int run_stages(const float* prevr, const float* previ, int prev_stride,
                const float* curr, const float* curi, int cur_stride, int m,
-               int n, int X, int nbands, const float* d1r, const float* d1i,
-               const float* d2r, const float* d2i, const float* twr,
-               const float* twi, const float* e1r, const float* e1i,
-               const float* gr, const float* gi, float* fr, float* fi,
-               float* br, float* bi, float* outr, float* outi,
-               int out_stride, int n1, int ho, cudaStream_t stream) {
-  const int n2 = kN2;
-  const size_t strip = sizeof(float) * 2 * n1 * kCols;
-  const size_t mid = sizeof(float) * 2 * (kN2 * kN2 + kRowsPerBlock * kN2);
+               int n, int X, int nbands, const Plan& pl, const float* gr,
+               const float* gi, float* fr, float* fi, float* br, float* bi,
+               float* outr, float* outi, int out_stride, int ho,
+               cudaStream_t stream) {
+  const int cols = strip_cols(pl.n1);
+  const size_t strip = strip_bytes(pl.n1, cols);
   int err;
-  if ((err = set_smem((const void*)os_forward1, strip))) return err;
-  if ((err = set_smem((const void*)os_middle, mid))) return err;
-  if ((err = set_smem((const void*)os_inverse1, strip))) return err;
-  const dim3 threads(kCols, kRowsY);
-  os_forward1<<<dim3(n2 / kCols, X), threads, strip, stream>>>(
-      prevr, previ, prev_stride, curr, curi, cur_stride, m, d1r, d1i, twr,
-      twi, fr, fi, n1, n2);
+  if ((err = set_smem((const void*)os_forward_columns, strip))) return err;
+  if ((err = set_smem((const void*)os_inverse_columns, strip))) return err;
+  const dim3 threads(cols, kColThreads / cols);
+  os_forward_columns<<<dim3(kN2 / cols, X), threads, strip, stream>>>(
+      prevr, previ, prev_stride, curr, curi, cur_stride, m, pl, fr, fi);
   if ((err = (int)cudaGetLastError())) return err;
-  const int rows = X * n1;
-  int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (blocks > kMidBlocks) blocks = kMidBlocks;
-  os_middle<<<blocks, dim3(kN2, kRowsPerBlock), mid, stream>>>(
-      fr, fi, br, bi, d2r, d2i, gr, gi, twr, twi, rows, n1, nbands);
+  const int rows = X * pl.n1;
+  os_rows<<<(rows + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0,
+            stream>>>(fr, fi, br, bi, pl, gr, gi, rows, nbands);
   if ((err = (int)cudaGetLastError())) return err;
-  os_inverse1<<<dim3(n2 / kCols, X * nbands), threads, strip, stream>>>(
-      br, bi, e1r, e1i, outr, outi, out_stride, n, n1, n2, ho, X, nbands);
+  os_inverse_columns<<<dim3(kN2 / cols, X * nbands), threads, strip,
+                       stream>>>(br, bi, pl, outr, outi, out_stride, n, ho,
+                                 X, nbands);
   return (int)cudaGetLastError();
 }
 
 // One response, launch 2 in place on the scratch.
 int run_pipeline(const float* prevr, const float* previ, int prev_stride,
                  const float* curr, const float* curi, int cur_stride,
-                 int m, int n, int X, const float* d1r, const float* d1i,
-                 const float* d2r, const float* d2i, const float* twr,
-                 const float* twi, const float* e1r, const float* e1i,
-                 const float* gr, const float* gi, float* scr_r,
-                 float* scr_i, float* outr, float* outi, int out_stride,
-                 int n1, int ho, cudaStream_t stream) {
+                 int m, int n, int X, const Plan& pl, const float* gr,
+                 const float* gi, float* scr_r, float* scr_i, float* outr,
+                 float* outi, int out_stride, int ho, cudaStream_t stream) {
   return run_stages(prevr, previ, prev_stride, curr, curi, cur_stride, m, n,
-                    X, 1, d1r, d1i, d2r, d2i, twr, twi, e1r, e1i, gr, gi,
-                    scr_r, scr_i, scr_r, scr_i, outr, outi, out_stride, n1,
-                    ho, stream);
+                    X, 1, pl, gr, gi, scr_r, scr_i, scr_r, scr_i, outr, outi,
+                    out_stride, ho, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every entry point takes the geometry's tables (ops/filter.py _tables:
+// packed float32 roots and twiddle, int32 radices and their count) and
+// the column length n1 and output rows ho = ceil(n / 128).
+
 // One overlap-save step for X complex streams: prev [X, m] and cur [X, n]
 // planes (row strides given), grid planes [n1, 128], scratch planes
 // [X, N], out planes [X, n] (row stride given).
 int rr_overlap_save(const float* prevr, const float* previ, int prev_stride,
                     const float* curr, const float* curi, int cur_stride,
-                    int m, int n, int X, const float* d1r, const float* d1i,
-                    const float* d2r, const float* d2i, const float* twr,
-                    const float* twi, const float* e1r, const float* e1i,
-                    const float* gr, const float* gi, float* scr_r,
-                    float* scr_i, float* outr, float* outi, int out_stride,
-                    int n1, int ho, void* stream) {
+                    int m, int n, int X, const float* tables,
+                    const int* radix, int npass, const float* gr,
+                    const float* gi, float* scr_r, float* scr_i, float* outr,
+                    float* outi, int out_stride, int n1, int ho,
+                    void* stream) {
   return run_pipeline(prevr, previ, prev_stride, curr, curi, cur_stride, m,
-                      n, X, d1r, d1i, d2r, d2i, twr, twi, e1r, e1i, gr, gi,
-                      scr_r, scr_i, outr, outi, out_stride, n1, ho,
+                      n, X, make_plan(tables, radix, npass, n1), gr, gi,
+                      scr_r, scr_i, outr, outi, out_stride, ho,
                       (cudaStream_t)stream);
 }
 
@@ -359,11 +620,10 @@ int rr_demod_filter(const float* curr, const float* curi, const float* plr,
                     const float* pli, const float* prevd,
                     const float* last_out, const float* have_prev,
                     const float* fac, float* dout, float* zr, float* zi,
-                    int b, int n, int m, const float* d1r, const float* d1i,
-                    const float* d2r, const float* d2i, const float* twr,
-                    const float* twi, const float* e1r, const float* e1i,
-                    const float* gr, const float* gi, float* scr_r,
-                    float* scr_i, float* y, int n1, int ho, void* stream) {
+                    int b, int n, int m, const float* tables,
+                    const int* radix, int npass, const float* gr,
+                    const float* gi, float* scr_r, float* scr_i, float* y,
+                    int n1, int ho, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int N = n + m;
   demod_pack<<<dim3((N + 255) / 256, b), 256, 0, st>>>(
@@ -371,41 +631,39 @@ int rr_demod_filter(const float* curr, const float* curi, const float* plr,
       nullptr, nullptr, n, m);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  return run_pipeline(zr, zi, N, zr + m, zi + m, N, m, n, b / 2, d1r, d1i,
-                      d2r, d2i, twr, twi, e1r, e1i, gr, gi, scr_r, scr_i, y,
-                      y + n, 2 * n, n1, ho, st);
+  return run_pipeline(zr, zi, N, zr + m, zi + m, N, m, n, b / 2,
+                      make_plan(tables, radix, npass, n1), gr, gi, scr_r,
+                      scr_i, y, y + n, 2 * n, ho, st);
 }
 
 // Channel filter, FM demod and deemphasis filter of b streams (b even), the
-// two filters sharing the factor matrices and the history length m:
-// the channel filter writes the filtered planes fr/fi [b, n]; the demod
-// prologue reads them with the carried filtered sample plr/pli, writes
-// dout [b, n], zr/zi [b/2, N] and the last filtered sample flr/fli [b];
-// the deemphasis filter writes y [b, n] from the pair-packed zr/zi.  The
-// scratch planes hold [b, N].
+// two filters sharing the tables and the history length m: the channel
+// filter writes the filtered planes fr/fi [b, n]; the demod prologue reads
+// them with the carried filtered sample plr/pli, writes dout [b, n],
+// zr/zi [b/2, N] and the last filtered sample flr/fli [b]; the deemphasis
+// filter writes y [b, n] from the pair-packed zr/zi.  The scratch planes
+// hold [b, N].
 int rr_filter_demod_filter(
     const float* prevr, const float* previ, const float* curr,
     const float* curi, const float* plr, const float* pli,
     const float* prevd, const float* last_out, const float* have_prev,
     const float* fac, float* fr, float* fi, float* dout, float* zr,
     float* zi, float* flr, float* fli, int b, int n, int m,
-    const float* d1r, const float* d1i, const float* d2r, const float* d2i,
-    const float* twr, const float* twi, const float* e1r, const float* e1i,
-    const float* g1r, const float* g1i, const float* g2r, const float* g2i,
-    float* scr_r, float* scr_i, float* y, int n1, int ho, void* stream) {
+    const float* tables, const int* radix, int npass, const float* g1r,
+    const float* g1i, const float* g2r, const float* g2i, float* scr_r,
+    float* scr_i, float* y, int n1, int ho, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int N = n + m;
-  int err = run_pipeline(prevr, previ, m, curr, curi, n, m, n, b, d1r, d1i,
-                         d2r, d2i, twr, twi, e1r, e1i, g1r, g1i, scr_r,
-                         scr_i, fr, fi, n, n1, ho, st);
+  const Plan pl = make_plan(tables, radix, npass, n1);
+  int err = run_pipeline(prevr, previ, m, curr, curi, n, m, n, b, pl, g1r,
+                         g1i, scr_r, scr_i, fr, fi, n, ho, st);
   if (err) return err;
   demod_pack<<<dim3((N + 255) / 256, b), 256, 0, st>>>(
       fr, fi, plr, pli, prevd, last_out, have_prev, fac, dout, zr, zi, flr,
       fli, n, m);
   if ((err = (int)cudaGetLastError())) return err;
-  return run_pipeline(zr, zi, N, zr + m, zi + m, N, m, n, b / 2, d1r, d1i,
-                      d2r, d2i, twr, twi, e1r, e1i, g2r, g2i, scr_r, scr_i,
-                      y, y + n, 2 * n, n1, ho, st);
+  return run_pipeline(zr, zi, N, zr + m, zi + m, N, m, n, b / 2, pl, g2r,
+                      g2i, scr_r, scr_i, y, y + n, 2 * n, ho, st);
 }
 
 // K overlap-save filters of b complex streams sharing one forward
@@ -414,15 +672,13 @@ int rr_filter_demod_filter(
 // [b, K, n].
 int rr_filter_bank(const float* prevr, const float* previ, const float* curr,
                    const float* curi, int m, int n, int b, int nbands,
-                   const float* d1r, const float* d1i, const float* d2r,
-                   const float* d2i, const float* twr, const float* twi,
-                   const float* e1r, const float* e1i, const float* gr,
-                   const float* gi, float* fr, float* fi, float* br,
-                   float* bi, float* outr, float* outi, int n1, int ho,
-                   void* stream) {
-  return run_stages(prevr, previ, m, curr, curi, n, m, n, b, nbands, d1r,
-                    d1i, d2r, d2i, twr, twi, e1r, e1i, gr, gi, fr, fi, br,
-                    bi, outr, outi, n, n1, ho, (cudaStream_t)stream);
+                   const float* tables, const int* radix, int npass,
+                   const float* gr, const float* gi, float* fr, float* fi,
+                   float* br, float* bi, float* outr, float* outi, int n1,
+                   int ho, void* stream) {
+  return run_stages(prevr, previ, m, curr, curi, n, m, n, b, nbands,
+                    make_plan(tables, radix, npass, n1), gr, gi, fr, fi, br,
+                    bi, outr, outi, n, ho, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -21,6 +21,11 @@ k = k1 + n1*k2 on an n1 x n2 grid of the N = m + n point transform, with
 n2 = 128; :func:`response_grid` maps a response vector R[N] to the
 [n1, n2] grid with the inverse's 1/N folded in.
 
+The kernels run the length-n1 column transforms as mixed-radix Stockham
+passes (:func:`fft_radices` gives the pass order) and the 128-point row
+transforms as one radix-4 pass and five radix-2 passes across a warp;
+every twiddle comes from the float32 root tables of :func:`fft_roots`.
+
 Each wrapper takes the JAX function's arguments as float32 tensors.  On
 CUDA it launches the kernels of ``csrc/overlap_save.cu`` and counts the
 launch in its ``launches`` attribute; on the CPU it runs the plain
@@ -37,14 +42,16 @@ import torch
 
 from . import _build
 
-__all__ = ["kernel_factors", "supported", "bank_supported",
-           "response_grid", "fused_overlap_save", "fused_overlap_save_plain",
-           "fused_filter_bank", "fused_filter_bank_plain",
-           "fused_demod_filter", "fused_demod_filter_plain",
-           "fused_filter_demod_filter", "fused_filter_demod_filter_plain"]
+__all__ = ["kernel_factors", "supported", "bank_supported", "fft_radices",
+           "fft_roots", "response_grid", "fused_overlap_save",
+           "fused_overlap_save_plain", "fused_filter_bank",
+           "fused_filter_bank_plain", "fused_demod_filter",
+           "fused_demod_filter_plain", "fused_filter_demod_filter",
+           "fused_filter_demod_filter_plain"]
 
 N2 = 128          # the lane factor of the grid layout
-_MAX_N1 = 768     # a 32-column strip of n1 rows must fit shared memory
+_MAX_N1 = 768     # two 16-column strip buffers of n1 rows fit shared memory
+_RADICES = (8, 4, 2, 3, 5)   # the kernel's specialised butterflies
 
 
 def kernel_factors(n_total: int):
@@ -85,37 +92,59 @@ def response_grid(response: torch.Tensor) -> torch.Tensor:
     return torch.complex(g.real / N, g.imag / N)
 
 
-@functools.lru_cache(maxsize=32)
-def _factor_constants(N: int, n1: int, n2: int,
-                      ho: int) -> Tuple[np.ndarray, ...]:
-    """DFT factor matrices designed in float64, cast to float32:
-    D1 [n1, n1], D2 [n2, n2], twiddle [n1, n2], E1 = conj(D1)[:, :ho]."""
-    k1 = np.arange(n1)
-    d1 = np.exp(-2j * np.pi * np.outer(k1, k1) / n1)
-    k2 = np.arange(n2)
-    d2 = np.exp(-2j * np.pi * np.outer(k2, k2) / n2)
-    tw = np.exp(-2j * np.pi * np.outer(k1, np.arange(n2)) / N)
-    e1 = np.ascontiguousarray(np.conj(d1)[:, :ho])
+def fft_radices(n: int) -> Tuple[int, ...]:
+    """The kernel's pass order for a length-n transform: radix 8 while it
+    divides, then 4 or 2, then 3s, 5s, and each other prime factor as one
+    generic pass (ascending).  The product is n; n = 1 has no pass."""
     out = []
-    for c in (d1, d2, tw, e1):
-        out += [np.ascontiguousarray(c.real, np.float32),
-                np.ascontiguousarray(c.imag, np.float32)]
+    for p in _RADICES:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+    p = 7
+    while n > 1:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+        p += 2
     return tuple(out)
 
 
-_device_constants = {}
+def fft_roots(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(re, im) float32 of exp(-2 pi i j / n), j < n: every twiddle of a
+    length-n transform (and, at index j * n / p, every root of its
+    radix-p butterflies).  Designed in float64, cast to float32."""
+    w = np.exp(-2j * np.pi * np.arange(n) / n)
+    return w.real.astype(np.float32), w.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _tables(N: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernels' float32 tables, packed: the n1 column roots (re, im),
+    the 128 row roots (re, im) and the four-step twiddle exp(-2 pi i k1 i2
+    / N) [n1, n2] (re, im); and the int32 column radices."""
+    n1, n2 = kernel_factors(N)
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / N)
+    floats = np.concatenate([*fft_roots(n1), *fft_roots(n2),
+                             tw.real.astype(np.float32).ravel(),
+                             tw.imag.astype(np.float32).ravel()])
+    return floats, np.asarray(fft_radices(n1), np.int32)
+
+
+_device_tables = {}
 
 
 def _constants(N: int, n: int, device) -> Tuple[int, int, tuple]:
-    """(n1, ho, factor tensors on ``device``), uploaded once."""
+    """(n1, ho, (tables, radices, number of passes)) with the tables on
+    ``device``, uploaded once per transform size and device."""
     n1, n2 = kernel_factors(N)
     ho = -(-n // n2)
-    key = (N, ho, str(device))
-    if key not in _device_constants:
-        _device_constants[key] = tuple(
-            torch.from_numpy(c).to(device)
-            for c in _factor_constants(N, n1, n2, ho))
-    return n1, ho, _device_constants[key]
+    key = (N, str(device))
+    if key not in _device_tables:
+        _device_tables[key] = tuple(torch.from_numpy(c).to(device)
+                                    for c in _tables(N))
+    floats, radices = _device_tables[key]
+    return n1, ho, (floats.data_ptr(), radices.data_ptr(), len(radices))
 
 
 def _check_geometry(n: int, m: int):
@@ -168,8 +197,7 @@ def fused_overlap_save(prevr, previ, curr, curi, resp_gr, resp_gi):
     fused_overlap_save.launches += 1
     err = _build.lib().rr_overlap_save(
         ptr(prevr, "prevr"), ptr(previ, "previ"), m,
-        ptr(curr, "curr"), ptr(curi, "curi"), n, m, n, b,
-        *(c.data_ptr() for c in consts),
+        ptr(curr, "curr"), ptr(curi, "curi"), n, m, n, b, *consts,
         ptr(resp_gr, "resp_gr"), ptr(resp_gi, "resp_gi"),
         scr_r.data_ptr(), scr_i.data_ptr(), outr.data_ptr(),
         outi.data_ptr(), n, n1, ho, _build.stream_handle(dev))
@@ -225,8 +253,7 @@ def fused_filter_bank(prevr, previ, curr, curi, resp_gr, resp_gi):
     fused_filter_bank.launches += 1
     err = _build.lib().rr_filter_bank(
         *(ptr(t, nm) for t, nm in zip(tensors, names)), m, n, b, K,
-        *(c.data_ptr() for c in consts),
-        ptr(resp_gr, "resp_gr"), ptr(resp_gi, "resp_gi"),
+        *consts, ptr(resp_gr, "resp_gr"), ptr(resp_gi, "resp_gi"),
         fr.data_ptr(), fi.data_ptr(), br.data_ptr(), bi.data_ptr(),
         outr.data_ptr(), outi.data_ptr(), n1, ho, _build.stream_handle(dev))
     _build.check(err, "fused_filter_bank")
@@ -297,7 +324,7 @@ def fused_demod_filter(curr, curi, prev_last_r, prev_last_i, prevd,
     fused_demod_filter.launches += 1
     err = _build.lib().rr_demod_filter(
         *ptrs, fac.data_ptr(), dout.data_ptr(), zr.data_ptr(),
-        zi.data_ptr(), b, n, m, *(c.data_ptr() for c in consts),
+        zi.data_ptr(), b, n, m, *consts,
         _build.f32_ptr(resp_gr, "resp_gr"), _build.f32_ptr(resp_gi, "resp_gi"),
         scr_r.data_ptr(), scr_i.data_ptr(), y.data_ptr(), n1, ho,
         _build.stream_handle(dev))
@@ -370,7 +397,7 @@ def fused_filter_demod_filter(prevr, previ, curr, curi, prev_last_r,
     err = _build.lib().rr_filter_demod_filter(
         *ptrs, fac.data_ptr(), fr.data_ptr(), fi.data_ptr(), dout.data_ptr(),
         zr.data_ptr(), zi.data_ptr(), flr.data_ptr(), fli.data_ptr(), b, n,
-        m, *(c.data_ptr() for c in consts), *grids, scr_r.data_ptr(),
+        m, *consts, *grids, scr_r.data_ptr(),
         scr_i.data_ptr(), y.data_ptr(), n1, ho, _build.stream_handle(dev))
     _build.check(err, "fused_filter_demod_filter")
     return y, dout, flr, fli
