@@ -8,10 +8,20 @@
 2. Builds the port's CUDA kernels from ``radiorust_tpu_torch/csrc`` (at
    first use, one nvcc per source) and holds each of the nine kernels
    against its plain PyTorch version on the same CUDA tensors at the
-   shapes of the path that runs it (#1 also at the ``fuse_deemphasis``
-   and 256k -> 32k plans, #3 and #4 also at the geometries of paths E-G
-   and at column lengths n1 = 77 and, #3, n1 = 768; #9, which no block
-   calls, at path F's AGC shape).
+   shapes of the path that runs it (#1 and #2 also through their
+   float-plane signatures, #1 also at the ``fuse_deemphasis`` fold, at
+   paths F/G's and C's plans, on a ragged last tile and on misaligned
+   planes; #3 and #4 also at the geometries of paths E-G and at column
+   lengths n1 = 77 and, #3, n1 = 768; #9, which no block calls, at path
+   F's AGC shape).  Each check prints the call's bound: the larger of
+   its bytes (each input read once, each output written once) over 3.35
+   TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM data
+   sheet), and the device time's share of it.  Where one PyTorch call
+   computes the function (#1: ``conv1d`` with stride p; #3, #4:
+   ``conv1d`` with the impulse response as a real [2K, 2, N] weight; #2:
+   the same ``conv1d`` for its FIR part alone) that call is timed beside
+   the kernel as a yardstick, with its error against the plain version;
+   the port never calls it.
 3. Drives seven paths, 16 chunks each, with every launch counter set to
    0 just before and read just after, and checks that each kernel of the
    path was launched, that the output is finite and right, and that the
@@ -41,8 +51,8 @@
       output peaks at its own tone, the other below 0.02 of it.
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
-   repetitions; the overlap-save kernels also as a CUDA graph replay,
-   their device time without the wrapper's host work), and
+   repetitions; #1 to #6 also as a CUDA graph replay, their device time
+   without the wrapper's host work), and
    ``AgcControl``'s associative scan beside #9 at path F's shape;
    ``--profile`` adds each path's device time by kernel (torch.profiler).
 
@@ -92,6 +102,14 @@ KEYING_RATIO = 10.0   # morse audio: key-down level over key-up level
 FADE_REL = 0.15       # AM with AGC: RMS after a 6 dB fade vs before
 ISB_TONE_HZ = 40.0    # ISB: each sideband peaks within this of its tone
 ISB_REJECT = 0.02     # ISB: the other sideband's tone over the wanted one
+PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3, bytes/s (NVIDIA's data sheet)
+PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+# Operations counted per sample where a kernel's work is not a product
+# of taps: a complex FFT of N points 5 N log2 N, a complex multiply 6;
+# FM demod (conjugate product, atan2 counted as one, scale) 8; the
+# mixer's two complex multiplies and the oscillator's product 18; one
+# slew-limiter step 12, one AGC step 10.
+DEMOD_FLOPS, MIX_FLOPS, SLEW_FLOPS, AGC_FLOPS = 8, 18, 12, 10
 
 
 def card() -> str:
@@ -136,6 +154,78 @@ def compare(got, want):
         abs_err = max(abs_err, d)
         rel = max(rel, d / max(float(w.abs().max()), 1e-30))
     return abs_err, rel
+
+
+def tensors(obj):
+    """The tensors of a nested tuple or list of arguments or results."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in tensors(o)]
+    return []
+
+
+def io_bytes(args, results) -> int:
+    """Bytes a call must move: each input tensor read once, each output
+    written once (a complex tensor's ``.real`` and ``.imag`` views count
+    as its two halves; a tensor passed twice, once)."""
+    seen, total = set(), 0
+    for t in tensors(args) + tensors(results):
+        key = (t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
+        if key not in seen:
+            seen.add(key)
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound_of(nbytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def fft_flops(n: int) -> float:
+    return 5.0 * n * np.log2(n)
+
+
+def conv_decimate(xplanes, hplanes, kernel_matrix, p):
+    """#1's function as one PyTorch call: ``conv1d(buf, W[:, None, :],
+    stride=p)`` on the prebuilt [hist || x] planes ([planes * b, q, M]);
+    and a map of the kernel's planes [b, M q] to that layout."""
+    buf = torch.cat([torch.stack(hplanes), torch.stack(xplanes)], dim=-1)
+    buf = buf.reshape(-1, 1, buf.shape[-1])
+    w = kernel_matrix[:, None, :]
+    q = kernel_matrix.shape[0]
+
+    def layout(planes):
+        y = torch.stack(planes)
+        return [y.reshape(-1, y.shape[-1] // q, q).transpose(1, 2)]
+
+    return (lambda: torch.nn.functional.conv1d(buf, w, stride=p)), layout
+
+
+def conv_overlap_save(prev, cur, responses):
+    """#3 / #4's function as one PyTorch call: the circular convolution of
+    each [prev || cur] buffer (complex [b, N]) with the K impulse
+    responses ifft(R) ([K, N]), first n outputs, as ``conv1d`` of the
+    (re, im) channels of [z[1:] || z[:n]] with the flipped responses as
+    a real [2K, 2, N] weight ([b, 2K, n]: band k's re, im at 2k, 2k+1);
+    and a map of the kernel's (re, im) planes to that layout."""
+    n = cur.shape[-1]
+    z = torch.cat([prev, cur], dim=-1)
+    inp = torch.cat([z[:, 1:], z[:, :n]], dim=-1)
+    inp = torch.stack([inp.real, inp.imag], dim=1).contiguous()
+    h = torch.fft.ifft(responses.reshape(-1, z.shape[-1])).flip(-1)
+    w = torch.stack([torch.stack([h.real, -h.imag], 1),
+                     torch.stack([h.imag, h.real], 1)], 1)
+    w = w.reshape(-1, 2, z.shape[-1]).contiguous()
+
+    def layout(planes):
+        re, im = (t.reshape(t.shape[0], -1, n) for t in planes)
+        return [torch.stack([re, im], 2).reshape(re.shape[0], -1, n)]
+
+    return (lambda: torch.nn.functional.conv1d(inp, w)), layout
 
 
 def fm_tones(tones, t_chunks, n, offset, deviation=150000.0):
@@ -289,6 +379,12 @@ def profile_chain(run, steps: int, tag: str) -> None:
     busy = sum(r[0] for r in rows)
     print(f"profile over {steps} steps: wall {wall_us:.1f} us, device busy "
           f"{busy:.1f} us ({100 * busy / wall_us:.1f}%) {tag}")
+    # Glue: PyTorch's own kernels (namespace at::) and copies between
+    # the port's kernels.
+    glue = [r for r in rows if "at::" in r[2] or r[2].startswith("Mem")]
+    print(f"  glue: {sum(r[0] for r in glue) / steps:.1f} us/step, "
+          f"{sum(r[1] for r in glue) / steps:.2f} launches/step of "
+          f"{sum(r[1] for r in rows) / steps:.2f} {tag}")
     for dev_us, count, key in rows[:15]:
         print(f"  {dev_us / steps:9.1f} us/step  {count // steps:3d} "
               f"calls/step  {key[:90]}")
@@ -364,36 +460,61 @@ def main() -> None:
         {"iq": an_sig})
     kernels = []
 
-    def check(name, source, replaces, bound_, kernel, plain, args,
-              outputs=None, record=True, absolute=False,
-              plain_timing=(3, 20), graphed=False):
+    def check(name, source, replaces, bound_, kernel, plain, args, flops,
+              outputs=None, record=True, of=None, absolute=False,
+              plain_timing=(3, 20), graphed=False, library=None,
+              inputs=None):
         """Kernel vs plain on the same CUDA tensors: max |diff| /
         max |ref| within ``bound_`` (max |diff| if ``absolute``);
-        ``plain_timing`` = (warm-up calls, timed calls) of the plain
-        version; ``graphed`` adds the kernel's device time per call from
-        a CUDA graph replay."""
-        got = kernel(*args)
-        want = plain(*args)
-        got = got if outputs is None else outputs(got)
-        want = want if outputs is None else outputs(want)
+        ``flops``: the operations the function needs on these inputs,
+        for its bound (``inputs``: the tensors it reads, where not all
+        of ``args``); ``plain_timing`` = (warm-up calls, timed calls)
+        of the plain version; ``graphed`` adds the kernel's device time
+        per call from a CUDA graph replay; ``library`` = (label, call,
+        layout): one PyTorch call computing the function on prebuilt
+        inputs, timed as the yardstick, and the map of the plain
+        version's result to that call's layout.  A check not recorded as
+        a kernel's entry is listed under the entry named ``of``."""
+        res = kernel(*args)
+        want_res = plain(*args)
+        got = res if outputs is None else outputs(res)
+        want = want_res if outputs is None else outputs(want_res)
         abs_err, rel = compare(got, want)
         ms = cuda_ms(lambda: kernel(*args))
         warmup, reps = plain_timing
         plain_ms = cuda_ms(lambda: plain(*args), reps=reps, warmup=warmup)
         err, kind = (abs_err, "max|diff|") if absolute else (rel, "rel")
-        device = (f" (device {graph_ms(lambda: kernel(*args)) * 1e3:.1f} us "
-                  f"in a CUDA graph)" if graphed else "")
+        bound_ms, bound_by = bound_of(
+            io_bytes(args if inputs is None else inputs, res), flops)
+        device_ms = graph_ms(lambda: kernel(*args)) if graphed else None
+        share = bound_ms / (device_ms or ms)
+        lib_ms = lib_rel = None
+        lib_text = ""
+        if library is not None:
+            label, call, layout = library
+            _, lib_rel = compare([call()], layout(want_res))
+            lib_ms = cuda_ms(call, reps=5, warmup=1)
+            lib_text = (f", {label} {lib_ms * 1e3:.1f} us (rel "
+                        f"{lib_rel:.1e} to plain)")
+        device = (f" (device {device_ms * 1e3:.1f} us in a CUDA graph)"
+                  if graphed else "")
         print(f"{name}: max|diff|={abs_err:.3e} max|diff|/max|ref|="
               f"{rel:.3e} (bound {bound_:g} on {kind}); kernel "
-              f"{ms * 1e3:.1f} us{device}, plain {plain_ms * 1e3:.1f} us "
-              f"per call {tag}")
+              f"{ms * 1e3:.1f} us{device}, plain {plain_ms * 1e3:.1f} us"
+              f"{lib_text} per call; least time {bound_ms * 1e3:.2f} us "
+              f"({bound_by}), {100 * share:.1f}% of it {tag}")
         if not err <= bound_:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version ({err:.3e} > {bound_:g})")
+        row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                   device_ms=device_ms, library_rel=lib_rel)
         if record:
             kernels.append(dict(name=name, route="cuda", source=source,
-                                replaces=replaces, max_abs_err=abs_err,
-                                ms=ms, plain_ms=plain_ms))
+                                replaces=replaces, **row, geometries=[]))
+        elif of is not None:
+            entry = next(k for k in kernels if k["name"] == of)
+            entry["geometries"].append(dict(geometry=name, **row))
 
     flat = lambda res: [t for part in res for t in
                         (part if isinstance(part, tuple) else (part,))]
@@ -401,43 +522,114 @@ def main() -> None:
     grid_planes = lambda r: planes(ofl.response_grid(
         torch.from_numpy(r).to(dev)))
 
+    # #1 and #2 as the blocks call them, on complex64 tensors in place,
+    # at every plan the paths bind, then through the float-plane
+    # signatures of the JAX functions.
     n_mid = mixdec.out_sig.chunk_len
+    decim_src = "radiorust_tpu_torch/csrc/decimate.cu"
+    cplx = lambda *shape: torch.complex(randn(*shape), randn(*shape))
+    planes_of = lambda z: (z.real, z.imag)
+
+    def check_decimate(label, plan, b, n, real_input, record=False):
+        x, h = cplx(b, n), cplx(b, plan.hist)
+        w = torch.from_numpy(plan.kernel).to(dev)
+        part = (lambda z: (z.real,)) if real_input else planes_of
+        call, layout = conv_decimate(part(x), part(h), w, plan.p)
+        flops = 2 * len(part(x)) * b * (n // plan.p) * plan.q * w.shape[1]
+        check(label, decim_src, "radiorust_tpu/ops/pallas_frontend.py:181",
+              FIR_BOUND, ofe.decimate_complex, ofe.decimate_complex_plain,
+              (x, h, w, plan.p, plan.q, real_input), flops,
+              inputs=(*part(x), *part(h), w), record=record, of="decimate",
+              graphed=True,
+              library=("conv1d", call, lambda r: layout(part(r[0]))))
+
     plan = tail.plan
-    check("decimate", "radiorust_tpu_torch/csrc/decimate.cu",
-          "radiorust_tpu/ops/pallas_frontend.py:181", FIR_BOUND,
-          ofe.decimate, ofe.decimate_plain,
-          ((randn(BATCH, n_mid),), (randn(BATCH, plan.hist),),
-           torch.from_numpy(plan.kernel).to(dev), plan.p, plan.q),
-          outputs=flat)
+    check_decimate("decimate", plan, BATCH, n_mid, True, record=True)
     deemph = wfm_receiver(**dict(CHAIN, fuse_demod=False,
                                  fuse_deemphasis=True)).bind(sig)
     dplan = deemph.blocks[3].plan
-    check(f"decimate at the fuse_deemphasis plan ({dplan.kernel.shape[1]} "
-          f"taps, {dplan.p}:{dplan.q})", "", "", FIR_BOUND,
-          ofe.decimate, ofe.decimate_plain,
-          ((randn(BATCH, n_mid),), (randn(BATCH, dplan.hist),),
-           torch.from_numpy(dplan.kernel).to(dev), dplan.p, dplan.q),
-          outputs=flat, record=False)
+    check_decimate(f"decimate at the fuse_deemphasis fold ("
+                   f"{dplan.kernel.shape[1]} taps, {dplan.p}:{dplan.q})",
+                   dplan, BATCH, n_mid, True)
+    check_decimate(f"decimate at path C's call (L + jR, {plan.p}:{plan.q}, "
+                   f"two planes)", plan, BATCH, n_mid, False)
+    aplan = bound_f.blocks[1].plan
+    check_decimate(f"decimate at paths F/G's plan ({aplan.kernel.shape[1]} "
+                   f"taps, {aplan.p}:{aplan.q}, two planes)", aplan, BATCH,
+                   AN_CHUNK, False)
+    check_decimate(f"decimate on a ragged last tile (F's plan, "
+                   f"{1000 * aplan.p} samples)", aplan, BATCH,
+                   1000 * aplan.p, False)
+    xs_a = (randn(BATCH, n_mid),)
+    hs_a = (randn(BATCH, plan.hist),)
+    w_a = torch.from_numpy(plan.kernel).to(dev)
+    call, layout = conv_decimate(xs_a, hs_a, w_a, plan.p)
+    check("decimate, float planes (the JAX signature), at A's tail", "",
+          "", FIR_BOUND, ofe.decimate, ofe.decimate_plain,
+          (xs_a, hs_a, w_a, plan.p, plan.q),
+          2 * BATCH * (n_mid // plan.p) * plan.q * w_a.shape[1],
+          outputs=flat, record=False, of="decimate", graphed=True,
+          library=("conv1d", call, lambda r: layout(r[0])))
+    # Rows one sample longer than the chunk, starting one sample in: no
+    # 16-byte loads.
+    odd = lambda *shape: randn(shape[0], shape[1] + 1)[:, 1:]
+    check("decimate on misaligned float planes (F's plan)", "", "",
+          FIR_BOUND, ofe.decimate, ofe.decimate_plain,
+          ((odd(BATCH, AN_CHUNK), odd(BATCH, AN_CHUNK)),
+           (odd(BATCH, aplan.hist), odd(BATCH, aplan.hist)),
+           torch.from_numpy(aplan.kernel).to(dev), aplan.p, aplan.q),
+          2 * 2 * BATCH * (AN_CHUNK // aplan.p) * aplan.q
+          * aplan.kernel.shape[1], outputs=flat, record=False,
+          of="decimate", graphed=True)
 
+    hplan = mixdec.plan
     ta = torch.from_numpy(mixdec.params["table_a"]).to(dev)
     tb = torch.from_numpy(mixdec.params["table_b"]).to(dev)
     ph = randn(BATCH)
-    check("fused_mix_decimate", "radiorust_tpu_torch/csrc/decimate.cu",
+    c0, s0 = torch.cos(ph), torch.sin(ph)
+    x = cplx(BATCH, CHUNK)
+    hr, hi = randn(BATCH, hplan.hist), randn(BATCH, hplan.hist)
+    w_h = torch.from_numpy(hplan.kernel).to(dev)
+    mix_flops = (2 * 2 * BATCH * (CHUNK // hplan.p) * hplan.q * w_h.shape[1]
+                 + MIX_FLOPS * BATCH * CHUNK)
+    # The yardstick's FIR part runs on the signal mixed beforehand: no
+    # single PyTorch call mixes and decimates.
+    mixed = x * (ta[:, None] * tb[None, :]).reshape(-1) * torch.complex(
+        c0, s0)[:, None]
+    call, layout = conv_decimate(planes_of(mixed), (hr, hi), w_h, hplan.p)
+    check("fused_mix_decimate", decim_src,
           "radiorust_tpu/ops/pallas_frontend.py:241", FIR_BOUND,
-          ofe.fused_mix_decimate, ofe.fused_mix_decimate_plain,
-          (randn(BATCH, CHUNK), randn(BATCH, CHUNK), *planes(ta),
-           *planes(tb), torch.cos(ph), torch.sin(ph),
-           randn(BATCH, mixdec.plan.hist), randn(BATCH, mixdec.plan.hist),
-           torch.from_numpy(mixdec.plan.kernel).to(dev),
-           mixdec.plan.p, mixdec.plan.q))
+          ofe.fused_mix_decimate_complex,
+          ofe.fused_mix_decimate_complex_plain,
+          (x, ta, tb, c0, s0, hr, hi, w_h, hplan.p, hplan.q), mix_flops,
+          graphed=True,
+          library=("conv1d (FIR part only, on the mixed signal)", call,
+                   lambda r: layout(planes_of(r[0]))))
+    check("fused_mix_decimate, float planes (the JAX signature), at A's "
+          "head", "", "", FIR_BOUND, ofe.fused_mix_decimate,
+          ofe.fused_mix_decimate_plain,
+          (*planes(x), *planes(ta), *planes(tb), c0, s0, hr, hi, w_h,
+           hplan.p, hplan.q), mix_flops, record=False,
+          of="fused_mix_decimate", graphed=True,
+          library=("conv1d (FIR part only, on the mixed signal)", call,
+                   lambda r: layout(r[:2])))
+
+    def os_flops(rows, N, bands=1):
+        """One forward transform of N points per row, then per band a
+        response multiply and an inverse."""
+        return rows * (fft_flops(N) + bands * (6 * N + fft_flops(N)))
 
     m = filt.ir_len
+    prev, cur = cplx(BATCH, m), cplx(BATCH, n_mid)
+    call, layout = conv_overlap_save(
+        prev, cur, torch.from_numpy(filt.params["response"]).to(dev))
     check("fused_overlap_save", "radiorust_tpu_torch/csrc/overlap_save.cu",
           "radiorust_tpu/ops/pallas_filter.py:547", FILTER_BOUND,
           ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
-          (randn(BATCH, m), randn(BATCH, m), randn(BATCH, n_mid),
-           randn(BATCH, n_mid), *grid_planes(filt.params["response"])),
-          graphed=True)
+          (*planes(prev), *planes(cur),
+           *grid_planes(filt.params["response"])),
+          os_flops(BATCH, m + n_mid), graphed=True,
+          library=("conv1d", call, layout))
 
     # FM at the mid-chain rate, continuous across [history || chunk]:
     # where the filtered signal has a magnitude, its demod is not chaotic.
@@ -450,6 +642,7 @@ def main() -> None:
           (*planes(fm[:, m:]), *planes(last), randn(BATCH, m),
            randn(BATCH), have, *grid_planes(demod.params["response"]),
            torch.tensor(demod.params["factor"], device=dev)),
+          DEMOD_FLOPS * BATCH * n_mid + os_flops(BATCH // 2, m + n_mid),
           graphed=True)
 
     fdf = bound_mid.blocks[1]
@@ -462,18 +655,25 @@ def main() -> None:
            *grid_planes(fdf.params["response1"]),
            *grid_planes(fdf.params["response2"]),
            torch.tensor(fdf.params["factor"], device=dev)),
+          os_flops(BATCH, m + n_mid) + DEMOD_FLOPS * BATCH * n_mid
+          + os_flops(BATCH // 2, len(fdf.params["response2"])),
           graphed=True)
 
     bank = next(b for b in bound_st.bound
                 if type(b).__name__ == "_BoundFilterBank")
     mpx_prev, mpx_cur = randn(BATCH, bank.ir_len), randn(BATCH, n_mid)
+    responses = bank.params["responses"]
+    call, layout = conv_overlap_save(
+        torch.complex(mpx_prev, torch.zeros_like(mpx_prev)),
+        torch.complex(mpx_cur, torch.zeros_like(mpx_cur)),
+        torch.from_numpy(responses).to(dev))
     check("fused_filter_bank", "radiorust_tpu_torch/csrc/overlap_save.cu",
           "radiorust_tpu/ops/pallas_filter.py:632", FILTER_BOUND,
           ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
           (mpx_prev, torch.zeros_like(mpx_prev), mpx_cur,
-           torch.zeros_like(mpx_cur),
-           *grid_planes(bank.params["responses"])),
-          graphed=True)
+           torch.zeros_like(mpx_cur), *grid_planes(responses)),
+          os_flops(BATCH, responses.shape[-1], len(responses)),
+          graphed=True, library=("conv1d", call, layout))
 
     chd = bound_ch.blocks[0]
     ch_x = torch.from_numpy(channel_fm(1, CH_BATCH, chd.hist_len + CH_CHUNK)
@@ -486,9 +686,15 @@ def main() -> None:
 
     ch_args = (*planes(ch_x), torch.tensor(chd.params["factor"], device=dev),
                torch.from_numpy(chd.params["taps"]).to(dev))
+    # Per output frame: K real taps on 64 complex samples, a 64-point
+    # FFT, 64 demods.
+    k_br = chd.params["taps"].shape[0]
+    frames = ch_x.shape[1] // 64 - (k_br - 1)
     check("fused_pfb_demod", "radiorust_tpu_torch/csrc/pfb_demod.cu",
           "radiorust_tpu/ops/pallas_channelizer.py:130", FILTER_BOUND,
           och.fused_pfb_demod, och.fused_pfb_demod_plain, ch_args,
+          CH_BATCH * frames * (4 * k_br * 64 + fft_flops(64)
+                               + DEMOD_FLOPS * 64),
           outputs=occupied_frames)
     if not bool(torch.isfinite(och.fused_pfb_demod(*ch_args)).all()):
         raise AssertionError("fused_pfb_demod: non-finite output")
@@ -499,13 +705,15 @@ def main() -> None:
                       device=dev)
     slew_args = (randn(BATCH, MORSE_CHUNK), randn(BATCH, MORSE_CHUNK),
                  randn(BATCH), randn(BATCH), md)
-    for rsqrt in (False, True):
+    for rsqrt in (True, False):
         check("slew_scan" if rsqrt else "slew_scan, sqrt/divide form",
               "radiorust_tpu_torch/csrc/scan.cu",
               "radiorust_tpu/ops/pallas_scan.py:191", SLEW_ATOL,
               lambda *a, r=rsqrt: osc.slew_scan(*a, rsqrt=r),
               lambda *a, r=rsqrt: osc.slew_scan_plain(*a, rsqrt=r),
-              slew_args, record=rsqrt, absolute=True, plain_timing=(1, 3))
+              slew_args, SLEW_FLOPS * BATCH * MORSE_CHUNK, record=rsqrt,
+              of=None if rsqrt else "slew_scan", absolute=True,
+              plain_timing=(1, 3))
 
     # #9 at path F's AGC shape, in the loop's contracting regime (rate *
     # |x| well below 2), as the JAX package's kernel test feeds it.  The
@@ -518,7 +726,8 @@ def main() -> None:
     check("agc_scan", "radiorust_tpu_torch/csrc/scan.cu",
           "radiorust_tpu/ops/pallas_scan.py:216", AGC_ATOL,
           osc.agc_scan, osc.agc_scan_plain, agc_args,
-          outputs=lambda r: r[:2], absolute=True, plain_timing=(1, 3))
+          AGC_FLOPS * BATCH * n_aud, outputs=lambda r: r[:2], absolute=True,
+          plain_timing=(1, 3))
     gain_err = float((osc.agc_scan(*agc_args)[2]
                       - osc.agc_scan_plain(*agc_args)[2]).abs().max())
     print(f"agc_scan carried gain: max|diff|={gain_err:.3e} "
@@ -526,7 +735,7 @@ def main() -> None:
     if not gain_err <= GAIN_ATOL:
         raise AssertionError("agc_scan: carried gain disagrees")
 
-    # #3, #4 and #1 at the geometries of paths E-G.
+    # #3 and #4 at the geometries of paths E-G.
     filt_e = bound_e.blocks[1]
     filt_f = bound_f.blocks[3]       # pair-packed: two real streams each
     bank_g = next(b for b in bound_g.bound
@@ -538,14 +747,16 @@ def main() -> None:
               ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
               (randn(rows, m), randn(rows, m), randn(rows, n),
                randn(rows, n), *grid_planes(filt.params["response"])),
-              record=False, graphed=True)
+              os_flops(rows, m + n), record=False, of="fused_overlap_save",
+              graphed=True)
     m, n = bank_g.ir_len, bank_g.in_sig.chunk_len
     check(f"fused_filter_bank at path G's geometry (K = "
           f"{bank_g.num_outputs}, N = {m + n})", "", "", FILTER_BOUND,
           ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
           (randn(BATCH, m), randn(BATCH, m), randn(BATCH, n),
            randn(BATCH, n), *grid_planes(bank_g.params["responses"])),
-          record=False, graphed=True)
+          os_flops(BATCH, m + n, bank_g.num_outputs), record=False,
+          of="fused_filter_bank", graphed=True)
 
     # The FFT's other column plans, on random responses: n1 = 77 = 7 * 11
     # (two generic prime passes) and n1 = 768 (the widest shared-memory
@@ -561,21 +772,15 @@ def main() -> None:
               f"{rows})", "", "", FILTER_BOUND, ofl.fused_overlap_save,
               ofl.fused_overlap_save_plain,
               (*(randn(rows, n) for _ in range(4)), gr[0], gi[0]),
-              record=False, graphed=True)
+              os_flops(rows, 2 * n), record=False, of="fused_overlap_save",
+              graphed=True)
     n = 64 * 77
     check(f"fused_filter_bank at n1 = 77 (K = 2, m = n = {n}, batch 8)", "",
           "", FILTER_BOUND, ofl.fused_filter_bank,
           ofl.fused_filter_bank_plain,
           (*(randn(8, n) for _ in range(4)), *random_grids(2, 2 * n)),
-          record=False, graphed=True)
-    aplan = bound_f.blocks[1].plan
-    check(f"decimate at the 256k -> 32k plan ({aplan.kernel.shape[1]} taps, "
-          f"{aplan.p}:{aplan.q}, two planes)", "", "", FIR_BOUND,
-          ofe.decimate, ofe.decimate_plain,
-          ((randn(BATCH, AN_CHUNK), randn(BATCH, AN_CHUNK)),
-           (randn(BATCH, aplan.hist), randn(BATCH, aplan.hist)),
-           torch.from_numpy(aplan.kernel).to(dev), aplan.p, aplan.q),
-          outputs=flat, record=False)
+          os_flops(8, 2 * n, 2), record=False, of="fused_filter_bank",
+          graphed=True)
     t0 = phase("kernel checks", t0)
 
     # -- the paths ------------------------------------------------------------
@@ -930,11 +1135,16 @@ def main() -> None:
     print(f"launches on paths E rf {launches_erf['slew_scan']} (slew_scan), "
           f"F {launches_f['decimate']} (decimate), G "
           f"{launches_g['fused_filter_bank']} (fused_filter_bank)")
+    us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     for k in kernels:
         k["launches"] = path_of[k["name"]][k["name"]]
-        print(f"  {k['name']}: kernel {k['ms'] * 1e3:.1f} us, plain "
-              f"{k['plain_ms'] * 1e3:.1f} us per call, {k['launches']} "
-              f"launches on its path {tag}")
+        print(f"  {k['name']}: {k['launches']} launches on its path")
+        for row in [dict(k, geometry="its path's shapes"), *k["geometries"]]:
+            print(f"    {row['geometry']}: kernel {us(row['ms'])} us (device "
+                  f"{us(row['device_ms'])}), plain {us(row['plain_ms'])}, "
+                  f"library {us(row['library_ms'])} us per call; least "
+                  f"time {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) "
+                  f"{tag}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -70,19 +70,17 @@ class _BoundMixerDecimator(BoundBlock):
 
     def process(self, params, state, x, reset):
         c, s = start_phasor(state, self.denom)
-        ta = params["table_a"]
-        tb = params["table_b"]
-        outr, outi, nhr, nhi = _ofront.fused_mix_decimate(
-            x.real.contiguous(), x.imag.contiguous(),
-            ta.real.contiguous(), ta.imag.contiguous(),
-            tb.real.contiguous(), tb.imag.contiguous(),
-            c, s, state["histr"], state["histi"],
-            self._kernel_matrix(x.device), self.plan.p, self.plan.q)
+        # The kernel reads x, the tables and the history planes in place
+        # and writes complex64 outputs; the new history planes are views.
+        y, nh = _ofront.fused_mix_decimate_complex(
+            x, params["table_a"], params["table_b"], c, s, state["histr"],
+            state["histi"], self._kernel_matrix(x.device), self.plan.p,
+            self.plan.q)
         new_state = {"k0": (state["k0"] + params["adv"]) % self.denom,
                      "start_phase": state["start_phase"],
-                     "histr": nhr,
-                     "histi": nhi}
-        return new_state, torch.complex(outr, outi)
+                     "histr": nh.real,
+                     "histi": nh.imag}
+        return new_state, y
 
     def shift_params(self, shift: float):
         self.current_shift = float(shift)

@@ -7,7 +7,6 @@ yet."""
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..numbers import stream_complex
 from ..ops import frontend as _ofront
@@ -38,21 +37,11 @@ class _BoundResampler(BoundBlock):
         # The reference does not reset resampler state on events, so
         # ``reset`` is unused.
         plan = self.plan
-        hist = state["hist"]
-        if self.input_is_real:
-            planes = (x.real.contiguous(),)
-            hp = (hist.real.contiguous(),)
-        else:
-            planes = (x.real.contiguous(), x.imag.contiguous())
-            hp = (hist.real.contiguous(), hist.imag.contiguous())
-        outs, newhs = _ofront.decimate(planes, hp, params["kernel"],
-                                       plan.p, plan.q)
-        if self.input_is_real:
-            y = torch.complex(outs[0], torch.zeros_like(outs[0]))
-            nh = torch.complex(newhs[0], torch.zeros_like(newhs[0]))
-        else:
-            y = torch.complex(outs[0], outs[1])
-            nh = torch.complex(newhs[0], newhs[1])
+        # Complex64 in and out, read and written in place by the kernel;
+        # a real input filters the real planes only.
+        y, nh = _ofront.decimate_complex(x, state["hist"], params["kernel"],
+                                         plan.p, plan.q,
+                                         real_input=self.input_is_real)
         return {"hist": nh}, y
 
 

@@ -44,8 +44,8 @@ _PLAN = [_P, _P, _I]   # overlap-save tables, radices, number of passes
 # C signatures: argument types of every entry point (pointers and the
 # stream as void*, sizes as int).
 _SIGNATURES = {
-    "rr_decimate": [_P] * 9 + [_I] * 7 + [_P],
-    "rr_mix_decimate": [_P] * 15 + [_I] * 7 + [_P],
+    "rr_decimate": [_P, _I, _I, _P],        # DecimArgs*, R, G, stream
+    "rr_mix_decimate": [_P, _I, _I, _P],
     "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + _PLAN
                         + [_P] * 6 + [_I, _I, _I, _P]),
     "rr_demod_filter": [_P] * 11 + [_I] * 3 + _PLAN + [_P] * 5 + [_I, _I,

@@ -8,13 +8,25 @@ Counterparts of ``radiorust_tpu/ops/pallas_frontend.py``:
   mixing x with the factored oscillator tables and a per-stream start
   phasor, with the history kept in the mixed domain.
 
-Each wrapper takes the JAX function's arguments and float32 planes.  On
-CUDA tensors it launches the hand-written kernel of ``csrc/decimate.cu``
-and counts the launch in its ``launches`` attribute; on CPU tensors it
-runs the plain PyTorch version beside it (``*_plain``).
+These two take the JAX functions' arguments, float32 planes.  The blocks
+call :func:`decimate_complex` and :func:`fused_mix_decimate_complex`,
+which launch the same kernels on complex64 tensors in place: the kernel
+reads their (re, im) pairs at element stride 2, through pointers (no view
+is made), and writes complex64 outputs and histories, so no plane is
+split or merged around it.  On CUDA tensors every wrapper launches the
+hand-written kernel of ``csrc/decimate.cu`` and counts the launch in
+``decimate.launches`` or ``fused_mix_decimate.launches``; on CPU tensors
+it runs the plain PyTorch version beside it (``*_plain``).
+
+The kernel reads the taps re-laid by phase, :func:`relay_taps`, built
+once per taps tensor on its device.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import weakref
 
 import torch
 
@@ -22,27 +34,74 @@ from . import _build
 from .polyphase import rational_fir
 
 __all__ = ["decimate", "decimate_plain", "fused_mix_decimate",
-           "fused_mix_decimate_plain", "decimate_supported"]
+           "fused_mix_decimate_plain", "decimate_complex",
+           "decimate_complex_plain", "fused_mix_decimate_complex",
+           "fused_mix_decimate_complex_plain", "decimate_supported",
+           "relay_taps", "launch_config"]
 
-# Periods per block of the kernel (kTileM in csrc/decimate.cu) and the
-# shared memory one block may take on an H100.
-_TILE_M = 128
+# Shared memory one block may take and threads a block may have
+# (kMaxThreads in csrc/decimate.cu) on an H100.
 _SMEM_LIMIT = 227 * 1024
+_MAX_THREADS = 512
 
 
-def _smem_bytes(nplanes: int, p: int, q: int, kw: int) -> int:
-    return 4 * (q * kw + nplanes * ((_TILE_M - 1) * p + kw))
+def _apad(kw: int, p: int) -> int:
+    """Taps per phase: ceil(Kw / p) rounded up to a multiple of 8."""
+    a = -(-kw // p)
+    return -(-a // 8) * 8
+
+
+def relay_taps(kernel_matrix: torch.Tensor, p: int) -> torch.Tensor:
+    """The kernel's tap layout: [q, Kw] -> [q, p, apad] float32 with
+    ``out[r, c, a] = W[r, a*p + c]``, zero where ``a*p + c >= Kw``."""
+    q, kw = kernel_matrix.shape
+    apad = _apad(kw, p)
+    w = torch.zeros((q, apad * p), dtype=torch.float32,
+                    device=kernel_matrix.device)
+    w[:, :kw] = kernel_matrix
+    return w.reshape(q, apad, p).transpose(1, 2).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(p: int, q: int, kw: int):
+    """(R, G) of a launch: R = 8 outputs per thread, so a block's tile is
+    256 periods (4 and 128 where that does not fit shared memory), and G
+    tap groups: one per output phase where q > 1 (the block has q warps
+    already), else 8, up to 16 for long windows (the fastest of those
+    measured on an H100 at the paths' geometries)."""
+    ftot = p * _apad(kw, p)
+    for r in (8, 4):
+        g = 1 if q > 1 else min(16, max(8, ftot // 512), ftot // r)
+        if _smem_bytes(2, p, q, kw, r, g) <= _SMEM_LIMIT:
+            break
+    return r, g
+
+
+def _smem_bytes(nplanes: int, p: int, q: int, kw: int, r: int,
+                g: int) -> int:
+    """Shared bytes of a launch (``smem_bytes`` in csrc/decimate.cu)."""
+    apad = _apad(kw, p)
+    tm = 32 * r
+    lx = tm + apad
+    ph = lx - 1 + (lx - 1) // r + 1
+    ph += (12 - ph % 8) % 8
+    rs = tm - 1 + (tm - 1) // r + 1
+    return 4 * (q * p * apad + max(nplanes * p * ph, nplanes * g * q * rs))
 
 
 def decimate_supported(n: int, plan) -> bool:
     """Whether the decimation kernel takes this aligned plan at chunk
     ``n`` on two planes: whole periods per chunk, a downsample layout
-    (``s0 == 0``, history = window minus one period, nonzero), and a
-    block's staged span and taps within shared memory."""
+    (``s0 == 0``, history = window minus one period, nonzero), at most
+    16 output phases, and a block's staged span and taps within shared
+    memory."""
     kw = int(plan.kernel.shape[-1])
-    return (n % plan.p == 0 and plan.s0 == 0 and plan.hist == kw - plan.p
-            and plan.hist > 0
-            and _smem_bytes(2, plan.p, plan.q, kw) <= _SMEM_LIMIT)
+    p, q = plan.p, plan.q
+    if not (n % p == 0 and plan.s0 == 0 and plan.hist == kw - p
+            and plan.hist > 0 and 32 * q <= _MAX_THREADS):
+        return False
+    r, g = launch_config(p, q, kw)
+    return _smem_bytes(2, p, q, kw, r, g) <= _SMEM_LIMIT
 
 
 def _check_layout(n, hist, kw, p):
@@ -50,6 +109,111 @@ def _check_layout(n, hist, kw, p):
     # violating call would compute misaligned windows, not fail.
     assert n % p == 0, (p, n)
     assert hist == kw - p and hist > 0, (hist, kw, p)
+
+
+_relaid = {}
+
+
+def _device_taps(kernel_matrix: torch.Tensor, p: int) -> torch.Tensor:
+    """:func:`relay_taps` of this taps tensor, built once while the same
+    tensor comes back (a step loop passes one params tree)."""
+    key = (id(kernel_matrix), p)
+    hit = _relaid.get(key)
+    if hit is None or hit[0]() is not kernel_matrix:
+        if len(_relaid) >= 64:
+            _relaid.clear()
+        hit = (weakref.ref(kernel_matrix), relay_taps(kernel_matrix, p))
+        _relaid[key] = hit
+    return hit[1]
+
+
+_PAIR = ctypes.c_void_p * 2
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
+
+
+class _Args(ctypes.Structure):
+    """``DecimArgs`` of csrc/decimate.cu, field for field."""
+    _fields_ = [("x", _PAIR), ("x_row", _I64), ("x_step", _I64),
+                ("h", _PAIR), ("h_row", _I64), ("h_step", _I64),
+                ("y", _PAIR), ("y_row", _I64), ("y_step", _I64),
+                ("nh", _PAIR), ("nh_row", _I64), ("nh_step", _I64),
+                ("taps", ctypes.c_void_p),
+                ("tab", ctypes.c_void_p * 4), ("tab_step", _I64 * 2),
+                ("p0", _PAIR), ("p0_step", _I64),
+                ("b", _I32), ("n", _I32), ("hist", _I32), ("p", _I32),
+                ("q", _I32), ("apad", _I32), ("inner", _I32),
+                ("nplanes", _I32)]
+
+
+def _planes(ts, name, nplanes=2):
+    """(pointers, row stride, element stride), in floats, of a kernel
+    operand: a tuple of 1 or 2 float32 CUDA tensors sharing their strides,
+    or one complex64 CUDA tensor taken in place as its first ``nplanes``
+    (re, im) planes, without making views.  Tensors are [b, len] (or
+    [len] vectors, row stride 0)."""
+    if isinstance(ts, torch.Tensor):
+        if ts.dtype != torch.complex64 or not ts.is_cuda:
+            raise ValueError(f"{name}: kernel takes complex64 CUDA tensors, "
+                             f"got {ts.dtype} on {ts.device}")
+        t0, scale = ts, 2
+        ptrs = [ts.data_ptr(), ts.data_ptr() + 4][:nplanes]
+    else:
+        t0, scale = ts[0], 1
+        for t in ts:
+            if t.dtype != torch.float32 or not t.is_cuda:
+                raise ValueError(f"{name}: kernel takes float32 CUDA "
+                                 f"tensors, got {t.dtype} on {t.device}")
+            if t.shape != t0.shape or t.stride() != t0.stride():
+                raise ValueError(f"{name}: planes differ in shape or "
+                                 f"strides")
+        ptrs = [t.data_ptr() for t in ts]
+    st = t0.stride()
+    row, step = (0, st[0]) if t0.dim() == 1 else st
+    if step < 1 or (t0.dim() == 2 and row < 1):
+        raise ValueError(f"{name}: strides {st} not taken")
+    return _PAIR(*ptrs, *[None] * (2 - len(ptrs))), scale * row, scale * step
+
+
+def _first(ts):
+    return ts if isinstance(ts, torch.Tensor) else ts[0]
+
+
+def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
+            mix=None):
+    """One launch of ``rr_decimate`` / ``rr_mix_decimate`` on ``nplanes``
+    input planes: xs, hs the input and history, outs, nhs the output and
+    the new history (each a tuple of float32 planes or a complex64 tensor;
+    a real input's outputs may be complex, and the kernel then writes
+    their zero imaginary parts); mix = (table A, table B, p0 re, p0 im),
+    the tables complex64."""
+    x0 = _first(xs)
+    b, n = x0.shape
+    hist = _first(hs).shape[-1]
+    kw = kernel_matrix.shape[-1]
+    r, g = launch_config(p, q, kw)
+    if 32 * g * q > _MAX_THREADS or (
+            _smem_bytes(nplanes, p, q, kw, r, g) > _SMEM_LIMIT):
+        raise ValueError("decimation geometry too large for one block "
+                         f"(p={p}, q={q}, Kw={kw})")
+    a = _Args()
+    a.x, a.x_row, a.x_step = _planes(xs, "x", nplanes)
+    a.h, a.h_row, a.h_step = _planes(hs, "hist", nplanes)
+    a.y, a.y_row, a.y_step = _planes(outs, "out")
+    a.nh, a.nh_row, a.nh_step = _planes(nhs, "new hist")
+    a.taps = _device_taps(kernel_matrix, p).data_ptr()
+    a.b, a.n, a.hist, a.p, a.q = b, n, hist, p, q
+    a.apad, a.inner, a.nplanes = _apad(kw, p), 1, nplanes
+    if mix is not None:
+        table_a, table_b, p0r, p0i = mix
+        ta, _, a.tab_step[0] = _planes(table_a, "table A")
+        tb, _, a.tab_step[1] = _planes(table_b, "table B")
+        a.tab[:] = [ta[0], ta[1], tb[0], tb[1]]
+        a.p0, _, a.p0_step = _planes((p0r, p0i), "start phasor")
+        a.inner = _first(table_b).shape[-1]
+    err = getattr(_build.lib(), entry)(ctypes.addressof(a), r, g,
+                                       _build.stream_handle(x0.device))
+    _build.check(err, entry)
 
 
 def decimate_plain(planes, hplanes, kernel_matrix, p: int, q: int):
@@ -77,35 +241,58 @@ def decimate(planes, hplanes, kernel_matrix, p: int, q: int):
     nplanes = len(planes)
     b, n = planes[0].shape
     hist = hplanes[0].shape[-1]
-    kw = kernel_matrix.shape[-1]
-    _check_layout(n, hist, kw, p)
+    _check_layout(n, hist, kernel_matrix.shape[-1], p)
     if not _build.on_cuda(*planes, *hplanes, kernel_matrix):
         return decimate_plain(planes, hplanes, kernel_matrix, p, q)
     if nplanes not in (1, 2):
         raise ValueError(f"{nplanes} planes: the kernel takes 1 or 2")
-    if _smem_bytes(nplanes, p, q, kw) > _SMEM_LIMIT:
-        raise ValueError("decimation window too long for shared memory")
     dev = planes[0].device
-    outs = [torch.empty((b, (n // p) * q), dtype=torch.float32, device=dev)
-            for _ in planes]
-    newh = [torch.empty((b, hist), dtype=torch.float32, device=dev)
-            for _ in planes]
-    ptr = _build.f32_ptr
-    x = [ptr(t, "planes") for t in planes]
-    h = [ptr(t, "hplanes") for t in hplanes]
-    two = nplanes == 2
+    outs = tuple(torch.empty((b, (n // p) * q), dtype=torch.float32,
+                             device=dev) for _ in planes)
+    newh = tuple(torch.empty((b, hist), dtype=torch.float32, device=dev)
+                 for _ in planes)
     decimate.launches += 1
-    err = _build.lib().rr_decimate(
-        x[0], x[1] if two else None, h[0], h[1] if two else None,
-        ptr(kernel_matrix, "kernel_matrix"),
-        outs[0].data_ptr(), outs[1].data_ptr() if two else None,
-        newh[0].data_ptr(), newh[1].data_ptr() if two else None,
-        b, n, hist, p, q, kw, nplanes, _build.stream_handle(dev))
-    _build.check(err, "decimate")
-    return tuple(outs), tuple(newh)
+    _launch("rr_decimate", planes, hplanes, outs, newh, kernel_matrix, p, q,
+            nplanes)
+    return outs, newh
 
 
 decimate.launches = 0
+
+
+def decimate_complex_plain(x, hist, kernel_matrix, p: int, q: int,
+                           real_input: bool = False):
+    """Plain PyTorch version of :func:`decimate_complex`."""
+    planes = (x.real,) if real_input else (x.real, x.imag)
+    hplanes = (hist.real,) if real_input else (hist.real, hist.imag)
+    outs, newh = decimate_plain(planes, hplanes, kernel_matrix, p, q)
+    if real_input:
+        return tuple(torch.complex(z[0], torch.zeros_like(z[0]))
+                     for z in (outs, newh))
+    return torch.complex(*outs), torch.complex(*newh)
+
+
+def decimate_complex(x, hist, kernel_matrix, p: int, q: int,
+                     real_input: bool = False):
+    """:func:`decimate` of complex64 streams in place.
+
+    ``x``: [batch, n] complex64; ``hist``: [batch, hist] complex64.
+    Returns (y [batch, (n/p)*q], new history [batch, hist]), complex64.
+    ``real_input``: filter the real planes only (the imaginary parts are
+    zero); the outputs' imaginary parts are written as zeros."""
+    b, n = x.shape
+    nh_len = hist.shape[-1]
+    _check_layout(n, nh_len, kernel_matrix.shape[-1], p)
+    if not _build.on_cuda(x, hist, kernel_matrix):
+        return decimate_complex_plain(x, hist, kernel_matrix, p, q,
+                                      real_input)
+    y = torch.empty((b, (n // p) * q), dtype=torch.complex64,
+                    device=x.device)
+    nh = torch.empty((b, nh_len), dtype=torch.complex64, device=x.device)
+    decimate.launches += 1
+    _launch("rr_decimate", x, hist, y, nh, kernel_matrix, p, q,
+            1 if real_input else 2)
+    return y, nh
 
 
 def _mix(xr, xi, ar, ai, br, bi, p0r, p0i):
@@ -133,6 +320,13 @@ def fused_mix_decimate_plain(xr, xi, ar, ai, br, bi, p0r, p0i, hr, hi,
     return outr, outi, nhr, nhi
 
 
+def _check_mix(n, hist, kw, p, ar, br):
+    _check_layout(n, hist, kw, p)
+    if ar.shape[-1] * br.shape[-1] != n:
+        raise ValueError(f"oscillator tables {ar.shape[-1]}x"
+                         f"{br.shape[-1]} != {n}")
+
+
 def fused_mix_decimate(xr, xi, ar, ai, br, bi, p0r, p0i, hr, hi,
                        kernel_matrix, p: int, q: int):
     """Mix + decimate one chunk step.
@@ -145,31 +339,54 @@ def fused_mix_decimate(xr, xi, ar, ai, br, bi, p0r, p0i, hr, hi,
     """
     b, n = xr.shape
     hist = hr.shape[-1]
-    kw = kernel_matrix.shape[-1]
-    inner = br.shape[-1]
-    _check_layout(n, hist, kw, p)
-    if ar.shape[-1] * inner != n:
-        raise ValueError(f"oscillator tables {ar.shape[-1]}x{inner} != {n}")
+    _check_mix(n, hist, kernel_matrix.shape[-1], p, ar, br)
     tensors = (xr, xi, ar, ai, br, bi, p0r, p0i, hr, hi, kernel_matrix)
     if not _build.on_cuda(*tensors):
         return fused_mix_decimate_plain(*tensors, p, q)
-    if _smem_bytes(2, p, q, kw) > _SMEM_LIMIT:
-        raise ValueError("decimation window too long for shared memory")
     dev = xr.device
     outr, outi = (torch.empty((b, (n // p) * q), dtype=torch.float32,
                               device=dev) for _ in range(2))
     nhr, nhi = (torch.empty((b, hist), dtype=torch.float32, device=dev)
                 for _ in range(2))
-    names = ("xr", "xi", "ar", "ai", "br", "bi", "p0r", "p0i", "hr", "hi",
-             "kernel_matrix")
-    ptrs = [_build.f32_ptr(t, nm) for t, nm in zip(tensors, names)]
     fused_mix_decimate.launches += 1
-    err = _build.lib().rr_mix_decimate(
-        *ptrs, outr.data_ptr(), outi.data_ptr(), nhr.data_ptr(),
-        nhi.data_ptr(), b, n, hist, p, q, kw, inner,
-        _build.stream_handle(dev))
-    _build.check(err, "fused_mix_decimate")
+    _launch("rr_mix_decimate", (xr, xi), (hr, hi), (outr, outi),
+            (nhr, nhi), kernel_matrix, p, q, 2,
+            mix=((ar, ai), (br, bi), p0r, p0i))
     return outr, outi, nhr, nhi
 
 
 fused_mix_decimate.launches = 0
+
+
+def fused_mix_decimate_complex_plain(x, table_a, table_b, p0r, p0i, hr, hi,
+                                     kernel_matrix, p: int, q: int):
+    """Plain PyTorch version of :func:`fused_mix_decimate_complex`."""
+    outr, outi, nhr, nhi = fused_mix_decimate_plain(
+        x.real, x.imag, table_a.real, table_a.imag, table_b.real,
+        table_b.imag, p0r, p0i, hr, hi, kernel_matrix, p, q)
+    return torch.complex(outr, outi), torch.complex(nhr, nhi)
+
+
+def fused_mix_decimate_complex(x, table_a, table_b, p0r, p0i, hr, hi,
+                               kernel_matrix, p: int, q: int):
+    """:func:`fused_mix_decimate` of complex64 streams in place.
+
+    ``x``: [batch, n] complex64; ``table_a/table_b``: complex64 [outer],
+    [inner]; ``p0r/p0i``: [batch] start phasor; ``hr/hi``: [batch, hist]
+    float32 history planes (any strides, e.g. the previous step's
+    ``.real``/``.imag`` views).  Returns (y [batch, (n/p)*q], new history
+    [batch, hist]), complex64."""
+    b, n = x.shape
+    hist = hr.shape[-1]
+    _check_mix(n, hist, kernel_matrix.shape[-1], p, table_a, table_b)
+    if not _build.on_cuda(x, table_a, table_b, p0r, p0i, hr, hi,
+                          kernel_matrix):
+        return fused_mix_decimate_complex_plain(
+            x, table_a, table_b, p0r, p0i, hr, hi, kernel_matrix, p, q)
+    y = torch.empty((b, (n // p) * q), dtype=torch.complex64,
+                    device=x.device)
+    nh = torch.empty((b, hist), dtype=torch.complex64, device=x.device)
+    fused_mix_decimate.launches += 1
+    _launch("rr_mix_decimate", x, (hr, hi), y, nh, kernel_matrix, p, q, 2,
+            mix=(table_a, table_b, p0r, p0i))
+    return y, nh

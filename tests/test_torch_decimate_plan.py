@@ -1,0 +1,420 @@
+"""The decimation kernels' index arithmetic, on the CPU.
+
+``csrc/decimate.cu`` stages each block's span of ``[hist || x]`` by phase
+into skewed shared-memory rows, slides a register window over them with
+the taps re-laid by :func:`~radiorust_tpu_torch.ops.frontend.relay_taps`,
+splits the (phase, tap) range over warp groups, sums the groups in shared
+memory and writes the new history from the staged values.  The numpy
+model below follows that arithmetic step for step (thread loops
+vectorised over threads and blocks, shared memory as flat float32 arrays
+that start as NaN, so a read of a position nothing staged shows), fed the
+same re-laid taps, and is held against the plain versions
+``decimate_plain`` / ``fused_mix_decimate_plain`` at every plan the port
+binds.  Nothing here needs a GPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from radiorust_tpu_torch.blocks.base import StreamSig
+from radiorust_tpu_torch.blocks.transform import _shift_tables
+from radiorust_tpu_torch.models.analog import am_receiver
+from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
+from radiorust_tpu_torch.models.wfm import wfm_receiver
+from radiorust_tpu_torch.ops import frontend as tfe
+from radiorust_tpu_torch.ops.polyphase import plan_downsample
+
+REL = 1e-5          # model vs plain, max |diff| / max |ref| (FIR_BOUND)
+LANES = 32
+
+
+def _plans():
+    """(name, plan, chunk) of every decimation the port's models bind at
+    the paths' geometries."""
+    sig = StreamSig(2, 24576, 1.024e6)
+    a = wfm_receiver(tune_shift=100e3, fuse_frontend=True, fuse_demod=True,
+                     filter_ir_len=6144).bind(sig)
+    fold = wfm_receiver(tune_shift=100e3, fuse_frontend=True,
+                        fuse_deemphasis=True, filter_ir_len=6144).bind(sig)
+    st = wfm_stereo_receiver(tune_shift=100e3, fuse_frontend=True,
+                             filter_ir_len=6144).bind({"iq": sig})
+    f = am_receiver(tune_shift=-30e3, agc=True).bind(
+        StreamSig(2, 8192, 256000.0))
+    out = [("A head", a.blocks[0].plan, 24576),
+           ("A tail", a.blocks[3].plan, 9216),
+           ("fold", fold.blocks[3].plan, 9216),
+           ("F", f.blocks[1].plan, 8192)]
+    for blk in st.bound:
+        if hasattr(blk, "plan"):
+            out.append((f"C {type(blk).__name__}", blk.plan,
+                        blk.in_sig.chunk_len))
+    return out
+
+
+PLANS = {name: (plan, n) for name, plan, n in _plans()}
+
+
+def _skew(k, r):
+    return k + k // r
+
+
+def _geometry(p, q, kw, r, g):
+    """(apad, TM, lx, ph, rs, L) as the kernel derives them."""
+    apad = tfe._apad(kw, p)
+    tm = LANES * r
+    lx = tm + apad
+    ph = _skew(lx - 1, r) + 1
+    ph += (12 - ph % 8) % 8
+    rs = _skew(tm - 1, r) + 1
+    blocks = p * apad // r
+    L = -(-blocks // g) * r
+    return apad, tm, lx, ph, rs, L
+
+
+def load_mode(aligned, adjacent, np_, row, step, count):
+    """``load_mode`` of the C source: how a source's quads are read."""
+    if row % 4 or count % 4:
+        return 0
+    if step == 1 and aligned:
+        return 1
+    if step == 2 and aligned and (np_ == 1 or adjacent):
+        return 2
+    return 0
+
+
+def _mix(v, a, b, osc):
+    """The kernel's ``mix``: float32, each product and sum rounded."""
+    ar, ai, br, bi, pr, pi = osc
+    ar, ai, br, bi = ar[a], ai[a], br[b], bi[b]
+    oscr = ar * br - ai * bi
+    osci = ar * bi + ai * br
+    mr0 = v[:, 0] * oscr - v[:, 1] * osci
+    mi0 = v[:, 0] * osci + v[:, 1] * oscr
+    return np.stack([mr0 * pr - mi0 * pi, mr0 * pi + mi0 * pr], axis=1)
+
+
+def divm(x, d):
+    """``divm`` of the C source: floor(x / d) as (x * ceil(2^32 / d)) >>
+    32, asserted exact over the arguments it is given."""
+    x = np.asarray(x, np.int64)
+    m = ((1 << 32) + d - 1) // d
+    got = ((x.astype(object) * m) >> 32).astype(np.int64)
+    assert (x >= 0).all() and (got == x // d).all()
+    return got
+
+
+def stage(xs, nh, hs_in, hlo, hhi, xs_in, xlo, xhi, hist, J0, stream, last,
+          p, ph, r, n, modes, osc=None):
+    """``stage``: the quads of the history samples [hlo, hhi) (position i)
+    and of the input samples [xlo, xhi) (position hist + i) as one
+    sequence per block.  The order in which threads take them changes no
+    value (each position is written once), so every quad runs at once.
+    xs [blocks, NP, p * ph]; nh [streams, NP, hist]; hs_in, xs_in
+    [streams, NP, count]; hlo .. xhi, J0, stream, last: per tile;
+    modes = (history, input) load modes; osc = (A re, A im, B re, B im,
+    p0 re [b], p0 im [b])."""
+    qh0 = hlo >> 2
+    nhq = np.where(hlo < hhi, ((hhi + 3) >> 2) - qh0, 0)
+    qx0 = xlo >> 2
+    nxq = np.where(xlo < xhi, ((xhi + 3) >> 2) - qx0, 0)
+    total = nhq + nxq
+    w = np.arange(total.max())[None, :]
+    live = w < total[:, None]
+    in_x = w >= nhq[:, None]
+    quad = np.where(in_x, qx0[:, None] + w - nhq[:, None], qh0[:, None] + w)
+    i0 = 4 * quad
+    lo = np.where(in_x, xlo[:, None], hlo[:, None])
+    hi = np.where(in_x, xhi[:, None], hhi[:, None])
+    off = np.where(in_x, hist, 0)
+    jb = i0 + off - J0[:, None] + 4 * p
+    k = np.where(live, divm(np.where(live, jb, 0), p), 0)
+    c = jb - k * p
+    k = k - 4
+    for src, sel, mode in ((hs_in, ~in_x, modes[0]), (xs_in, in_x, modes[1])):
+        if mode:   # float4 loads never leave the row
+            assert (i0[live & sel] + 3 < src.shape[-1]).all()
+    if osc is not None:   # the oscillator's indices, once per quad
+        inner = len(osc[2])
+        xi0 = np.where(live & in_x, i0, 0)
+        a = divm(xi0, inner)
+        b = xi0 - a * inner
+        if inner % 4 == 0:   # B read as float4: a quad never wraps it
+            assert (b[live & in_x] + 3 < inner).all()
+    blk = np.broadcast_to(np.arange(xs.shape[0])[:, None], i0.shape)
+    planes = np.arange(xs.shape[1])[None, :]
+    for e in range(4):
+        i = i0 + e
+        ok = live & (i >= lo) & (i < hi)
+        for src, sel in ((hs_in, ok & ~in_x), (xs_in, ok & in_x)):
+            bi, ii = blk[sel], i[sel]
+            sb = stream[bi]
+            v = src[sb[:, None], planes, ii[:, None]]
+            if osc is not None and src is xs_in:
+                v = _mix(v, a[sel], b[sel], (*osc[:4], osc[4][sb],
+                                             osc[5][sb]))
+            pos = c[sel] * ph + _skew(k[sel], r)
+            assert (k[sel] >= 0).all() and (c[sel] < p).all()
+            assert (pos < (c[sel] + 1) * ph).all()
+            xs[bi[:, None], planes, pos[:, None]] = v
+            j = ii + off[sel]
+            hw = last[bi] & (j >= n)
+            nh[sb[hw][:, None], planes, (j[hw] - n)[:, None]] = v[hw]
+        c = c + 1
+        wrap = c == p
+        c[wrap] = 0
+        k[wrap] += 1
+        if osc is not None:
+            b = b + 1
+            wrap = b == inner
+            b[wrap] = 0
+            a[wrap] += 1
+
+
+def kernel_model(xs_in, hs_in, W, p, q, r, g, osc=None, xmode=0, hmode=0):
+    """One launch of ``decimate_kernel``: xs_in [b, NP, n], hs_in [b, NP,
+    hist] float32, W [q, Kw]; osc = (A re, A im, B re, B im, p0 re [b],
+    p0 im [b]) for the mixer form.  Every block (stream, tile) is
+    modelled at once.  Returns (y [b, NP, M q], new hist)."""
+    b, NP, n = xs_in.shape
+    hist = hs_in.shape[-1]
+    kw = W.shape[-1]
+    M = n // p
+    apad, tm, lx, ph, rs, L = _geometry(p, q, kw, r, g)
+    nt = LANES * g * q
+    assert nt <= tfe._MAX_THREADS
+    ftot = p * apad
+    taps = tfe.relay_taps(torch.from_numpy(W), p).numpy().reshape(-1)
+    smem = q * ftot + max(NP * p * ph, NP * g * q * rs)
+    assert 4 * smem == tfe._smem_bytes(NP, p, q, kw, r, g)
+    assert 4 * smem <= tfe._SMEM_LIMIT
+    tiles = -(-M // tm)
+    stream = np.repeat(np.arange(b), tiles)
+    tile = np.tile(np.arange(tiles), b)
+    nblk = b * tiles
+    m0 = tile * tm
+    J0 = m0 * p
+    J1 = J0 + lx * p
+    last = tile == tiles - 1
+    xs = np.full((nblk, NP, p * ph), np.nan, np.float32)
+    nh = np.full((b, NP, hist), np.nan, np.float32)
+    stage(xs, nh, hs_in, J0, np.minimum(J1, hist), xs_in,
+          np.maximum(J0 - hist, 0), np.minimum(J1 - hist, n), hist, J0,
+          stream, last, p, ph, r, n, (hmode, xmode), osc)
+    for bk in range(nblk):   # past the end of buf: zeros
+        for j in range(max(J0[bk], hist + n), J1[bk]):
+            k, c = divmod(j - J0[bk], p)
+            xs[bk, :, c * ph + _skew(k, r)] = 0.0
+
+    # Each warp (g, r) over its (phase, tap) range, lanes vectorised.
+    xflat = xs.reshape(nblk, -1)
+    lane = np.arange(LANES)
+    red = np.full((nblk, NP * g * q * rs), np.nan, np.float32)
+    for warp in range(g * q):
+        rr, gg = warp % q, warp // q
+        acc = np.zeros((nblk, NP, LANES, r), np.float32)
+        f_lo, f_hi = gg * L, min(gg * L + L, ftot)
+        c, a0 = divmod(f_lo, apad)
+        for f0 in range(f_lo, f_hi, r):
+            if f0 == f_lo or a0 == 0:
+                xb = ((np.arange(NP)[:, None] * p + c) * ph
+                      + (lane[None, :] + a0 // r) * (r + 1))      # [NP, 32]
+                win = xflat[:, xb[..., None] + np.arange(r)]    # slot j
+                row_end = (np.arange(NP)[:, None] * p + c + 1) * ph
+            w = taps[rr * ftot + f0: rr * ftot + f0 + r]
+            for da in range(r):
+                for j in range(r):   # fmaf: one rounding of w * x + acc
+                    acc[..., j] = (np.float64(w[da])
+                                   * win[..., (j + da) % r].astype(np.float64)
+                                   + acc[..., j]).astype(np.float32)
+                at = xb + r + 1 + da
+                assert (at < row_end).all()
+                win[..., da] = xflat[:, at]
+            xb = xb + r + 1
+            a0 += r
+            if a0 == apad:
+                a0, c = 0, c + 1
+        assert not np.isnan(acc).any()
+        for pl in range(NP):
+            base = ((pl * g + gg) * q + rr) * rs
+            for j in range(r):
+                red[:, base + lane * (r + 1) + j] = acc[:, pl, :, j]
+
+    y = np.full((b, NP, M * q), np.nan, np.float32)
+    for bk in range(nblk):
+        mt = min(tm, M - m0[bk])
+        o = np.arange(mt * q)
+        m, rr = o // q, o % q
+        for pl in range(NP):
+            v = np.zeros(len(o), np.float32)
+            for gg in range(g):
+                v = v + red[bk, ((pl * g + gg) * q + rr) * rs + _skew(m, r)]
+            y[stream[bk], pl, m0[bk] * q + o] = v
+    return y, nh
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _plain(xs, hs, W, p, q, osc=None):
+    t = torch.from_numpy
+    if osc is None:
+        out, nh = tfe.decimate_plain(tuple(t(xs[:, i]) for i in range(
+            xs.shape[1])), tuple(t(hs[:, i]) for i in range(hs.shape[1])),
+            t(W), p, q)
+        return np.stack([o.numpy() for o in out], 1), np.stack(
+            [h.numpy() for h in nh], 1)
+    ar, ai, br, bi, pr, pi = (t(np.ascontiguousarray(v)) for v in osc)
+    yr, yi, hr, hi = tfe.fused_mix_decimate_plain(
+        t(xs[:, 0]), t(xs[:, 1]), ar, ai, br, bi, pr, pi, t(hs[:, 0]),
+        t(hs[:, 1]), t(W), p, q)
+    return (np.stack([yr.numpy(), yi.numpy()], 1),
+            np.stack([hr.numpy(), hi.numpy()], 1))
+
+
+def _oscillator(n, b, rng):
+    ta, tb, _ = _shift_tables(n, 1024000, 100000)
+    ph = rng.standard_normal(b)
+    return (ta.real.copy(), ta.imag.copy(), tb.real.copy(), tb.imag.copy(),
+            np.cos(ph).astype(np.float32), np.sin(ph).astype(np.float32))
+
+
+# (plan, chunk, planes, mixer, (R, G) or None for launch_config, x load
+# mode): every geometry the port runs the kernels at, a ragged
+# last tile at both R, and the scalar loads of misaligned sources.
+CASES = {
+    "A head, mixer, complex64 in place": ("A head", None, 2, True, None, 2),
+    "A tail, real input from complex64": ("A tail", None, 1, False, None, 2),
+    "fuse_deemphasis fold": ("fold", None, 1, False, None, 1),
+    "F, two planes": ("F", None, 2, False, None, 2),
+    "C tail, two planes": ("C _BoundResampler", None, 2, False, None, 2),
+    "ragged tile, R 4": ("F", 8 * 1000, 2, False, (4, 4), 1),
+    "ragged tile, R 8, mixer": ("A head", 8 * 700, 2, True, (8, 1), 2),
+    "ragged tile, R 8, G 3": ("A tail", 8 * 600, 1, False, (8, 3), 1),
+    "mixer, B wrapping inside quads": ("A head", 8 * 127, 2, True, None, 0),
+    "misaligned x and history": ("F", None, 2, False, None, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_model_matches_plain(case):
+    name, n, NP, mixer, cfg, xmode = CASES[case]
+    plan, chunk = PLANS[name]
+    n = n or chunk
+    p, q, W = plan.p, plan.q, plan.kernel
+    kw = W.shape[-1]
+    r, g = cfg or tfe.launch_config(p, q, kw)
+    b = 2 if kw < 1000 else 1
+    rng = np.random.default_rng(n + kw + NP)
+    xs = rng.standard_normal((b, NP, n)).astype(np.float32)
+    hs = rng.standard_normal((b, NP, plan.hist)).astype(np.float32)
+    osc = _oscillator(n, b, rng) if mixer else None
+    got, got_h = kernel_model(xs, hs, W, p, q, r, g, osc, xmode=xmode)
+    want, want_h = _plain(xs, hs, W, p, q, osc)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= REL, case
+    np.testing.assert_array_equal(got_h, want_h)
+
+
+def test_launch_configs_at_the_paths():
+    """The tile and groups launch_config picks at the paths' plans, and
+    that every bound plan fits a block."""
+    want = {"A head": (8, 1), "A tail": (8, 8), "fold": (8, 16),
+            "F": (8, 8)}
+    for name, (plan, n) in PLANS.items():
+        kw = plan.kernel.shape[-1]
+        assert tfe.decimate_supported(n, plan), name
+        r, g = tfe.launch_config(plan.p, plan.q, kw)
+        if name in want:
+            assert (r, g) == want[name], name
+        assert 32 * g * plan.q <= tfe._MAX_THREADS
+        assert tfe._smem_bytes(2, plan.p, plan.q, kw, r, g) <= tfe._SMEM_LIMIT
+
+
+def test_load_modes():
+    """Which sources the kernel reads with 16-byte loads: a float plane
+    (step 1) or a complex64 tensor's (re, im) pairs (step 2), aligned,
+    whole quads per row; anything else four scalar loads."""
+    n = 24576
+    assert load_mode(True, True, 2, 2 * n, 2, n) == 2      # x.real / x.imag
+    assert load_mode(True, False, 1, 2 * n, 2, n) == 2     # x.real alone
+    assert load_mode(True, False, 2, n, 1, n) == 1         # float planes
+    assert load_mode(False, False, 2, n, 1, n) == 0        # offset pointer
+    assert load_mode(True, True, 2, 2 * 33, 2, 33) == 0    # a history row
+    assert load_mode(True, False, 2, 2 * n, 2, n) == 0     # planes apart
+
+
+@pytest.mark.parametrize("r", [4, 8])
+def test_window_reads_hit_distinct_banks(r):
+    """The 32 lanes' window reads (lane + const) * (R + 1) + da, and the
+    partial-sum stores lane * (R + 1) + j, fall in 32 distinct banks."""
+    lane = np.arange(LANES)
+    for base in range(3):
+        for da in range(r):
+            banks = ((lane + base) * (r + 1) + da) % 32
+            assert len(set(banks.tolist())) == LANES
+
+
+@pytest.mark.parametrize("q,kw,p", [(1, 295, 8), (3, 41, 8), (1, 9510, 8),
+                                    (2, 13, 5), (1, 8, 8), (4, 3, 2)])
+def test_relay_taps_is_a_padded_permutation(q, kw, p):
+    rng = np.random.default_rng(kw)
+    W = rng.permutation(q * kw).reshape(q, kw).astype(np.float32) + 1.0
+    got = tfe.relay_taps(torch.from_numpy(W), p).numpy()
+    apad = tfe._apad(kw, p)
+    assert got.shape == (q, p, apad) and apad % 8 == 0
+    assert apad * p >= kw > (apad - 8) * p
+    for rr in range(q):
+        for c in range(p):
+            for a in range(apad):
+                u = a * p + c
+                assert got[rr, c, a] == (W[rr, u] if u < kw else 0.0)
+    # Every tap exactly once, the rest zero padding.
+    assert sorted(got[got != 0].tolist()) == sorted(W.ravel().tolist())
+    assert (got == 0).sum() == q * (p * apad - kw)
+
+
+def test_plan_downsample_tail_matches_chain():
+    """The tail plan the cases use is the JAX tests' 384k -> 48k plan."""
+    plan = plan_downsample(384000.0, 48000.0, 40000.0)
+    assert np.array_equal(plan.kernel, PLANS["A tail"][0].kernel)
+
+
+
+@pytest.mark.parametrize("form", ["complex", "real input", "mixer"])
+def test_complex_wrappers_match_plane_wrappers(form):
+    """The blocks' complex64 calls equal the float-plane calls of the JAX
+    signatures on the same samples (on CPU tensors: the plain versions),
+    with zero imaginary parts for a real input."""
+    name = "A head" if form == "mixer" else "F"
+    plan, n = PLANS[name]
+    W = torch.from_numpy(plan.kernel)
+    rng = np.random.default_rng(len(form))
+    z = lambda *s: torch.from_numpy(
+        (rng.standard_normal(s) + 1j * rng.standard_normal(s))
+        .astype(np.complex64))
+    x, h = z(2, n), z(2, plan.hist)
+    if form == "mixer":
+        ta, tb, _ = _shift_tables(n, 1024000, 100000)
+        ta, tb = torch.from_numpy(ta), torch.from_numpy(tb)
+        p0 = torch.from_numpy(rng.standard_normal(2).astype(np.float32))
+        c, s = torch.cos(p0), torch.sin(p0)
+        y, nh = tfe.fused_mix_decimate_complex(x, ta, tb, c, s, h.real,
+                                               h.imag, W, plan.p, plan.q)
+        yr, yi, hr, hi = tfe.fused_mix_decimate(
+            x.real, x.imag, ta.real, ta.imag, tb.real, tb.imag, c, s,
+            h.real, h.imag, W, plan.p, plan.q)
+        want_y, want_h = torch.complex(yr, yi), torch.complex(hr, hi)
+    else:
+        real = form == "real input"
+        y, nh = tfe.decimate_complex(x, h, W, plan.p, plan.q,
+                                     real_input=real)
+        part = (lambda t: (t.real,)) if real else (lambda t: (t.real,
+                                                               t.imag))
+        outs, newh = tfe.decimate(part(x), part(h), W, plan.p, plan.q)
+        zero = torch.zeros_like
+        want_y = torch.complex(outs[0], zero(outs[0]) if real else outs[1])
+        want_h = torch.complex(newh[0], zero(newh[0]) if real else newh[1])
+    assert y.dtype == nh.dtype == torch.complex64
+    assert torch.equal(y, want_y) and torch.equal(nh, want_h)
