@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --clocks]
 
 1. Prints the card (name, power limit), the torch and CUDA versions, and
    turns TF32 off.
@@ -10,10 +10,16 @@
    against its plain PyTorch version on the same CUDA tensors at the
    shapes of the path that runs it (#1 and #2 also through their
    float-plane signatures, #1 also at the ``fuse_deemphasis`` fold, at
-   paths F/G's and C's plans, on a ragged last tile and on misaligned
-   planes; #3 and #4 also at the geometries of paths E-G and at column
-   lengths n1 = 77 and, #3, n1 = 768; #9, which no block calls, at path
-   F's AGC shape).  Each check prints the call's bound: the larger of
+   paths F/G's and C's plans, on a ragged last tile, on misaligned planes
+   and, on its wide form, at the three plans of more than 16 output
+   phases (48 kHz, 384 kHz and 1.024 MHz to 44.1 kHz); #3 and #4 also at
+   the geometries of paths E-G, at column lengths n1 = 77 and, #3, n1 =
+   768, and (#4 at K = 3) at the five transforms past 128-point rows or
+   768 rows: m = n = 1000, 1001, 65536, 98304 and m = 6144, n = 98304;
+   #8 bit for bit, both forms, on paths E audio's and E rf's keyer
+   envelopes chunk after chunk and on random input clamped at every
+   sample; #9, which no block calls, at path F's AGC shape).  Each check
+   prints the call's bound: the larger of
    its bytes (each input read once, each output written once) over 3.35
    TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM data
    sheet), and the device time's share of it.  Where one PyTorch call
@@ -48,13 +54,23 @@
       at its tone and the AGC holds the level within 15%;
    G. ``isb_receiver(tune_shift=-30e3, agc=True)`` at ``{"iq":
       StreamSig(64, 8192, 256000)}``: a tone on each sideband; each
-      output peaks at its own tone, the other below 0.02 of it.
+      output peaks at its own tone, the other below 0.02 of it;
+   H. ``wfm_receiver()`` at ``StreamSig(8, 262144, 1.024e6)``, 4 chunks:
+      FM tones; its two Filters on #3 at 768 x 256 points;
+   I. ``Downsampler(44100, 20000)`` and ``GainControl`` at
+      ``StreamSig(64, 1600, 48000)``: tones; #1's wide form.
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
-   repetitions; #1 to #6 also as a CUDA graph replay, their device time
-   without the wrapper's host work), and
-   ``AgcControl``'s associative scan beside #9 at path F's shape;
-   ``--profile`` adds each path's device time by kernel (torch.profiler).
+   repetitions, or one run of a 16-chunk sequence; every kernel but #7
+   also as a CUDA graph replay, its device time without the wrapper's
+   host work), and ``AgcControl``'s associative scan beside #9 at path
+   F's shape; ``--profile`` adds each path's device time by kernel
+   (torch.profiler).
+
+``--clocks`` runs only #8's cycle split instead, from a development build
+of the kernels (``-DRR_SCAN_CLOCKS``): the serial tiled walk the segments
+replaced, the bare step chain and the segmented kernel's walks and passes,
+on random input and on E audio's keyer envelopes.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
@@ -95,7 +111,17 @@ MORSE_TONE = 700.0
 MESSAGES = ("CQ CQ DE K1ABC K", "TEST DE W1AW", "QRZ? DE DL1XYZ",
             "<SK> 73 DE G4ABC")
 AN_CHUNK, AN_RATE, AN_OFFSET = 8192, 256000.0, 30000.0
-SLEW_ATOL = 1e-5      # #8 kernel vs plain, max |diff| (test_pallas_scan.py)
+SLEW_ATOL = 0.0       # #8 kernel vs plain, max |diff|: bit for bit
+# (m, n) of the overlap-save transforms past 128-point rows or 768 rows.
+FAULT_GEOMETRIES = ((1000, 1000), (1001, 1001), (65536, 65536),
+                    (98304, 98304), (6144, 98304))
+# (input rate, output rate, bandwidth, chunk) of #1's wide plans.
+WIDE_PLANS = ((48000.0, 44100.0, 20000.0, 1600),
+              (384000.0, 44100.0, 16000.0, 12800),
+              (1024000.0, 44100.0, 16000.0, 20480))
+WIDE_CHUNK = 262144   # wfm_receiver() on long chunks: mid chunk 98304
+WIDE_BATCH, WIDE_T = 8, 4
+RESAMPLE_RATE, RESAMPLE_CHUNK = 48000.0, 1600   # 48 kHz -> 44.1 kHz
 AGC_ATOL, GAIN_ATOL = 2e-4, 2e-3   # #9 outputs and carried gain, the same
 UNIT_ATOL = 1e-5      # morse RF: | |y| - 1 |
 KEYING_RATIO = 10.0   # morse audio: key-down level over key-up level
@@ -187,6 +213,13 @@ def bound_of(nbytes: float, flops: float):
 
 def fft_flops(n: int) -> float:
     return 5.0 * n * np.log2(n)
+
+
+def nonzero_taps(plan) -> int:
+    """Multiply-adds of one decimation period over its q phases: the
+    nonzero taps of the kernel matrix (each row of a downsample plan is
+    the prototype at its own offset, L = Kw - p + 1 taps of Kw)."""
+    return int(np.count_nonzero(plan.kernel))
 
 
 def conv_decimate(xplanes, hplanes, kernel_matrix, p):
@@ -390,6 +423,57 @@ def profile_chain(run, steps: int, tag: str) -> None:
               f"calls/step  {key[:90]}")
 
 
+def slew_clocks(dev, randn) -> None:
+    """``--clocks``: #8's cycle split from the development build
+    (``-DRR_SCAN_CLOCKS``, ``rr_slew_clocks``), rsqrt form at path E's
+    shape: the serial tiled walk the segments replaced (staging and its
+    barrier, walk, barriers, store, per sample, thread 0 of block 0), the
+    bare step chain on registers, and the segmented kernel's block 0 (its
+    first walk per step, its passes, its repair walks)."""
+    import ctypes
+
+    from radiorust_tpu_torch.ops import _build
+    from radiorust_tpu_torch.ops import scan as osc
+    handle = _build.lib(("RR_SCAN_CLOCKS",))
+    seg = osc.segment_length(MORSE_CHUNK)
+    nseg = -(-MORSE_CHUNK // seg)
+    inputs = {"random": (randn(BATCH, MORSE_CHUNK), randn(BATCH,
+                                                           MORSE_CHUNK))}
+    env = torch.from_numpy(keyer_input(BATCH, MORSE_RATE)).to(dev)
+    inputs["E audio keyer, chunk 1"] = (env[1].real.contiguous(),
+                                        env[1].imag.contiguous())
+    md = torch.tensor([np.float32(100.0) / np.float32(MORSE_RATE)],
+                      device=dev)
+    for label, (xr, xi) in inputs.items():
+        prev = torch.zeros(BATCH, device=dev)
+        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+        out = torch.zeros(BATCH, device=dev)
+        clk = torch.zeros(8 + 4 * osc._MAX_SEGMENTS, dtype=torch.int64,
+                          device=dev)
+        err = handle.rr_slew_clocks(
+            xr.data_ptr(), xi.data_ptr(), prev.data_ptr(), prev.data_ptr(),
+            md.data_ptr(), yr.data_ptr(), yi.data_ptr(), out.data_ptr(),
+            out.data_ptr(), BATCH, MORSE_CHUNK, seg, clk.data_ptr(),
+            ctypes.c_void_p(_build.stream_handle(dev)))
+        _build.check(err, "rr_slew_clocks")
+        torch.cuda.synchronize()
+        c = clk.cpu().numpy().astype(np.float64)
+        tiled = c[:4] / MORSE_CHUNK
+        segs = c[8:8 + 4 * nseg].reshape(nseg, 4)
+        full = segs[:, 2].sum()
+        print(f"clocks [{label}] serial tiled walk, cycles a sample: staging "
+              f"+ barrier {tiled[0]:.1f}, walk {tiled[1]:.1f}, barrier "
+              f"{tiled[2]:.1f}, store + barrier {tiled[3]:.1f}, total "
+              f"{tiled.sum():.1f}; bare chain {c[4] / MORSE_CHUNK:.1f} a "
+              f"step")
+        print(f"clocks [{label}] segmented (L = {seg}, {nseg} segments, "
+              f"block 0): first walk {segs[:, 0].mean() / seg:.1f} cycles a "
+              f"step (mean), {segs[:, 0].max() / seg:.1f} (most); passes "
+              f"{int(segs[:, 3].max())}; repair walks {segs[:, 1].sum():.0f} "
+              f"cycles over {int(full)} steps walked to a segment's end"
+              + (f" ({segs[:, 1].sum() / full:.1f} a step)" if full else ""))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; there is no CPU run")
@@ -407,11 +491,14 @@ def main() -> None:
                                                      morse_rf_chain)
     from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
     from radiorust_tpu_torch.models.wfm import wfm_receiver
+    from radiorust_tpu_torch.blocks.resampling import Downsampler
+    from radiorust_tpu_torch.blocks.transform import GainControl
     from radiorust_tpu_torch.ops import _build
     from radiorust_tpu_torch.ops import channelizer as och
     from radiorust_tpu_torch.ops import filter as ofl
     from radiorust_tpu_torch.ops import frontend as ofe
     from radiorust_tpu_torch.ops import scan as osc
+    from radiorust_tpu_torch.ops.polyphase import plan_downsample
 
     t_start = time.perf_counter()
     name = card()
@@ -428,6 +515,10 @@ def main() -> None:
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
+
+    if "--clocks" in sys.argv[1:]:
+        slew_clocks(dev, randn)
+        return
 
     def phase(label, t0):
         print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
@@ -463,7 +554,7 @@ def main() -> None:
     def check(name, source, replaces, bound_, kernel, plain, args, flops,
               outputs=None, record=True, of=None, absolute=False,
               plain_timing=(3, 20), graphed=False, library=None,
-              inputs=None):
+              inputs=None, calls=1):
         """Kernel vs plain on the same CUDA tensors: max |diff| /
         max |ref| within ``bound_`` (max |diff| if ``absolute``);
         ``flops``: the operations the function needs on these inputs,
@@ -474,19 +565,23 @@ def main() -> None:
         layout): one PyTorch call computing the function on prebuilt
         inputs, timed as the yardstick, and the map of the plain
         version's result to that call's layout.  A check not recorded as
-        a kernel's entry is listed under the entry named ``of``."""
+        a kernel's entry is listed under the entry named ``of``.  ``calls``:
+        the kernel calls ``kernel`` makes (a chunk sequence): every time,
+        the bound and ``flops`` are per call."""
         res = kernel(*args)
         want_res = plain(*args)
         got = res if outputs is None else outputs(res)
         want = want_res if outputs is None else outputs(want_res)
         abs_err, rel = compare(got, want)
-        ms = cuda_ms(lambda: kernel(*args))
+        ms = cuda_ms(lambda: kernel(*args)) / calls
         warmup, reps = plain_timing
-        plain_ms = cuda_ms(lambda: plain(*args), reps=reps, warmup=warmup)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=reps,
+                           warmup=warmup) / calls
         err, kind = (abs_err, "max|diff|") if absolute else (rel, "rel")
         bound_ms, bound_by = bound_of(
-            io_bytes(args if inputs is None else inputs, res), flops)
-        device_ms = graph_ms(lambda: kernel(*args)) if graphed else None
+            io_bytes(args if inputs is None else inputs, res) / calls, flops)
+        device_ms = (graph_ms(lambda: kernel(*args)) / calls if graphed
+                     else None)
         share = bound_ms / (device_ms or ms)
         lib_ms = lib_rel = None
         lib_text = ""
@@ -535,7 +630,7 @@ def main() -> None:
         w = torch.from_numpy(plan.kernel).to(dev)
         part = (lambda z: (z.real,)) if real_input else planes_of
         call, layout = conv_decimate(part(x), part(h), w, plan.p)
-        flops = 2 * len(part(x)) * b * (n // plan.p) * plan.q * w.shape[1]
+        flops = 2 * len(part(x)) * b * (n // plan.p) * nonzero_taps(plan)
         check(label, decim_src, "radiorust_tpu/ops/pallas_frontend.py:181",
               FIR_BOUND, ofe.decimate_complex, ofe.decimate_complex_plain,
               (x, h, w, plan.p, plan.q, real_input), flops,
@@ -567,7 +662,7 @@ def main() -> None:
     check("decimate, float planes (the JAX signature), at A's tail", "",
           "", FIR_BOUND, ofe.decimate, ofe.decimate_plain,
           (xs_a, hs_a, w_a, plan.p, plan.q),
-          2 * BATCH * (n_mid // plan.p) * plan.q * w_a.shape[1],
+          2 * BATCH * (n_mid // plan.p) * nonzero_taps(plan),
           outputs=flat, record=False, of="decimate", graphed=True,
           library=("conv1d", call, lambda r: layout(r[0])))
     # Rows one sample longer than the chunk, starting one sample in: no
@@ -578,8 +673,8 @@ def main() -> None:
           ((odd(BATCH, AN_CHUNK), odd(BATCH, AN_CHUNK)),
            (odd(BATCH, aplan.hist), odd(BATCH, aplan.hist)),
            torch.from_numpy(aplan.kernel).to(dev), aplan.p, aplan.q),
-          2 * 2 * BATCH * (AN_CHUNK // aplan.p) * aplan.q
-          * aplan.kernel.shape[1], outputs=flat, record=False,
+          2 * 2 * BATCH * (AN_CHUNK // aplan.p) * nonzero_taps(aplan),
+          outputs=flat, record=False,
           of="decimate", graphed=True)
 
     hplan = mixdec.plan
@@ -590,7 +685,7 @@ def main() -> None:
     x = cplx(BATCH, CHUNK)
     hr, hi = randn(BATCH, hplan.hist), randn(BATCH, hplan.hist)
     w_h = torch.from_numpy(hplan.kernel).to(dev)
-    mix_flops = (2 * 2 * BATCH * (CHUNK // hplan.p) * hplan.q * w_h.shape[1]
+    mix_flops = (2 * 2 * BATCH * (CHUNK // hplan.p) * nonzero_taps(hplan)
                  + MIX_FLOPS * BATCH * CHUNK)
     # The yardstick's FIR part runs on the signal mixed beforehand: no
     # single PyTorch call mixes and decimates.
@@ -699,21 +794,57 @@ def main() -> None:
     if not bool(torch.isfinite(och.fused_pfb_demod(*ch_args)).all()):
         raise AssertionError("fused_pfb_demod: non-finite output")
 
-    # #8 at path E's shape, both forms; the rsqrt form is the block's.
-    # Random inputs slew at every sample, the longest run of the clamp.
+    # #8 at path E's shape, both forms (the rsqrt form is the block's),
+    # bit for bit: on E audio's and E rf's keyer envelopes, chunk after
+    # chunk with the carry handed on as the block does (the times are
+    # per call, the mean over the 16 chunks), and on random input, which
+    # slews at every sample and never lets the segments converge.
+    def slew_chunks(fn, xr, xi, pr, pi, md_, rsqrt):
+        ys = []
+        for c in range(xr.shape[0]):
+            yr, yi, pr, pi = fn(xr[c], xi[c], pr, pi, md_, rsqrt=rsqrt)
+            ys += [yr, yi]
+        return (*ys, pr, pi)
+
+    scan_src = "radiorust_tpu_torch/csrc/scan.cu"
+    for label, rate in (("E audio", MORSE_RATE), ("E rf", MORSE_RF_RATE)):
+        env = torch.from_numpy(keyer_input(BATCH, rate)).to(dev)
+        md_e = torch.tensor(np.float32(100.0) / np.float32(rate), device=dev)
+        seq_args = (env.real.contiguous(), env.imag.contiguous(),
+                    torch.zeros(BATCH, device=dev),
+                    torch.zeros(BATCH, device=dev), md_e)
+        for rsqrt in (True, False):
+            main = label == "E audio" and rsqrt
+            form = "" if rsqrt else ", sqrt/divide form"
+            check("slew_scan" if main else f"slew_scan on {label}'s keyer "
+                  f"envelopes{form}", scan_src if main else "",
+                  "radiorust_tpu/ops/pallas_scan.py:191" if main else "",
+                  SLEW_ATOL,
+                  lambda *a, r=rsqrt: slew_chunks(osc.slew_scan, *a, r),
+                  lambda *a, r=rsqrt: slew_chunks(osc.slew_scan_plain, *a, r),
+                  seq_args, SLEW_FLOPS * BATCH * MORSE_CHUNK, record=main,
+                  of=None if main else "slew_scan", absolute=True,
+                  plain_timing=(0, 1), graphed=True, calls=T)
     md = torch.tensor(np.float32(100.0) / np.float32(MORSE_RATE),
                       device=dev)
     slew_args = (randn(BATCH, MORSE_CHUNK), randn(BATCH, MORSE_CHUNK),
                  randn(BATCH), randn(BATCH), md)
     for rsqrt in (True, False):
-        check("slew_scan" if rsqrt else "slew_scan, sqrt/divide form",
-              "radiorust_tpu_torch/csrc/scan.cu",
-              "radiorust_tpu/ops/pallas_scan.py:191", SLEW_ATOL,
-              lambda *a, r=rsqrt: osc.slew_scan(*a, rsqrt=r),
+        form = "" if rsqrt else ", sqrt/divide form"
+        check(f"slew_scan on random all-clamped input{form}", "", "",
+              SLEW_ATOL, lambda *a, r=rsqrt: osc.slew_scan(*a, rsqrt=r),
               lambda *a, r=rsqrt: osc.slew_scan_plain(*a, rsqrt=r),
-              slew_args, SLEW_FLOPS * BATCH * MORSE_CHUNK, record=rsqrt,
-              of=None if rsqrt else "slew_scan", absolute=True,
-              plain_timing=(1, 3))
+              slew_args, SLEW_FLOPS * BATCH * MORSE_CHUNK, record=False,
+              of="slew_scan", absolute=True, plain_timing=(1, 3),
+              graphed=True)
+    # A row of no whole number of quads is walked in device memory.
+    t_odd = MORSE_CHUNK + 1
+    check(f"slew_scan walking device memory (T = {t_odd}, batch 8, random "
+          f"input)", "", "", SLEW_ATOL, lambda *a: osc.slew_scan(*a, rsqrt=True),
+          lambda *a: osc.slew_scan_plain(*a, rsqrt=True),
+          (randn(8, t_odd), randn(8, t_odd), randn(8), randn(8), md),
+          SLEW_FLOPS * 8 * t_odd, record=False, of="slew_scan",
+          absolute=True, plain_timing=(0, 1), graphed=True)
 
     # #9 at path F's AGC shape, in the loop's contracting regime (rate *
     # |x| well below 2), as the JAX package's kernel test feeds it.  The
@@ -727,7 +858,7 @@ def main() -> None:
           "radiorust_tpu/ops/pallas_scan.py:216", AGC_ATOL,
           osc.agc_scan, osc.agc_scan_plain, agc_args,
           AGC_FLOPS * BATCH * n_aud, outputs=lambda r: r[:2], absolute=True,
-          plain_timing=(1, 3))
+          plain_timing=(1, 3), graphed=True)
     gain_err = float((osc.agc_scan(*agc_args)[2]
                       - osc.agc_scan_plain(*agc_args)[2]).abs().max())
     print(f"agc_scan carried gain: max|diff|={gain_err:.3e} "
@@ -781,6 +912,40 @@ def main() -> None:
           (*(randn(8, n) for _ in range(4)), *random_grids(2, 2 * n)),
           os_flops(8, 2 * n, 2), record=False, of="fused_filter_bank",
           graphed=True)
+
+    # #3 and #4 (K = 3) at the transforms past the 128-point rows or 768
+    # rows: Filter at chunk 1000 (2000 = 125 x 16) and 1001 (2002 = 1001 x
+    # 2), at chunk 65536 (512 x 256), wfm_receiver() at input chunk 262144
+    # (mid chunk 98304: 768 x 256) and with a 6144-tap response there
+    # (408 x 256); batch 64 at the short ones, 8 at the long.
+    for m, n in FAULT_GEOMETRIES:
+        rows = BATCH if m + n < 10000 else 8
+        n1, n2 = ofl.kernel_factors(m + n)
+        cols = ofl.strip_cols(n1, n2)
+        for bands in (1, 3):
+            gr, gi = random_grids(bands, m + n)
+            bank = bands > 1
+            check(f"{'fused_filter_bank (K = 3)' if bank else 'fused_overlap_save'}"
+                  f" at m = {m}, n = {n} (n1 = {n1}, n2 = {n2}, "
+                  f"{cols}-column strips, batch {rows})", "", "",
+                  FILTER_BOUND,
+                  ofl.fused_filter_bank if bank else ofl.fused_overlap_save,
+                  (ofl.fused_filter_bank_plain if bank
+                   else ofl.fused_overlap_save_plain),
+                  (randn(rows, m), randn(rows, m), randn(rows, n),
+                   randn(rows, n), *((gr, gi) if bank else (gr[0], gi[0]))),
+                  os_flops(rows, m + n, bands), record=False,
+                  of="fused_filter_bank" if bank else "fused_overlap_save",
+                  graphed=True)
+
+    # #1's wide form at the plans past one block of the polyphase kernel.
+    for rate_in, rate_out, bw, n in WIDE_PLANS:
+        wplan = plan_downsample(rate_in, rate_out, bw)
+        check_decimate(f"decimate, wide form, {rate_in / 1e3:g} kHz -> "
+                       f"{rate_out / 1e3:g} kHz at chunk {n} (p = "
+                       f"{wplan.p}, q = {wplan.q}, Kw = "
+                       f"{wplan.kernel.shape[1]}, two planes)", wplan, BATCH,
+                       n, False)
     t0 = phase("kernel checks", t0)
 
     # -- the paths ------------------------------------------------------------
@@ -789,7 +954,7 @@ def main() -> None:
                 ofl.fused_filter_demod_filter, och.fused_pfb_demod,
                 osc.slew_scan, osc.agc_scan]
 
-    def drive(label, run, want):
+    def drive(label, run, want, chunks=T):
         """Run a path with every launch counter at 0 just before and read
         just after; fail unless each kernel of ``want`` was launched."""
         torch.cuda.synchronize()
@@ -798,7 +963,7 @@ def main() -> None:
         out = run()
         torch.cuda.synchronize()
         launches = {w.__name__: w.launches for w in wrappers}
-        print(f"path {label} launches over {T} chunks: {launches}")
+        print(f"path {label} launches over {chunks} chunks: {launches}")
         for w in want:
             if launches[w.__name__] < 1:
                 raise AssertionError(f"{w.__name__} was not launched on "
@@ -817,13 +982,13 @@ def main() -> None:
         if not diff <= atol:
             raise AssertionError(f"path {label} disagrees with the CPU run")
 
-    def timed(label, run, samples_per_step):
-        step_ms = cuda_ms(run, reps=3) / T
+    def timed(label, run, samples_per_step, chunks=T):
+        step_ms = cuda_ms(run, reps=3) / chunks
         msps = samples_per_step / (step_ms * 1e-3) / 1e6
         print(f"path {label}: {step_ms * 1e3:.1f} us per chunk step, "
               f"{msps:.1f} Msamples/s input {tag}")
         if "--profile" in sys.argv[1:]:
-            profile_chain(run, T, f"path {label} {tag}")
+            profile_chain(run, chunks, f"path {label} {tag}")
         return step_ms
 
     def chain_paths(label, kw, bound_, want):
@@ -1121,6 +1286,52 @@ def main() -> None:
           BATCH * AN_CHUNK)
     t0 = phase("path G", t0)
 
+    # Path H: wfm_receiver() on long chunks (input chunk 262144, mid
+    # chunk 98304): its two Filters run #3 at 768 x 256, its Downsamplers
+    # #1.  Path I: a Downsampler to 44.1 kHz at 48 kHz (#1's wide form).
+    def short_path(label, bound_, small, xs_host, want, tones, peak_rate):
+        xs = torch.from_numpy(xs_host).to(dev)
+        params = tree_to_torch(bound_.params, dev)
+        state0 = tree_to_torch(bound_.init_state(), dev)
+        chunks = xs_host.shape[0]
+        (_, ys), launches = drive(
+            label, lambda: scan(bound_, params, state0, xs), want, chunks)
+        finite(label, [ys])
+        v = bound_.valid_from
+        ys_host = ys.cpu().numpy()
+        for s in (0, ys_host.shape[1] - 1):
+            peak = peak_hz(ys_host[v:, s].real.reshape(-1), peak_rate)
+            print(f"path {label} stream {s}: tone {tones[s]:.1f} Hz, peak "
+                  f"{peak:.1f} Hz")
+            if abs(peak - tones[s]) > TONE_HZ:
+                raise AssertionError(f"path {label} stream {s}: peak {peak}")
+        _, ys_cpu = scan(small, tree_to_torch(small.params, "cpu"),
+                         tree_to_torch(small.init_state(), "cpu"),
+                         torch.from_numpy(xs_host[:, :2]))
+        vs_cpu(label, ys_host[v:, :2], ys_cpu.numpy()[v:], CPU_ATOL)
+        timed(label, lambda: scan(bound_, params, state0, xs),
+              xs_host.shape[1] * xs_host.shape[2], chunks)
+        return launches
+
+    long_sig = StreamSig(WIDE_BATCH, WIDE_CHUNK, RATE)
+    long_tones = 500.0 + 1500.0 * np.arange(WIDE_BATCH)
+    launches_h = short_path(
+        "H", wfm_receiver().bind(long_sig),
+        wfm_receiver().bind(StreamSig(2, WIDE_CHUNK, RATE)),
+        fm_tones(long_tones, WIDE_T, WIDE_CHUNK, offset=0.0),
+        [ofe.decimate, ofl.fused_overlap_save], long_tones, 48000.0)
+    t0 = phase("path H", t0)
+    rs_chain = lambda: Chain(Downsampler(44100.0, 20000.0), GainControl(1.0))
+    rs_tones = 300.0 + 250.0 * np.arange(BATCH)
+    ts = np.arange(T * RESAMPLE_CHUNK) / RESAMPLE_RATE
+    rs_x = np.stack([np.exp(2j * np.pi * f * ts).astype(np.complex64)
+                     .reshape(T, RESAMPLE_CHUNK) for f in rs_tones], axis=1)
+    launches_i = short_path(
+        "I", rs_chain().bind(StreamSig(BATCH, RESAMPLE_CHUNK, RESAMPLE_RATE)),
+        rs_chain().bind(StreamSig(2, RESAMPLE_CHUNK, RESAMPLE_RATE)), rs_x,
+        [ofe.decimate], rs_tones, 44100.0)
+    t0 = phase("path I", t0)
+
     # Each kernel's launches are those of the path it was checked at.
     # agc_scan has no block path (AgcControl runs the associative scan):
     # its count on path F, where it was held, is 0.
@@ -1134,7 +1345,10 @@ def main() -> None:
                "agc_scan": launches_f}
     print(f"launches on paths E rf {launches_erf['slew_scan']} (slew_scan), "
           f"F {launches_f['decimate']} (decimate), G "
-          f"{launches_g['fused_filter_bank']} (fused_filter_bank)")
+          f"{launches_g['fused_filter_bank']} (fused_filter_bank), H "
+          f"{launches_h['fused_overlap_save']} (fused_overlap_save), "
+          f"{launches_h['decimate']} (decimate), I "
+          f"{launches_i['decimate']} (decimate)")
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     for k in kernels:
         k["launches"] = path_of[k["name"]][k["name"]]

@@ -129,9 +129,10 @@ class _BoundFilter(BoundBlock):
         self.ir_len = m
         ir = design_impulse_response(freq_resp, window, m, sig.sample_rate)
         self._real_ir = _is_real_ir(ir)
-        # Whether the overlap-save kernel takes this geometry.  Where it
-        # does not, the block runs on CPU tensors only (process raises on
-        # CUDA ones).
+        # Whether the overlap-save kernel takes this geometry: every one
+        # whose column fits a one-column strip (ops/filter.py supported).
+        # Where it does not, the block runs on CPU tensors only (process
+        # raises on CUDA ones).
         self.kernel_geometry = _ofilter.supported(n, m)
         self.params = {"response":
                        extend_response(ir, pad=n).astype(
@@ -163,8 +164,8 @@ class _BoundFilter(BoundBlock):
         elif x.is_cuda:
             raise ValueError(
                 f"Filter geometry chunk {n}, ir_len {m} is not one the "
-                f"overlap-save kernel takes; bind a chunk with "
-                f"(chunk + ir_len) % 128 == 0")
+                f"overlap-save kernel takes: its column (chunk + ir_len) / "
+                f"n2 is past {_ofilter._MAX_COLUMN} points")
         else:
             spec = (torch.fft.fft(torch.cat([prev, x], dim=-1))
                     * params["response"])
@@ -242,8 +243,9 @@ class _BoundFilterBank(BoundBlock):
         self.num_outputs = len(irs)
         self.out_sigs = (sig,) * self.num_outputs
         self._real_irs = tuple(_is_real_ir(ir) for ir in irs)
-        # Whether the bank kernel takes this geometry; where it does not,
-        # the block runs on CPU tensors only (process raises on CUDA ones).
+        # Whether the bank kernel takes this geometry (ops/filter.py
+        # bank_supported); where it does not, the block runs on CPU
+        # tensors only (process raises on CUDA ones).
         self.kernel_geometry = _ofilter.bank_supported(
             n, self.num_outputs, m, sig.batch)
         self.params = {"responses": np.stack(
@@ -273,8 +275,8 @@ class _BoundFilterBank(BoundBlock):
         elif x.is_cuda:
             raise ValueError(
                 f"FilterBank geometry chunk {n}, ir_len {m} is not one the "
-                f"bank kernel takes; bind a chunk with "
-                f"(chunk + ir_len) % 128 == 0")
+                f"bank kernel takes: its column (chunk + ir_len) / n2 is "
+                f"past {_ofilter._MAX_COLUMN} points")
         else:
             spec = torch.fft.fft(torch.cat([prev, x], dim=-1))
             ys = torch.fft.ifft(spec[None] * params["responses"][:, None],

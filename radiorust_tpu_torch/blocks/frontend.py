@@ -46,7 +46,7 @@ class _BoundMixerDecimator(BoundBlock):
                                quality)
         self.plan = plan
         self.out_sig = StreamSig(sig.batch, plan.out_len(n), output_rate)
-        if not _ofront.decimate_supported(n, plan):
+        if not _ofront.decimate_supported(n, plan, mixer=True):
             raise ValueError("MixerDecimator kernel constraints unmet; use "
                              "FreqShifter + Downsampler")
         # The decimation taps are bind-time constants (as in the JAX

@@ -37,8 +37,10 @@ class _BoundResampler(BoundBlock):
         # The reference does not reset resampler state on events, so
         # ``reset`` is unused.
         plan = self.plan
-        # Complex64 in and out, read and written in place by the kernel;
-        # a real input filters the real planes only.
+        # Complex64 in and out, read and written in place by the kernel
+        # (the polyphase kernel, or its wide form for plans such as 48 kHz
+        # -> 44.1 kHz: every aligned plan runs on CUDA); a real input
+        # filters the real planes only.
         y, nh = _ofront.decimate_complex(x, state["hist"], params["kernel"],
                                          plan.p, plan.q,
                                          real_input=self.input_is_real)

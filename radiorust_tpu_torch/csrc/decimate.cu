@@ -54,6 +54,27 @@
 //     im of a complex64 tensor, as one 8-byte store per output; a
 //     real-input call writes the zero imaginary part itself.
 // Plain float32 FMA; no tensor cores.
+//
+// Wide plans (rr_decimate_wide).  A plan whose q phases (one warp each)
+// pass the block's 16 warps, or whose staged span and [q][p][apad] taps
+// pass shared memory, is one of the other kind: a large p against few
+// periods per chunk, each phase row holding one or two taps (48 kHz ->
+// 44.1 kHz: p = 160, q = 147, Kw = 171, 10 periods a 1600-sample chunk;
+// 1.024 MHz -> 44.1 kHz: p = 10240, q = 441, Kw = 10458, 2 periods).
+// There the polyphase rows and the register window over periods share
+// nothing, and each kernel row W[r] is the prototype filter shifted to
+// its own offset: L = Kw - p + 1 nonzero taps of Kw (12 of 171, 219 of
+// 10458).  So the wide kernel reads W in its own [q, Kw] layout through
+// the L2, each row only over its band of nonzero taps [lo_r, hi_r) (from
+// the wrapper, once per taps tensor), and loops the phases over its warps
+// in rounds: block (tile of tm periods, stream, phase block of QB rows),
+// 8 warps, warp w takes rows w, w + 8, ...  The block stages, per chunk
+// of UC taps of its rows' joint band, the tm windows buf[(m0 + m) p + u]
+// (both planes, complex64 read in place at element stride 2); the lanes
+// of a warp split a row's band, feed each tap to every staged period (up
+// to 8 in registers) and meet by shuffles; partial sums over the chunks
+// collect in shared memory.  The last tile's first phase block copies the
+// new history from the sources, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -414,6 +435,156 @@ __global__ void __launch_bounds__(kMaxThreads) decimate_kernel(
   }
 }
 
+constexpr int kWideThreads = 256;   // 8 warps: rows in rounds of 8
+constexpr int kWideOut = 8;         // periods a lane keeps in registers
+constexpr int kWideStatic = 64;     // static shared bytes kept free
+
+// grid (ceil(M / tm), batch, ceil(q / QB)), block kWideThreads.  Shared:
+// S [NP][tm][UC] staged windows, then red [NP][QB][tm] partial sums.
+// band [q][2]: row r's nonzero taps [lo, hi) (lo = Kw, hi = 0 for a zero
+// row).  A.taps: W [q][Kw], row-major.
+template <int NP>
+__global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
+    DecimArgs A, const int* __restrict__ band, int tm, int QB, int UC) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int ulo_s, uhi_s;
+  const int p = A.p, q = A.q, n = A.n, hist = A.hist, kw = hist + p;
+  const int M = n / p, s = blockIdx.y;
+  const int m0 = blockIdx.x * tm, mt = min(tm, M - m0);
+  const int r0 = blockIdx.z * QB, nr = min(QB, q - r0);
+  float* S = smem;
+  float* red = smem + NP * tm * UC;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  if (tid == 0) {
+    ulo_s = kw;
+    uhi_s = 0;
+  }
+  for (int i = tid; i < NP * QB * tm; i += nt) red[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < nr; i += nt) {
+    atomicMin(&ulo_s, __ldg(band + 2 * (r0 + i)));
+    atomicMax(&uhi_s, __ldg(band + 2 * (r0 + i) + 1));
+  }
+  __syncthreads();
+  const int ulo = ulo_s, uhi = uhi_s;
+  const float* h0 = A.h[0] + s * A.h_row;
+  const float* h1 = NP == 2 ? A.h[1] + s * A.h_row : nullptr;
+  const float* x0 = A.x[0] + s * A.x_row;
+  const float* x1 = NP == 2 ? A.x[1] + s * A.x_row : nullptr;
+  for (int U0 = ulo; U0 < uhi; U0 += UC) {
+    const int uc = min(UC, uhi - U0);
+    // S[pl][m][u - U0] = buf[(m0 + m) p + u]: always inside [hist || x].
+    for (int i = tid; i < mt * uc; i += nt) {
+      const int m = i / uc, du = i - m * uc;
+      const int64_t j = (int64_t)(m0 + m) * p + U0 + du;
+      float v0, v1 = 0.f;
+      if (j < hist) {
+        v0 = __ldg(h0 + j * A.h_step);
+        if (NP == 2) v1 = __ldg(h1 + j * A.h_step);
+      } else {
+        v0 = __ldg(x0 + (j - hist) * A.x_step);
+        if (NP == 2) v1 = __ldg(x1 + (j - hist) * A.x_step);
+      }
+      S[m * UC + du] = v0;
+      if (NP == 2) S[(tm + m) * UC + du] = v1;
+    }
+    __syncthreads();
+    for (int rr = warp; rr < nr; rr += nw) {
+      const int r = r0 + rr;
+      const int lo = max(__ldg(band + 2 * r), U0);
+      const int hi = min(__ldg(band + 2 * r + 1), U0 + uc);
+      if (lo >= hi) continue;   // warp-uniform
+      const float* w = A.taps + (int64_t)r * kw;
+      for (int mb = 0; mb < mt; mb += kWideOut) {
+        float acc[NP][kWideOut];
+#pragma unroll
+        for (int pl = 0; pl < NP; ++pl)
+#pragma unroll
+          for (int j = 0; j < kWideOut; ++j) acc[pl][j] = 0.f;
+        for (int u = lo + lane; u < hi; u += 32) {
+          const float wu = __ldg(w + u);
+          const float* sp = S + (u - U0) + mb * UC;
+#pragma unroll
+          for (int j = 0; j < kWideOut; ++j) {
+            if (mb + j < mt) {
+              acc[0][j] = fmaf(wu, sp[j * UC], acc[0][j]);
+              if (NP == 2) acc[1][j] = fmaf(wu, sp[(tm + j) * UC], acc[1][j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int pl = 0; pl < NP; ++pl)
+#pragma unroll
+          for (int j = 0; j < kWideOut; ++j)
+#pragma unroll
+            for (int off = 16; off >= 1; off >>= 1)
+              acc[pl][j] += __shfl_xor_sync(0xffffffffu, acc[pl][j], off);
+        if (lane == 0) {
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl)
+#pragma unroll
+            for (int j = 0; j < kWideOut; ++j)
+              if (mb + j < mt) red[(pl * QB + rr) * tm + mb + j] += acc[pl][j];
+        }
+      }
+    }
+    __syncthreads();   // the next chunk's staging overwrites S
+  }
+  float* y0 = A.y[0] + s * A.y_row;
+  float* y1 = A.y[1] ? A.y[1] + s * A.y_row : nullptr;
+  const bool pairs = y1 == y0 + 1 && A.y_step == 2;
+  for (int i = tid; i < nr * mt; i += nt) {
+    const int m = i / nr, rr = i - m * nr;
+    const int64_t at = ((int64_t)(m0 + m) * q + r0 + rr) * A.y_step;
+    const float v0 = red[rr * tm + m];
+    const float v1 = NP == 2 ? red[(QB + rr) * tm + m] : 0.f;
+    if (pairs) {
+      *reinterpret_cast<float2*>(y0 + at) = make_float2(v0, v1);
+    } else {
+      y0[at] = v0;
+      if (y1) y1[at] = v1;   // a real input's imaginary part is 0
+    }
+  }
+  // New history buf[n, n + hist), copied from its sources.
+  if (blockIdx.x == gridDim.x - 1 && blockIdx.z == 0) {
+    float* nh0 = A.nh[0] + s * A.nh_row;
+    float* nh1 = A.nh[1] ? A.nh[1] + s * A.nh_row : nullptr;
+    for (int i = tid; i < hist; i += nt) {
+      const int64_t j = (int64_t)n + i;
+      float v0, v1 = 0.f;
+      if (j < hist) {
+        v0 = __ldg(h0 + j * A.h_step);
+        if (NP == 2) v1 = __ldg(h1 + j * A.h_step);
+      } else {
+        v0 = __ldg(x0 + (j - hist) * A.x_step);
+        if (NP == 2) v1 = __ldg(x1 + (j - hist) * A.x_step);
+      }
+      nh0[i * A.nh_step] = v0;
+      if (nh1) nh1[i * A.nh_step] = v1;
+    }
+  }
+}
+
+// Shared bytes of a wide launch; ops/frontend.py::wide_config mirrors it.
+size_t wide_smem_bytes(int np, int tm, int qb, int uc) {
+  return sizeof(float) * ((size_t)np * tm * uc + (size_t)np * qb * tm);
+}
+
+template <int NP>
+int launch_wide(const DecimArgs& a, const int* band, int tm, int qb, int uc,
+                cudaStream_t stream) {
+  const int M = a.n / a.p;
+  if (tm < 1 || qb < 1 || uc < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  // Dynamic and static shared memory together within 48 KB (no opt-in).
+  const size_t smem = wide_smem_bytes(NP, tm, qb, uc);
+  if (smem + kWideStatic > 48 * 1024) return (int)cudaErrorInvalidValue;
+  dim3 grid((M + tm - 1) / tm, a.b, (a.q + qb - 1) / qb);
+  decimate_wide_kernel<NP><<<grid, kWideThreads, smem, stream>>>(a, band, tm,
+                                                                 qb, uc);
+  return (int)cudaGetLastError();
+}
+
 bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
 // How a source's quads are read: float4 loads need 16-byte aligned rows
@@ -481,6 +652,19 @@ int rr_decimate(const DecimArgs* args, int r, int g, void* stream) {
   if (a.nplanes == 1 && r == 8) return launch<false, 1, 8>(a, g, st);
   if (a.nplanes == 2 && r == 4) return launch<false, 2, 4>(a, g, st);
   if (a.nplanes == 2 && r == 8) return launch<false, 2, 8>(a, g, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// A wide plan (see the head of this file): args->taps is W [q][Kw]
+// row-major, band [q][2] each row's nonzero taps; tm periods a tile, qb
+// phases a block, uc staged taps a chunk (shared bytes wide_smem_bytes,
+// at most 48 KB).
+int rr_decimate_wide(const DecimArgs* args, const int* band, int tm, int qb,
+                     int uc, void* stream) {
+  const DecimArgs& a = *args;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a.nplanes == 1) return launch_wide<1>(a, band, tm, qb, uc, st);
+  if (a.nplanes == 2) return launch_wide<2>(a, band, tm, qb, uc, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,17 +12,19 @@
 //                       _make_filter_demod_filter_kernel :833)
 //
 // What it computes, per stream, on z = [prev (m) || cur (n)], N = m + n =
-// n1 * n2 with n2 = 128, time t = i2 + n2*i1, frequency k = k1 + n1*k2:
+// n1 * n2 with n2 a power of two up to 256 (the plan of ops/filter.py
+// kernel_factors: 128 wherever it divides N), time t = i2 + n2*i1,
+// frequency k = k1 + n1*k2:
 //   T[k1,i2] = FFT_n1 of column i2 of z[i1,i2];   U = T * tw       (launch 1)
-//   V[k1,k2] = FFT_128 of row k1 of U;   P = V * G[k1,k2]
-//   S[k1,i2] = inverse FFT_128 of row k1 of P, times conj(tw)      (launch 2)
+//   V[k1,k2] = FFT_n2 of row k1 of U;   P = V * G[k1,k2]
+//   S[k1,i2] = inverse FFT_n2 of row k1 of P, times conj(tw)       (launch 2)
 //   y[i1,i2] = inverse FFT_n1 of column i2 of S, for t < n          (launch 3)
 // with tw[k1,i2] = exp(-2 pi i k1 i2 / N) and G the response grid with
 // the 1/N of the inverse folded in.  The TPU kernel ran each stage as a
 // dense DFT on its matrix unit; the H100 has no float32 matrix unit at
 // this precision, so here each stage is a radix FFT.  Every twiddle and
 // root comes from float32 tables designed in float64 on the host
-// (ops/filter.py _tables: the n1 column roots, the 128 row roots, tw) and
+// (ops/filter.py _tables: the n1 column roots, the n2 row roots, tw) and
 // the column pass order from its radices (ops/filter.py fft_radices).
 // The demod form first computes d = atan2(Im, Re of x * conj(x[-1])) *
 // factor (first sample from the carried last sample, or the carried last
@@ -53,18 +55,22 @@
 // What the design does about it: three launches over a [X, N] complex
 // scratch (two float planes) that the wrapper allocates, each touching
 // device memory once per sample.  Launches 1 and 3 stage a strip of C
-// columns (32, or 16 for n1 > 447, so that two strip buffers of n1 rows
-// and the column roots fit shared memory up to n1 = 768) of one stream's
-// grid with 16-byte cp.async copies (four loads where a chunk straddles
-// the prev || cur seam or is misaligned) and run the column FFT as
-// Stockham passes between the two buffers: radix 8, 4, 2, 3 and 5
-// butterflies, one thread per butterfly and column, and one generic pass
-// (one thread per output) for any other prime.  Launch 2 holds one grid
-// row in one warp, 4 complex values a lane, and runs the 128-point FFT in
-// registers: a radix-4 pass across the lane's values, then five radix-2
-// passes across lanes through __shfl_xor_sync; no matrix sits in shared
-// memory, so 9 blocks of 4 rows fit an SM (56 registers a thread) and
-// even 512 rows spread over 128 blocks.  Plain float32 FMA: no tensor
+// columns of one stream's grid (the widest of 32, 16, ..., 1 within n2
+// whose two strip buffers of n1 rows and the column roots fit shared
+// memory: 32 up to n1 = 447, 16 up to 874, 8 up to 1704, ..., one column
+// up to 9685 rows, so a long column streams narrower strips) with
+// 16-byte cp.async copies (four loads where a chunk straddles the
+// prev || cur seam or is misaligned; scalar loads in strips under four
+// columns) and run the column FFT as Stockham passes between the two
+// buffers: radix 8, 4, 2, 3 and 5 butterflies, one thread per butterfly
+// and column, and one generic pass (one thread per output) for any other
+// prime.  Launch 2 holds one grid row in registers, V = n2 / 32 complex
+// values a lane on a warp (n2 >= 32; a row of n2 < 32 points takes n2
+// lanes, one value each), and runs the row FFT there: a radix-V pass
+// across the lane's values, then radix-2 passes across lanes through
+// __shfl_xor_sync; no matrix sits in shared memory, so 9 blocks of 4
+// rows fit an SM (56 registers a thread at n2 = 128) and even 512 rows
+// spread over 128 blocks.  Plain float32 FMA: no tensor
 // cores, TF32 or library FFT.  Measured on an H100 80GB HBM3 at 700 W,
 // the three launches move 44 MB in 28.7 us at the receive chain's batch
 // 64 (~1.5 TB/s, mostly from L2): each launch is one short wave, and its
@@ -76,36 +82,38 @@
 
 namespace {
 
-constexpr int kN2 = 128;          // the port's fixed lane factor
+constexpr int kMaxN2 = 256;       // the longest row: 8 values a lane
 constexpr int kColThreads = 256;  // threads of a column block: (C, 256 / C)
-constexpr int kRowWarps = 4;      // grid rows, one per warp, of a row block
+constexpr int kRowThreads = 128;  // a row block: 4 warps
 constexpr size_t kMaxSmem = 232448;  // shared bytes a block may use (H100)
-static_assert(32 * kRowWarps == kN2, "a row block loads one root each");
 
 // Tables of one transform geometry (ops/filter.py _tables), unpacked.
 struct Plan {
   const float* r1r;  // n1 column roots exp(-2 pi i j / n1), re and im
   const float* r1i;
-  const float* r2r;  // 128 row roots exp(-2 pi i j / 128)
+  const float* r2r;  // n2 row roots exp(-2 pi i j / n2)
   const float* r2i;
-  const float* twr;  // [n1, 128] four-step twiddle
+  const float* twr;  // [n1, n2] four-step twiddle
   const float* twi;
   const int* radix;  // column radices, in pass order
   int npass;
   int n1;
+  int n2;
 };
 
-Plan make_plan(const float* tables, const int* radix, int npass, int n1) {
+Plan make_plan(const float* tables, const int* radix, int npass, int n2,
+               int n1) {
   Plan p;
   p.r1r = tables;
   p.r1i = tables + n1;
   p.r2r = tables + 2 * n1;
-  p.r2i = p.r2r + kN2;
-  p.twr = p.r2i + kN2;
-  p.twi = p.twr + (size_t)n1 * kN2;
+  p.r2i = p.r2r + n2;
+  p.twr = p.r2i + n2;
+  p.twi = p.twr + (size_t)n1 * n2;
   p.radix = radix;
   p.npass = npass;
   p.n1 = n1;
+  p.n2 = n2;
   return p;
 }
 
@@ -320,11 +328,44 @@ size_t strip_bytes(int n1, int cols) {
   return sizeof(float) * (4 * (size_t)n1 * cols + 2 * (size_t)n1);
 }
 
-int strip_cols(int n1) { return strip_bytes(n1, 32) <= kMaxSmem ? 32 : 16; }
+// The widest strip of 32, 16, ..., 1 columns within a row of n2 that fits
+// shared memory (ops/filter.py strip_cols mirrors it); 0 if none does.
+int strip_cols(int n1, int n2) {
+  for (int c = 32; c >= 1; c >>= 1)
+    if (c <= n2 && strip_bytes(n1, c) <= kMaxSmem) return c;
+  return 0;
+}
+
+// Element (i1, c0 + c) of the n1 x n2 grid of [a (m) || b] into the strip
+// planes buf (re) and buf + plane (im), columns c < C: quads of four by
+// stage4 where a strip has four columns or more, else one at a time.
+__device__ __forceinline__ void stage_strip(float* buf, int plane,
+                                            const float* ar, const float* ai,
+                                            const float* br, const float* bi,
+                                            int m, int n1, int n2, int c0,
+                                            int tid, int nt) {
+  const int C = blockDim.x;
+  if (C >= 4) {
+    const int quads = C / 4;
+    for (int ch = tid; ch < n1 * quads; ch += nt) {
+      const int i1 = ch / quads, cc = 4 * (ch % quads);
+      const int t = i1 * n2 + c0 + cc;
+      stage4(buf + i1 * C + cc, ar, br, t, m);
+      stage4(buf + plane + i1 * C + cc, ai, bi, t, m);
+    }
+  } else {
+    for (int ch = tid; ch < n1 * C; ch += nt) {
+      const int i1 = ch / C, cc = ch % C;
+      const int t = i1 * n2 + c0 + cc;
+      buf[i1 * C + cc] = t < m ? ar[t] : br[t - m];
+      buf[plane + i1 * C + cc] = t < m ? ai[t] : bi[t - m];
+    }
+  }
+}
 
 // Launch 1: the column FFT of one strip of C columns of stream s's
 // [prev || cur] grid, then the twiddle, written to scratch row s.
-// grid (128 / C, X), block (C, kColThreads / C), shared strip_bytes(n1, C).
+// grid (n2 / C, X), block (C, kColThreads / C), shared strip_bytes(n1, C).
 __global__ void __launch_bounds__(kColThreads)
     os_forward_columns(const float* __restrict__ prevr,
                        const float* __restrict__ previ, int prev_stride,
@@ -334,7 +375,7 @@ __global__ void __launch_bounds__(kColThreads)
                        float* __restrict__ ai) {
   extern __shared__ float4 smem4[];
   float* buf = reinterpret_cast<float*>(smem4);
-  const int n1 = pl.n1, C = blockDim.x, plane = n1 * C;
+  const int n1 = pl.n1, n2 = pl.n2, C = blockDim.x, plane = n1 * C;
   float* wr = buf + 4 * plane;
   float* wi = wr + n1;
   const int s = blockIdx.y, c0 = blockIdx.x * C, tx = threadIdx.x;
@@ -343,13 +384,7 @@ __global__ void __launch_bounds__(kColThreads)
   const float* pi = previ + (size_t)s * prev_stride;
   const float* cr = curr + (size_t)s * cur_stride;
   const float* ci = curi + (size_t)s * cur_stride;
-  const int quads = C / 4;
-  for (int ch = tid; ch < n1 * quads; ch += nt) {
-    const int i1 = ch / quads, cc = 4 * (ch % quads);
-    const int t = i1 * kN2 + c0 + cc;
-    stage4(buf + i1 * C + cc, pr, cr, t, m);
-    stage4(buf + plane + i1 * C + cc, pi, ci, t, m);
-  }
+  stage_strip(buf, plane, pr, pi, cr, ci, m, n1, n2, c0, tid, nt);
   for (int i = tid; i < n1; i += nt) {
     wr[i] = pl.r1r[i];
     wi[i] = pl.r1i[i];
@@ -357,9 +392,9 @@ __global__ void __launch_bounds__(kColThreads)
   cp_async_wait_all();
   __syncthreads();
   const float* x = column_fft<false>(buf, plane, pl, wr, wi);
-  const size_t N = (size_t)n1 * kN2;
+  const size_t N = (size_t)n1 * n2;
   for (int k1 = threadIdx.y; k1 < n1; k1 += blockDim.y) {
-    const int at = k1 * kN2 + c0 + tx;
+    const int at = k1 * n2 + c0 + tx;
     const cf v = cmul({x[k1 * C + tx], x[plane + k1 * C + tx]},
                       {pl.twr[at], pl.twi[at]});
     ar[s * N + at] = v.r;
@@ -367,21 +402,25 @@ __global__ void __launch_bounds__(kColThreads)
   }
 }
 
-// 128-point FFT of one grid row held by one warp: lane l holds x[l + 32j]
-// in v[j]; on return it holds X[4 * brev5(l) + j].  A radix-4 pass across
-// the lane's values with twiddle w^(l*j), then radix-2 decimation in
-// frequency across lanes l ^ h, h = 16 .. 1.
-__device__ __forceinline__ void row_fft(cf* v, int lane, const float* wr,
+// n2 = V * LR point FFT of one grid row held by LR lanes (l = lane % LR)
+// of a warp: lane l holds x[l + LR j] in v[j]; on return it holds
+// X[V * brev(l) + j] (brev over log2 LR bits).  A radix-V pass across the
+// lane's values with twiddle w^(l*j), then radix-2 decimation in
+// frequency across lanes l ^ h, h = LR / 2 .. 1 (partners stay in the
+// lane's group of LR).
+template <int V, int LR>
+__device__ __forceinline__ void row_fft(cf* v, int l, const float* wr,
                                         const float* wi) {
-  dft4<false>(v[0], v[1], v[2], v[3]);
+  constexpr int n2 = V * LR;
+  if constexpr (V > 1) butterfly<V, false>(v);
 #pragma unroll
-  for (int j = 1; j < 4; ++j) v[j] = cmul(v[j], root<false>(wr, wi, lane * j));
+  for (int j = 1; j < V; ++j) v[j] = cmul(v[j], root<false>(wr, wi, l * j));
 #pragma unroll
-  for (int h = 16; h >= 1; h >>= 1) {
-    const bool upper = lane & h;
-    const cf w = root<false>(wr, wi, (lane & (h - 1)) * (64 / h));
+  for (int h = LR / 2; h >= 1; h >>= 1) {
+    const bool upper = l & h;
+    const cf w = root<false>(wr, wi, (l & (h - 1)) * (n2 / (2 * h)));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < V; ++j) {
       const cf p = {__shfl_xor_sync(0xffffffffu, v[j].r, h),
                     __shfl_xor_sync(0xffffffffu, v[j].i, h)};
       v[j] = upper ? cmul(p - v[j], w) : v[j] + p;
@@ -389,17 +428,19 @@ __device__ __forceinline__ void row_fft(cf* v, int lane, const float* wr,
   }
 }
 
-// The inverse of row_fft (unnormalised): from X[4 * brev5(l) + j] in v[j]
-// to x[l + 32j], by radix-2 decimation in time across lanes, h = 1 .. 16,
-// the conjugate twiddle, and the inverse radix-4 pass.
-__device__ __forceinline__ void row_ifft(cf* v, int lane, const float* wr,
+// The inverse of row_fft (unnormalised): from X[V * brev(l) + j] in v[j]
+// to x[l + LR j], by radix-2 decimation in time across lanes, h = 1 ..
+// LR / 2, the conjugate twiddle, and the inverse radix-V pass.
+template <int V, int LR>
+__device__ __forceinline__ void row_ifft(cf* v, int l, const float* wr,
                                          const float* wi) {
+  constexpr int n2 = V * LR;
 #pragma unroll
-  for (int h = 1; h <= 16; h <<= 1) {
-    const bool upper = lane & h;
-    const cf w = root<true>(wr, wi, (lane & (h - 1)) * (64 / h));
+  for (int h = 1; h < LR; h <<= 1) {
+    const bool upper = l & h;
+    const cf w = root<true>(wr, wi, (l & (h - 1)) * (n2 / (2 * h)));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < V; ++j) {
       if (upper) v[j] = cmul(v[j], w);
       const cf p = {__shfl_xor_sync(0xffffffffu, v[j].r, h),
                     __shfl_xor_sync(0xffffffffu, v[j].i, h)};
@@ -407,51 +448,93 @@ __device__ __forceinline__ void row_ifft(cf* v, int lane, const float* wr,
     }
   }
 #pragma unroll
-  for (int j = 1; j < 4; ++j) v[j] = cmul(v[j], root<true>(wr, wi, lane * j));
-  dft4<true>(v[0], v[1], v[2], v[3]);
+  for (int j = 1; j < V; ++j) v[j] = cmul(v[j], root<true>(wr, wi, l * j));
+  if constexpr (V > 1) butterfly<V, true>(v);
 }
 
-// Launch 2: per grid row (stream, k1), one warp: the 128-point FFT, then
-// for each of nbands responses: multiply, inverse FFT, conjugate twiddle,
-// written to row band * rows + row of the output scratch.  The filter runs
-// it in place with one band (each warp reads its row before it writes);
-// the bank reads each forward row once for all its bands.
-// grid ceil(rows / kRowWarps), block 32 * kRowWarps.
-__global__ void __launch_bounds__(32 * kRowWarps)
+// Launch 2: per grid row (stream, k1), LR lanes: the n2 = V * LR point
+// FFT, then for each of nbands responses: multiply, inverse FFT,
+// conjugate twiddle, written to row band * rows + row of the output
+// scratch.  The filter runs it in place with one band (each lane group
+// reads its row before it writes); the bank reads each forward row once
+// for all its bands.  Lanes past the last row keep to the shuffles with
+// zeros and store nothing.
+// grid ceil(rows / (kRowThreads / LR)), block kRowThreads.
+template <int V, int LR>
+__global__ void __launch_bounds__(kRowThreads)
     os_rows(const float* ar, const float* ai, float* outr, float* outi,
             Plan pl, const float* __restrict__ gr,
             const float* __restrict__ gi, int rows, int nbands) {
-  __shared__ float wr[kN2], wi[kN2];
-  wr[threadIdx.x] = pl.r2r[threadIdx.x];
-  wi[threadIdx.x] = pl.r2i[threadIdx.x];
+  constexpr int n2 = V * LR, kLog = LR == 32 ? 5 : LR == 16 ? 4 : LR == 8
+      ? 3 : LR == 4 ? 2 : LR == 2 ? 1 : 0;
+  __shared__ float wr[n2], wi[n2];
+  for (int i = threadIdx.x; i < n2; i += kRowThreads) {
+    wr[i] = pl.r2r[i];
+    wi[i] = pl.r2i[i];
+  }
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warps: the shuffles see all 32 lanes
-  const int k1 = row % pl.n1;
-  const size_t at = (size_t)row * kN2 + lane;
-  cf v[4], tw[4];
+  const int first = blockIdx.x * (kRowThreads / LR);
+  // Whole warps past the last row leave: the shuffles see all 32 lanes.
+  if (first + (threadIdx.x >> 5) * (32 / LR) >= rows) return;
+  const int l = threadIdx.x % LR;
+  const int row = first + threadIdx.x / LR;
+  // A row of 32 lanes is a whole warp, live past the check above.
+  const bool live = LR == 32 || row < rows;
+  const int k1 = live ? row % pl.n1 : 0;
+  const size_t at = (size_t)row * n2 + l;
+  cf v[V], tw[V];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[j] = {ar[at + 32 * j], ai[at + 32 * j]};
-    const int t = k1 * kN2 + lane + 32 * j;
+  for (int j = 0; j < V; ++j) {
+    v[j] = live ? cf{ar[at + LR * j], ai[at + LR * j]} : cf{0.f, 0.f};
+    const int t = k1 * n2 + l + LR * j;
     tw[j] = {pl.twr[t], -pl.twi[t]};
   }
-  row_fft(v, lane, wr, wi);
-  const int k2 = 4 * (__brev(lane) >> 27);
+  row_fft<V, LR>(v, l, wr, wi);
+  const int k2 = kLog ? V * (int)(__brev(l) >> (32 - kLog)) : 0;
   for (int band = 0; band < nbands; ++band) {
-    const size_t g = ((size_t)band * pl.n1 + k1) * kN2 + k2;
-    cf y[4];
+    const size_t g = ((size_t)band * pl.n1 + k1) * n2 + k2;
+    cf y[V];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = cmul(v[j], {gr[g + j], gi[g + j]});
-    row_ifft(y, lane, wr, wi);
-    const size_t out = ((size_t)band * rows + row) * kN2 + lane;
+    for (int j = 0; j < V; ++j)
+      y[j] = live ? cmul(v[j], {gr[g + j], gi[g + j]}) : cf{0.f, 0.f};
+    row_ifft<V, LR>(y, l, wr, wi);
+    const size_t out = ((size_t)band * rows + row) * n2 + l;
+    if (live) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const cf z = cmul(y[j], tw[j]);
-      outr[out + 32 * j] = z.r;
-      outi[out + 32 * j] = z.i;
+      for (int j = 0; j < V; ++j) {
+        const cf z = cmul(y[j], tw[j]);
+        outr[out + LR * j] = z.r;
+        outi[out + LR * j] = z.i;
+      }
     }
+  }
+}
+
+template <int V, int LR>
+int launch_rows(const float* ar, const float* ai, float* outr, float* outi,
+                const Plan& pl, const float* gr, const float* gi, int rows,
+                int nbands, cudaStream_t stream) {
+  constexpr int per_block = kRowThreads / LR;
+  os_rows<V, LR><<<(rows + per_block - 1) / per_block, kRowThreads, 0,
+                   stream>>>(ar, ai, outr, outi, pl, gr, gi, rows, nbands);
+  return (int)cudaGetLastError();
+}
+
+// Launch 2 at the plan's row length n2 (a power of two up to 256).
+int run_rows(const float* ar, const float* ai, float* outr, float* outi,
+             const Plan& pl, const float* gr, const float* gi, int rows,
+             int nbands, cudaStream_t st) {
+  switch (pl.n2) {
+    case 1: return launch_rows<1, 1>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    case 2: return launch_rows<1, 2>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    case 4: return launch_rows<1, 4>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    case 8: return launch_rows<1, 8>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    case 16: return launch_rows<1, 16>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    case 32: return launch_rows<1, 32>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    case 64: return launch_rows<2, 32>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    case 128: return launch_rows<4, 32>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    case 256: return launch_rows<8, 32>(ar, ai, outr, outi, pl, gr, gi, rows, nbands, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -459,7 +542,7 @@ __global__ void __launch_bounds__(32 * kRowWarps)
 // i1 < ho written where t < n, to output row (s % row_mod) * row_mul +
 // s / row_mod (the identity for row_mod = X, row_mul = 1; the bank's
 // [b, K, n] layout for row_mod = b, row_mul = K).
-// grid (128 / C, X), block (C, kColThreads / C), shared strip_bytes(n1, C).
+// grid (n2 / C, X), block (C, kColThreads / C), shared strip_bytes(n1, C).
 __global__ void __launch_bounds__(kColThreads)
     os_inverse_columns(const float* __restrict__ ar,
                        const float* __restrict__ ai, Plan pl,
@@ -468,21 +551,16 @@ __global__ void __launch_bounds__(kColThreads)
                        int row_mul) {
   extern __shared__ float4 smem4[];
   float* buf = reinterpret_cast<float*>(smem4);
-  const int n1 = pl.n1, C = blockDim.x, plane = n1 * C, N = n1 * kN2;
+  const int n1 = pl.n1, n2 = pl.n2, C = blockDim.x, plane = n1 * C;
+  const int N = n1 * n2;
   float* wr = buf + 4 * plane;
   float* wi = wr + n1;
   const int s = blockIdx.y, c0 = blockIdx.x * C, tx = threadIdx.x;
   const int tid = threadIdx.y * C + tx, nt = C * blockDim.y;
   const float* sr = ar + (size_t)s * N;
   const float* si = ai + (size_t)s * N;
-  const int quads = C / 4;
-  for (int ch = tid; ch < n1 * quads; ch += nt) {
-    const int k1 = ch / quads, cc = 4 * (ch % quads);
-    const int t = k1 * kN2 + c0 + cc;
-    // One source: with the seam at N every chunk comes from sr.
-    stage4(buf + k1 * C + cc, sr, sr, t, N);
-    stage4(buf + plane + k1 * C + cc, si, si, t, N);
-  }
+  // One source: with the seam at N every element comes from sr / si.
+  stage_strip(buf, plane, sr, si, sr, si, N, n1, n2, c0, tid, nt);
   for (int i = tid; i < n1; i += nt) {
     wr[i] = pl.r1r[i];
     wi[i] = pl.r1i[i];
@@ -492,7 +570,7 @@ __global__ void __launch_bounds__(kColThreads)
   const float* x = column_fft<true>(buf, plane, pl, wr, wi);
   const size_t o = (size_t)(s % row_mod) * row_mul + s / row_mod;
   for (int i1 = threadIdx.y; i1 < ho; i1 += blockDim.y) {
-    const int t = i1 * kN2 + c0 + tx;
+    const int t = i1 * n2 + c0 + tx;
     if (t < n) {
       outr[o * out_stride + t] = x[i1 * C + tx];
       outi[o * out_stride + t] = x[plane + i1 * C + tx];
@@ -549,7 +627,7 @@ int set_smem(const void* fn, size_t bytes) {
 }
 
 // The three launches on X streams and nbands responses (grid planes
-// [nbands, n1, 128]).  Launch 1 writes the forward scratch fr/fi [X, N];
+// [nbands, n1, n2]).  Launch 1 writes the forward scratch fr/fi [X, N];
 // launch 2 writes band k of stream s to row k * X + s of the band scratch
 // br/bi [nbands * X, N] (the forward scratch itself, in place, for one
 // band); launch 3 writes it to output row s * nbands + k.
@@ -559,20 +637,20 @@ int run_stages(const float* prevr, const float* previ, int prev_stride,
                const float* gi, float* fr, float* fi, float* br, float* bi,
                float* outr, float* outi, int out_stride, int ho,
                cudaStream_t stream) {
-  const int cols = strip_cols(pl.n1);
+  const int cols = strip_cols(pl.n1, pl.n2);
+  if (cols == 0 || pl.n2 > kMaxN2) return (int)cudaErrorInvalidValue;
   const size_t strip = strip_bytes(pl.n1, cols);
   int err;
   if ((err = set_smem((const void*)os_forward_columns, strip))) return err;
   if ((err = set_smem((const void*)os_inverse_columns, strip))) return err;
   const dim3 threads(cols, kColThreads / cols);
-  os_forward_columns<<<dim3(kN2 / cols, X), threads, strip, stream>>>(
+  os_forward_columns<<<dim3(pl.n2 / cols, X), threads, strip, stream>>>(
       prevr, previ, prev_stride, curr, curi, cur_stride, m, pl, fr, fi);
   if ((err = (int)cudaGetLastError())) return err;
-  const int rows = X * pl.n1;
-  os_rows<<<(rows + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0,
-            stream>>>(fr, fi, br, bi, pl, gr, gi, rows, nbands);
-  if ((err = (int)cudaGetLastError())) return err;
-  os_inverse_columns<<<dim3(kN2 / cols, X * nbands), threads, strip,
+  if ((err = run_rows(fr, fi, br, bi, pl, gr, gi, X * pl.n1, nbands,
+                      stream)))
+    return err;
+  os_inverse_columns<<<dim3(pl.n2 / cols, X * nbands), threads, strip,
                        stream>>>(br, bi, pl, outr, outi, out_stride, n, ho,
                                  X, nbands);
   return (int)cudaGetLastError();
@@ -594,21 +672,21 @@ int run_pipeline(const float* prevr, const float* previ, int prev_stride,
 extern "C" {
 
 // Every entry point takes the geometry's tables (ops/filter.py _tables:
-// packed float32 roots and twiddle, int32 radices and their count) and
-// the column length n1 and output rows ho = ceil(n / 128).
+// packed float32 roots and twiddle, int32 radices and their count), the
+// row length n2, the column length n1 and output rows ho = ceil(n / n2).
 
 // One overlap-save step for X complex streams: prev [X, m] and cur [X, n]
-// planes (row strides given), grid planes [n1, 128], scratch planes
+// planes (row strides given), grid planes [n1, n2], scratch planes
 // [X, N], out planes [X, n] (row stride given).
 int rr_overlap_save(const float* prevr, const float* previ, int prev_stride,
                     const float* curr, const float* curi, int cur_stride,
                     int m, int n, int X, const float* tables,
-                    const int* radix, int npass, const float* gr,
+                    const int* radix, int npass, int n2, const float* gr,
                     const float* gi, float* scr_r, float* scr_i, float* outr,
                     float* outi, int out_stride, int n1, int ho,
                     void* stream) {
   return run_pipeline(prevr, previ, prev_stride, curr, curi, cur_stride, m,
-                      n, X, make_plan(tables, radix, npass, n1), gr, gi,
+                      n, X, make_plan(tables, radix, npass, n2, n1), gr, gi,
                       scr_r, scr_i, outr, outi, out_stride, ho,
                       (cudaStream_t)stream);
 }
@@ -621,7 +699,7 @@ int rr_demod_filter(const float* curr, const float* curi, const float* plr,
                     const float* last_out, const float* have_prev,
                     const float* fac, float* dout, float* zr, float* zi,
                     int b, int n, int m, const float* tables,
-                    const int* radix, int npass, const float* gr,
+                    const int* radix, int npass, int n2, const float* gr,
                     const float* gi, float* scr_r, float* scr_i, float* y,
                     int n1, int ho, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -632,7 +710,7 @@ int rr_demod_filter(const float* curr, const float* curi, const float* plr,
   int err = (int)cudaGetLastError();
   if (err) return err;
   return run_pipeline(zr, zi, N, zr + m, zi + m, N, m, n, b / 2,
-                      make_plan(tables, radix, npass, n1), gr, gi, scr_r,
+                      make_plan(tables, radix, npass, n2, n1), gr, gi, scr_r,
                       scr_i, y, y + n, 2 * n, ho, st);
 }
 
@@ -649,12 +727,12 @@ int rr_filter_demod_filter(
     const float* prevd, const float* last_out, const float* have_prev,
     const float* fac, float* fr, float* fi, float* dout, float* zr,
     float* zi, float* flr, float* fli, int b, int n, int m,
-    const float* tables, const int* radix, int npass, const float* g1r,
+    const float* tables, const int* radix, int npass, int n2, const float* g1r,
     const float* g1i, const float* g2r, const float* g2i, float* scr_r,
     float* scr_i, float* y, int n1, int ho, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int N = n + m;
-  const Plan pl = make_plan(tables, radix, npass, n1);
+  const Plan pl = make_plan(tables, radix, npass, n2, n1);
   int err = run_pipeline(prevr, previ, m, curr, curi, n, m, n, b, pl, g1r,
                          g1i, scr_r, scr_i, fr, fi, n, ho, st);
   if (err) return err;
@@ -667,17 +745,17 @@ int rr_filter_demod_filter(
 }
 
 // K overlap-save filters of b complex streams sharing one forward
-// transform: prev [b, m] and cur [b, n] planes, grid planes [K, n1, 128],
+// transform: prev [b, m] and cur [b, n] planes, grid planes [K, n1, n2],
 // forward scratch fr/fi [b, N], band scratch br/bi [K * b, N], out planes
 // [b, K, n].
 int rr_filter_bank(const float* prevr, const float* previ, const float* curr,
                    const float* curi, int m, int n, int b, int nbands,
-                   const float* tables, const int* radix, int npass,
+                   const float* tables, const int* radix, int npass, int n2,
                    const float* gr, const float* gi, float* fr, float* fi,
                    float* br, float* bi, float* outr, float* outi, int n1,
                    int ho, void* stream) {
   return run_stages(prevr, previ, m, curr, curi, n, m, n, b, nbands,
-                    make_plan(tables, radix, npass, n1), gr, gi, fr, fi, br,
+                    make_plan(tables, radix, npass, n2, n1), gr, gi, fr, fi, br,
                     bi, outr, outi, n, ho, (cudaStream_t)stream);
 }
 

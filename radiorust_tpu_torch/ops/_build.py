@@ -40,12 +40,13 @@ _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_PLAN = [_P, _P, _I]   # overlap-save tables, radices, number of passes
+_PLAN = [_P, _P, _I, _I]   # overlap-save tables, radices, passes, n2
 # C signatures: argument types of every entry point (pointers and the
 # stream as void*, sizes as int).
 _SIGNATURES = {
     "rr_decimate": [_P, _I, _I, _P],        # DecimArgs*, R, G, stream
     "rr_mix_decimate": [_P, _I, _I, _P],
+    "rr_decimate_wide": [_P, _P, _I, _I, _I, _P],   # args, band, tm, qb, uc
     "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + _PLAN
                         + [_P] * 6 + [_I, _I, _I, _P]),
     "rr_demod_filter": [_P] * 11 + [_I] * 3 + _PLAN + [_P] * 5 + [_I, _I,
@@ -54,24 +55,34 @@ _SIGNATURES = {
                                + [_I, _I, _P]),
     "rr_filter_bank": [_P] * 4 + [_I] * 4 + _PLAN + [_P] * 8 + [_I, _I, _P],
     "rr_pfb_demod": [_P] * 7 + [_I] * 3 + [_P],
-    "rr_slew_scan": [_P] * 9 + [_I] * 3 + [_P],
+    "rr_slew_scan": [_P] * 9 + [_I] * 4 + [_P],
     "rr_agc_scan": [_P] * 7 + [_I] * 2 + [_P],
 }
 
-_lib = None
+# Entry points of a development build only (``lib(defines)``).
+_DEV_SIGNATURES = {
+    "rr_slew_clocks": [_P] * 9 + [_I] * 3 + [_P, _P],   # RR_SCAN_CLOCKS
+}
+
+_libs = {}
 
 
 def _sources():
     return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
 
 
-def build_dir() -> Path:
-    """Where the library for the current sources lives."""
+def _flags(defines=()):
+    return _NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def build_dir(defines=()) -> Path:
+    """Where the library for the current sources (built with these
+    preprocessor ``defines``) lives."""
     h = hashlib.sha256()
     for f in _sources():
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return _ROOT / h.hexdigest()[:16]
 
 
@@ -87,7 +98,7 @@ def _nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, defines=()) -> None:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     srcs = [f for f in _sources() if f.suffix == ".cu"]
@@ -95,7 +106,7 @@ def _build(out: Path) -> None:
     try:
         # One nvcc per source, all running at once; then one link.
         objs = [str(objdir / f"{f.stem}.o") for f in srcs]
-        cmds = [[nvcc, *_NVCC_FLAGS, "-c", "-o", o, str(f)]
+        cmds = [[nvcc, *_flags(defines), "-c", "-o", o, str(f)]
                 for o, f in zip(objs, srcs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
@@ -122,20 +133,25 @@ def _build(out: Path) -> None:
         shutil.rmtree(objdir, ignore_errors=True)
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _lib
-    if _lib is None:
-        so = build_dir() / "libradiorust_kernels.so"
+def lib(defines=()) -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed.  ``defines``
+    (e.g. ``("RR_SCAN_CLOCKS",)``) selects a development build with those
+    preprocessor macros set, in its own build directory; the kernels'
+    wrappers use the build without."""
+    defines = tuple(defines)
+    if defines not in _libs:
+        so = build_dir(defines) / "libradiorust_kernels.so"
         if not so.exists():
-            _build(so)
+            _build(so, defines)
         handle = ctypes.CDLL(str(so))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in {**_SIGNATURES, **_DEV_SIGNATURES}.items():
+            if name in _DEV_SIGNATURES and not hasattr(handle, name):
+                continue
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = handle
-    return _lib
+        _libs[defines] = handle
+    return _libs[defines]
 
 
 def check(err: int, what: str) -> None:

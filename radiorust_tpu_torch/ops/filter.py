@@ -17,14 +17,21 @@ Counterparts of ``radiorust_tpu/ops/pallas_filter.py``:
   the last *filtered* sample.
 
 Layout (as the JAX package's): time t = i2 + n2*i1 and frequency
-k = k1 + n1*k2 on an n1 x n2 grid of the N = m + n point transform, with
-n2 = 128; :func:`response_grid` maps a response vector R[N] to the
-[n1, n2] grid with the inverse's 1/N folded in.
+k = k1 + n1*k2 on an n1 x n2 grid of the N = m + n point transform.  The
+plan (:func:`kernel_factors`) takes n2 a power of two dividing N: 128
+where it divides (the JAX package's lane factor, so its grids and the
+port's agree there), less where it does not, and 256 where that brings a
+long transform's column under 768 points; :func:`response_grid` maps a
+response vector R[N] to the [n1, n2] grid with the inverse's 1/N folded
+in.
 
 The kernels run the length-n1 column transforms as mixed-radix Stockham
-passes (:func:`fft_radices` gives the pass order) and the 128-point row
-transforms as one radix-4 pass and five radix-2 passes across a warp;
-every twiddle comes from the float32 root tables of :func:`fft_roots`.
+passes (:func:`fft_radices` gives the pass order) on strips of
+:func:`strip_cols` columns in shared memory, and the n2-point row
+transforms in registers: a radix-n2/32 pass across a lane's values and
+radix-2 passes across the lanes (a row of fewer than 32 points takes
+n2 lanes); every twiddle comes from the float32 root tables of
+:func:`fft_roots`.
 
 Each wrapper takes the JAX function's arguments as float32 tensors.  On
 CUDA it launches the kernels of ``csrc/overlap_save.cu`` and counts the
@@ -42,32 +49,64 @@ import torch
 
 from . import _build
 
-__all__ = ["kernel_factors", "supported", "bank_supported", "fft_radices",
+__all__ = ["kernel_factors", "strip_cols", "supported", "bank_supported",
+           "fft_radices",
            "fft_roots", "response_grid", "fused_overlap_save",
            "fused_overlap_save_plain", "fused_filter_bank",
            "fused_filter_bank_plain", "fused_demod_filter",
            "fused_demod_filter_plain", "fused_filter_demod_filter",
            "fused_filter_demod_filter_plain"]
 
-N2 = 128          # the lane factor of the grid layout
-_MAX_N1 = 768     # two 16-column strip buffers of n1 rows fit shared memory
+N2 = 128          # the row length wherever it divides the transform
+_MAX_N2 = 256     # the longest row: 8 values a lane
+_MAX_N1 = 768     # the longest column of a 16-column strip; past it the
+                  # plan takes 256-point rows where N allows
+_SMEM = 232448    # shared bytes a block may use (kMaxSmem in the kernels)
 _RADICES = (8, 4, 2, 3, 5)   # the kernel's specialised butterflies
 
 
+def strip_cols(n1: int, n2: int) -> int:
+    """Columns of a strip in the column launches (``strip_cols`` in
+    csrc/overlap_save.cu): the widest of 32, 16, ..., 1 within the row
+    length whose two buffers of n1 rows (re and im each) and n1 roots fit
+    shared memory; 0 where not even one column fits."""
+    for c in (32, 16, 8, 4, 2, 1):
+        if c <= n2 and 4 * (4 * n1 * c + 2 * n1) <= _SMEM:
+            return c
+    return 0
+
+
+# The longest column a one-column strip holds.
+_MAX_COLUMN = _SMEM // 24
+
+
 def kernel_factors(n_total: int):
-    """(n1, n2) with n1 * n2 = n_total and n2 = 128, or None."""
-    if n_total % N2:
+    """(n1, n2) of the kernels' plan for an n_total-point transform, or
+    None: n2 is the largest power of two dividing n_total up to 128, or
+    256 where n_total / 128 is past 768 and 256 divides n_total; n1 =
+    n_total / n2 must fit a one-column strip (n1 <= 9685)."""
+    if n_total < 1:
         return None
-    return n_total // N2, N2
+    n2 = 1
+    while n2 < N2 and n_total % (2 * n2) == 0:
+        n2 *= 2
+    if n2 == N2 and n_total // N2 > _MAX_N1 and n_total % _MAX_N2 == 0:
+        n2 = _MAX_N2
+    n1 = n_total // n2
+    return (n1, n2) if strip_cols(n1, n2) else None
 
 
 def supported(n: int, m: int = None) -> bool:
     """Whether the kernel takes n new samples per step against an m-tap
-    history (m = n when omitted)."""
+    history (m = n when omitted).
+
+    Every N = m + n whose column n1 = N / n2 (n2: the power of two of
+    :func:`kernel_factors`, at most 256) is at most 9685 points: then a
+    strip of one column fits shared memory.  Past that (an odd N above
+    9685, or N = 2 x odd above 19370, ...) the kernel raises."""
     if m is None:
         m = n
-    f = kernel_factors(n + m)
-    return f is not None and 0 < m and f[0] <= _MAX_N1
+    return 0 < m and 0 < n and kernel_factors(n + m) is not None
 
 
 def bank_supported(n: int, K: int, m: int = None, batch: int = None) -> bool:
@@ -121,7 +160,7 @@ def fft_roots(n: int) -> Tuple[np.ndarray, np.ndarray]:
 @functools.lru_cache(maxsize=32)
 def _tables(N: int) -> Tuple[np.ndarray, np.ndarray]:
     """The kernels' float32 tables, packed: the n1 column roots (re, im),
-    the 128 row roots (re, im) and the four-step twiddle exp(-2 pi i k1 i2
+    the n2 row roots (re, im) and the four-step twiddle exp(-2 pi i k1 i2
     / N) [n1, n2] (re, im); and the int32 column radices."""
     n1, n2 = kernel_factors(N)
     tw = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / N)
@@ -135,8 +174,9 @@ _device_tables = {}
 
 
 def _constants(N: int, n: int, device) -> Tuple[int, int, tuple]:
-    """(n1, ho, (tables, radices, number of passes)) with the tables on
-    ``device``, uploaded once per transform size and device."""
+    """(n1, ho, (tables, radices, number of passes, n2)) with the tables
+    on ``device``, uploaded once per transform size and device; ho =
+    ceil(n / n2) output rows."""
     n1, n2 = kernel_factors(N)
     ho = -(-n // n2)
     key = (N, str(device))
@@ -144,14 +184,14 @@ def _constants(N: int, n: int, device) -> Tuple[int, int, tuple]:
         _device_tables[key] = tuple(torch.from_numpy(c).to(device)
                                     for c in _tables(N))
     floats, radices = _device_tables[key]
-    return n1, ho, (floats.data_ptr(), radices.data_ptr(), len(radices))
+    return n1, ho, (floats.data_ptr(), radices.data_ptr(), len(radices), n2)
 
 
 def _check_geometry(n: int, m: int):
     if not supported(n, m):
         raise ValueError(f"overlap-save geometry m={m}, n={n} is not one "
-                         f"the kernel takes ((m + n) % {N2} == 0, "
-                         f"(m + n) / {N2} <= {_MAX_N1})")
+                         f"the kernel takes: its column (m + n) / n2 is "
+                         f"past {_MAX_COLUMN} points")
 
 
 def _grid_vector(resp_gr, resp_gi) -> torch.Tensor:

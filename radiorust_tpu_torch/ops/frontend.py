@@ -19,7 +19,13 @@ hand-written kernel of ``csrc/decimate.cu`` and counts the launch in
 it runs the plain PyTorch version beside it (``*_plain``).
 
 The kernel reads the taps re-laid by phase, :func:`relay_taps`, built
-once per taps tensor on its device.
+once per taps tensor on its device.  A plan whose phases or staged span
+pass one block of that kernel (:func:`fits_block`: more than 16 output
+phases, as 48 kHz -> 44.1 kHz has 147) runs :func:`decimate` on the
+kernel's wide form instead (``rr_decimate_wide``, shaped by
+:func:`wide_config`): the taps in their own [q, Kw] layout, each row over
+its band of nonzero taps (:func:`tap_bands`), the phases looped over the
+block's warps in rounds.  The mixer form takes the first kind only.
 """
 
 from __future__ import annotations
@@ -37,12 +43,19 @@ __all__ = ["decimate", "decimate_plain", "fused_mix_decimate",
            "fused_mix_decimate_plain", "decimate_complex",
            "decimate_complex_plain", "fused_mix_decimate_complex",
            "fused_mix_decimate_complex_plain", "decimate_supported",
-           "relay_taps", "launch_config"]
+           "relay_taps", "launch_config", "fits_block", "wide_config",
+           "tap_bands"]
 
 # Shared memory one block may take and threads a block may have
 # (kMaxThreads in csrc/decimate.cu) on an H100.
 _SMEM_LIMIT = 227 * 1024
 _MAX_THREADS = 512
+# The wide form: 8 warps a block, at most 48 KB of shared memory with its
+# 64 static bytes (no opt-in), a tile of up to 32 periods and a phase
+# block of up to 32 rows.
+_WIDE_SMEM = 48 * 1024 - 64
+_WIDE_TM = 32
+_WIDE_QB = 32
 
 
 def _apad(kw: int, p: int) -> int:
@@ -89,19 +102,42 @@ def _smem_bytes(nplanes: int, p: int, q: int, kw: int, r: int,
     return 4 * (q * p * apad + max(nplanes * p * ph, nplanes * g * q * rs))
 
 
-def decimate_supported(n: int, plan) -> bool:
+def fits_block(p: int, q: int, kw: int, nplanes: int = 2) -> bool:
+    """Whether a plan runs on the polyphase kernel (``rr_decimate``): its
+    q phases on at most 16 warps with :func:`launch_config`'s groups, its
+    staged span and [q, p, apad] taps within shared memory, and its
+    multiply-shift divisions exact.  Else it runs on the wide form."""
+    r, g = launch_config(p, q, kw)
+    return (32 * g * q <= _MAX_THREADS
+            and _smem_bytes(nplanes, p, q, kw, r, g) <= _SMEM_LIMIT
+            and (32 * r + _apad(kw, p) + 8) * p * p < 2 ** 31)
+
+
+def wide_config(p: int, q: int, kw: int, n: int, nplanes: int):
+    """(tm, qb, uc) of a wide launch at chunk n: tm periods a tile (up to
+    32), qb phases a block (up to 32), and uc taps staged a chunk so that
+    the staged windows [nplanes, tm, uc] and the partial sums [nplanes,
+    qb, tm] leave 64 of 48 KB free (``wide_smem_bytes`` in
+    csrc/decimate.cu)."""
+    tm = min(n // p, _WIDE_TM)
+    qb = min(q, _WIDE_QB)
+    budget = _WIDE_SMEM // 4 - nplanes * qb * tm
+    return tm, qb, min(kw, budget // (nplanes * tm))
+
+
+def decimate_supported(n: int, plan, mixer: bool = False) -> bool:
     """Whether the decimation kernel takes this aligned plan at chunk
-    ``n`` on two planes: whole periods per chunk, a downsample layout
-    (``s0 == 0``, history = window minus one period, nonzero), at most
-    16 output phases, and a block's staged span and taps within shared
-    memory."""
+    ``n``: whole periods per chunk and a downsample layout (``s0 == 0``,
+    history = window minus one period, nonzero).  Every such plan runs,
+    on the polyphase kernel or its wide form; the mixer form
+    (``mixer=True``) has no wide form and takes only plans that
+    :func:`fits_block` on two planes."""
     kw = int(plan.kernel.shape[-1])
     p, q = plan.p, plan.q
     if not (n % p == 0 and plan.s0 == 0 and plan.hist == kw - p
-            and plan.hist > 0 and 32 * q <= _MAX_THREADS):
+            and plan.hist > 0):
         return False
-    r, g = launch_config(p, q, kw)
-    return _smem_bytes(2, p, q, kw, r, g) <= _SMEM_LIMIT
+    return fits_block(p, q, kw) if mixer else True
 
 
 def _check_layout(n, hist, kw, p):
@@ -111,20 +147,38 @@ def _check_layout(n, hist, kw, p):
     assert hist == kw - p and hist > 0, (hist, kw, p)
 
 
+def tap_bands(kernel_matrix: torch.Tensor) -> torch.Tensor:
+    """[q, 2] int32: each row's nonzero taps [lo, hi) (first nonzero, last
+    nonzero + 1), or [Kw, 0] for a row of zeros."""
+    q, kw = kernel_matrix.shape
+    nz = (kernel_matrix != 0).to(torch.int32)
+    any_nz = nz.amax(dim=1) > 0
+    first = nz.argmax(dim=1)
+    lo = torch.where(any_nz, first, torch.full_like(first, kw))
+    hi = torch.where(any_nz, kw - nz.flip(1).argmax(dim=1),
+                     torch.zeros_like(first))
+    return torch.stack([lo, hi], dim=1).to(torch.int32).contiguous()
+
+
 _relaid = {}
 
 
-def _device_taps(kernel_matrix: torch.Tensor, p: int) -> torch.Tensor:
-    """:func:`relay_taps` of this taps tensor, built once while the same
-    tensor comes back (a step loop passes one params tree)."""
-    key = (id(kernel_matrix), p)
+def _cached(kernel_matrix: torch.Tensor, key, build) -> torch.Tensor:
+    """``build(kernel_matrix)``, made once while the same taps tensor comes
+    back (a step loop passes one params tree)."""
+    key = (id(kernel_matrix), key)
     hit = _relaid.get(key)
     if hit is None or hit[0]() is not kernel_matrix:
         if len(_relaid) >= 64:
             _relaid.clear()
-        hit = (weakref.ref(kernel_matrix), relay_taps(kernel_matrix, p))
+        hit = (weakref.ref(kernel_matrix), build(kernel_matrix))
         _relaid[key] = hit
     return hit[1]
+
+
+def _device_taps(kernel_matrix: torch.Tensor, p: int) -> torch.Tensor:
+    """:func:`relay_taps` of this taps tensor, built once per tensor."""
+    return _cached(kernel_matrix, p, lambda w: relay_taps(w, p))
 
 
 _PAIR = ctypes.c_void_p * 2
@@ -191,19 +245,29 @@ def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
     b, n = x0.shape
     hist = _first(hs).shape[-1]
     kw = kernel_matrix.shape[-1]
-    r, g = launch_config(p, q, kw)
-    if 32 * g * q > _MAX_THREADS or (
-            _smem_bytes(nplanes, p, q, kw, r, g) > _SMEM_LIMIT):
-        raise ValueError("decimation geometry too large for one block "
-                         f"(p={p}, q={q}, Kw={kw})")
+    wide = not fits_block(p, q, kw, nplanes)
+    if wide and mix is not None:
+        raise ValueError("mixer decimation geometry too large for one "
+                         f"block (p={p}, q={q}, Kw={kw}); the mixer form "
+                         f"has no wide form")
     a = _Args()
     a.x, a.x_row, a.x_step = _planes(xs, "x", nplanes)
     a.h, a.h_row, a.h_step = _planes(hs, "hist", nplanes)
     a.y, a.y_row, a.y_step = _planes(outs, "out")
     a.nh, a.nh_row, a.nh_step = _planes(nhs, "new hist")
-    a.taps = _device_taps(kernel_matrix, p).data_ptr()
     a.b, a.n, a.hist, a.p, a.q = b, n, hist, p, q
     a.apad, a.inner, a.nplanes = _apad(kw, p), 1, nplanes
+    if wide:
+        a.taps = _build.f32_ptr(kernel_matrix, "kernel_matrix")
+        bands = _cached(kernel_matrix, "bands", tap_bands)
+        err = _build.lib().rr_decimate_wide(
+            ctypes.addressof(a), bands.data_ptr(),
+            *wide_config(p, q, kw, n, nplanes),
+            _build.stream_handle(x0.device))
+        _build.check(err, "rr_decimate_wide")
+        return
+    a.taps = _device_taps(kernel_matrix, p).data_ptr()
+    r, g = launch_config(p, q, kw)
     if mix is not None:
         table_a, table_b, p0r, p0i = mix
         ta, _, a.tab_step[0] = _planes(table_a, "table A")

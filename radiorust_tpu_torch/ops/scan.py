@@ -17,6 +17,12 @@ The slew recurrence has no associative form, so the plain versions
 the JAX package's kernels.  On CUDA tensors each wrapper launches its
 kernel of ``csrc/scan.cu``, which takes any T, and counts the launch in
 its ``launches`` attribute; on CPU tensors it runs the plain version.
+
+The slew kernel splits each stream's T samples into segments of
+:func:`segment_length` samples, walks each from a guessed carry and
+repairs them in passes until they meet the serial walk bit for bit (the
+head of ``csrc/scan.cu``); ``tests/test_torch_slew_plan.py`` models that
+arithmetic on the CPU.
 """
 
 from __future__ import annotations
@@ -25,7 +31,20 @@ import torch
 
 from . import _build
 
-__all__ = ["slew_scan", "slew_scan_plain", "agc_scan", "agc_scan_plain"]
+__all__ = ["slew_scan", "slew_scan_plain", "agc_scan", "agc_scan_plain",
+           "segment_length"]
+
+_SEGMENT = 64         # samples a slew segment, while T / 64 segments fit
+_MAX_SEGMENTS = 256   # kMaxSegments in csrc/scan.cu: threads of a block
+
+
+def segment_length(t: int) -> int:
+    """Samples of one slew segment at T = t: 64, doubled until the
+    ceil(t / L) segments of a stream fit one block of 256 threads."""
+    seg = _SEGMENT
+    while -(-t // seg) > _MAX_SEGMENTS:
+        seg *= 2
+    return seg
 
 
 def _scalar(v, device) -> torch.Tensor:
@@ -89,8 +108,8 @@ def slew_scan(xr, xi, prev_r, prev_i, max_diff, rsqrt: bool = False):
     err = _build.lib().rr_slew_scan(
         ptr(xr, "xr"), ptr(xi, "xi"), ptr(prev_r, "prev_r"),
         ptr(prev_i, "prev_i"), ptr(md, "max_diff"), yr.data_ptr(),
-        yi.data_ptr(), pr.data_ptr(), pi.data_ptr(), b, t, int(rsqrt),
-        _build.stream_handle(dev))
+        yi.data_ptr(), pr.data_ptr(), pi.data_ptr(), b, t,
+        segment_length(t), int(rsqrt), _build.stream_handle(dev))
     _build.check(err, "slew_scan")
     return yr, yi, pr, pi
 

@@ -82,6 +82,9 @@ def test_freq_shifter_matches(n, shift):
 @pytest.mark.parametrize("rates,n,real", [
     ((1024000.0, 384000.0, 200000.0), 2048, False),
     ((384000.0, 48000.0, 40000.0), 6144, True),
+    # p = 160, q = 147: the decimation kernel's wide form on CUDA.
+    ((48000.0, 44100.0, 20000.0), 1600, False),
+    ((48000.0, 44100.0, 20000.0), 1600, True),
 ])
 def test_downsampler_and_gain_match(rates, n, real):
     xs = fm_chunks(2, 3, n, 2)
@@ -98,7 +101,8 @@ def test_downsampler_and_gain_match(rates, n, real):
 @pytest.mark.parametrize("n,ir_len", [
     (1536, None),   # kernel geometry: 3072 = 24 x 128
     (2048, 512),    # decoupled kernel geometry
-    (1000, None),   # no 128-lane factoring: plain torch.fft path (CPU only)
+    (1000, None),   # 2000 = 125 x 16: 16-point rows
+    (1001, None),   # 2002 = 1001 x 2: 2-point rows, 1001-point columns
 ])
 def test_filter_matches(n, ir_len):
     xs = fm_chunks(4, 3, n, 3)
@@ -107,7 +111,7 @@ def test_filter_matches(n, ir_len):
                              [tfilters.Filter.new(_lowpass_100k,
                                                   ir_len=ir_len)],
                              (4, n, 384000.0), xs)
-    assert tb.blocks[0].kernel_geometry == (n != 1000)
+    assert tb.blocks[0].kernel_geometry
     peak = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=2e-5 * peak)
 
@@ -191,9 +195,11 @@ def test_fused_blocks_reject_geometries_their_kernel_does_not_take():
     with pytest.raises(ValueError, match="even batch"):
         tfrontend.FmDemodFilter(150000.0, _deemphasis_band).bind(
             tbase.StreamSig(3, 1536, 384000.0))
+    # 20002 = 10001 x 2: a column past a one-column strip (chunk 1000
+    # binds since the plan takes 16-point rows).
     with pytest.raises(ValueError, match="chunk size"):
         tfrontend.FmDemodFilter(150000.0, _deemphasis_band).bind(
-            tbase.StreamSig(2, 1000, 384000.0))
+            tbase.StreamSig(2, 10001, 384000.0))
     with pytest.raises(ValueError, match="multiple of 8"):
         tfrontend.MixerDecimator(0.0, 384000.0, 200000.0).bind(
             tbase.StreamSig(2, 1001, 1024000.0))

@@ -418,3 +418,134 @@ def test_complex_wrappers_match_plane_wrappers(form):
         want_h = torch.complex(newh[0], zero(newh[0]) if real else newh[1])
     assert y.dtype == nh.dtype == torch.complex64
     assert torch.equal(y, want_y) and torch.equal(nh, want_h)
+
+
+# The plans past one block of the polyphase kernel: (input rate, output
+# rate, bandwidth, chunk).  48 kHz -> 44.1 kHz has p = 160, q = 147,
+# Kw = 171; 384 kHz -> 44.1 kHz p = 1280, q = 147, Kw = 1361; 1.024 MHz
+# -> 44.1 kHz p = 10240, q = 441, Kw = 10458.
+WIDE_PLANS = {"48k to 44.1k": (48000.0, 44100.0, 20000.0, 1600),
+              "384k to 44.1k": (384000.0, 44100.0, 16000.0, 12800),
+              "1.024M to 44.1k": (1024000.0, 44100.0, 16000.0, 20480)}
+WIDE_OUT = 8      # kWideOut: periods a lane keeps in registers
+
+
+def _wide_plan(name):
+    rate_in, rate_out, bw, n = WIDE_PLANS[name]
+    return plan_downsample(rate_in, rate_out, bw), n
+
+
+def wide_model(xs_in, hs_in, W, p, q, cfg=None):
+    """One launch of ``decimate_wide_kernel``: xs_in [b, NP, n], hs_in
+    [b, NP, hist] float32, W [q, Kw]; cfg = (tm, qb, uc) or None for
+    ``wide_config``.  Block by block (tile, stream, phase block): the
+    rows' joint band, the staged windows per chunk of uc taps (NaN where
+    nothing is staged), each row's lanes over its band with fmaf, the
+    shuffle tree, the partial sums, the outputs and the history copy.
+    Returns (y [b, NP, M q], new hist)."""
+    b, NP, n = xs_in.shape
+    hist = hs_in.shape[-1]
+    kw = W.shape[-1]
+    M = n // p
+    tm, qb, ucap = cfg or tfe.wide_config(p, q, kw, n, NP)
+    assert 4 * (NP * tm * ucap + NP * qb * tm) <= tfe._WIDE_SMEM
+    band = tfe.tap_bands(torch.from_numpy(W)).numpy()
+    lane = np.arange(LANES)
+    y = np.full((b, NP, M * q), np.nan, np.float32)
+    nh = np.full((b, NP, hist), np.nan, np.float32)
+    tiles, zblocks = -(-M // tm), -(-q // qb)
+    for s, tile, z in np.ndindex(b, tiles, zblocks):
+        m0, r0 = tile * tm, z * qb
+        mt, nr = min(tm, M - m0), min(qb, q - r0)
+        ulo, uhi = band[r0:r0 + nr, 0].min(), band[r0:r0 + nr, 1].max()
+        red = np.zeros((NP, qb, tm), np.float32)
+        for U0 in range(ulo, uhi, ucap):
+            uc = min(ucap, uhi - U0)
+            S = np.full((NP, tm, ucap), np.nan, np.float32)
+            j = (m0 + np.arange(mt)[:, None]) * p + U0 + np.arange(uc)
+            assert (j < hist + n).all()
+            from_h = np.where(j < hist, j, 0)
+            from_x = np.where(j < hist, 0, j - hist)
+            S[:, :mt, :uc] = np.where(j < hist, hs_in[s][:, from_h],
+                                      xs_in[s][:, from_x])
+            for rr in range(nr):
+                r = r0 + rr
+                lo, hi = max(band[r, 0], U0), min(band[r, 1], U0 + uc)
+                for mb in range(0, mt, WIDE_OUT):
+                    acc = np.zeros((NP, LANES, WIDE_OUT), np.float32)
+                    for u0 in range(lo, hi, LANES):
+                        u = u0 + lane
+                        live = u < hi
+                        wu = np.where(live, W[r, np.where(live, u, 0)], 0)
+                        col = np.where(live, u - U0, 0)
+                        for jj in range(min(WIDE_OUT, mt - mb)):
+                            sv = S[:, mb + jj, col]
+                            assert not np.isnan(sv[:, live]).any()
+                            fma = (wu.astype(np.float64) * sv
+                                   + acc[:, :, jj]).astype(np.float32)
+                            acc[:, :, jj] = np.where(live, fma, acc[:, :, jj])
+                    for off in (16, 8, 4, 2, 1):
+                        acc = (acc + acc[:, lane ^ off]).astype(np.float32)
+                    k = min(WIDE_OUT, mt - mb)
+                    red[:, rr, mb:mb + k] += acc[:, 0, :k]
+        m = np.arange(mt)
+        for rr in range(nr):
+            y[s][:, (m0 + m) * q + r0 + rr] = red[:, rr, :mt]
+        if tile == tiles - 1 and z == 0:
+            buf = np.concatenate([hs_in[s], xs_in[s]], axis=-1)
+            nh[s] = buf[:, n:n + hist]
+    return y, nh
+
+
+# (plan, planes, (tm, qb, uc) or None for wide_config): the three plans
+# as the wrapper launches them, a real input, and a launch of short
+# chunks, a ragged tile and a ragged phase block.
+WIDE_CASES = {
+    "48k to 44.1k, two planes": ("48k to 44.1k", 2, None),
+    "384k to 44.1k, two planes": ("384k to 44.1k", 2, None),
+    "1.024M to 44.1k, two planes": ("1.024M to 44.1k", 2, None),
+    "48k to 44.1k, real input": ("48k to 44.1k", 1, None),
+    "384k to 44.1k, chunked, ragged": ("384k to 44.1k", 2, (4, 12, 40)),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_model_matches_plain(case):
+    name, NP, cfg = WIDE_CASES[case]
+    plan, n = _wide_plan(name)
+    p, q, W = plan.p, plan.q, plan.kernel
+    kw = W.shape[-1]
+    assert tfe.decimate_supported(n, plan)
+    assert not tfe.fits_block(p, q, kw, NP)
+    assert not tfe.decimate_supported(n, plan, mixer=True)
+    b = 2 if kw < 1000 else 1
+    rng = np.random.default_rng(n + kw + NP)
+    xs = rng.standard_normal((b, NP, n)).astype(np.float32)
+    hs = rng.standard_normal((b, NP, plan.hist)).astype(np.float32)
+    got, got_h = wide_model(xs, hs, W, p, q, cfg)
+    want, want_h = _plain(xs, hs, W, p, q)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= REL, case
+    np.testing.assert_array_equal(got_h, want_h)
+
+
+@pytest.mark.parametrize("name", list(WIDE_PLANS))
+def test_wide_configs_and_bands(name):
+    """The launch shape of each wide plan, and the bands it reads: each
+    row is the prototype shifted, L = Kw - p + 1 taps from its own
+    offset, so the band holds every nonzero tap and nothing else."""
+    plan, n = _wide_plan(name)
+    p, q, W = plan.p, plan.q, plan.kernel
+    kw = W.shape[-1]
+    tm, qb, uc = tfe.wide_config(p, q, kw, n, 2)
+    assert tm == min(n // p, 32) and qb == min(q, 32) and uc >= 1
+    assert 4 * (2 * tm * uc + 2 * qb * tm) <= tfe._WIDE_SMEM
+    band = tfe.tap_bands(torch.from_numpy(W)).numpy()
+    for r in range(q):
+        lo, hi = band[r]
+        nz = np.flatnonzero(W[r])
+        assert lo == nz[0] and hi == nz[-1] + 1
+        assert hi - lo <= kw - p + 1
+    zero = np.zeros((2, 5), np.float32)
+    zero[1, 2] = 1.0
+    assert tfe.tap_bands(torch.from_numpy(zero)).tolist() == [[5, 0], [2, 3]]

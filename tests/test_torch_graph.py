@@ -129,13 +129,13 @@ def _bands():
 
 @pytest.mark.parametrize("n,ir_len", [(1536, None), (1000, 600)])
 def test_filter_bank_matches_jax(n, ir_len):
-    # (1536, None) takes the bank kernel's geometry (its plain version on
-    # the CPU); (1000, 600) does not, and runs torch.fft directly.
+    # Both take the bank kernel's geometry (its plain version on the
+    # CPU): 3072 = 24 x 128, and 1600 = 25 x 64 on 64-point rows.
     sig = (2, n, MPX_RATE)
     jb = JFilterBank(_bands(), ir_len=ir_len).bind(JSig(*sig))
     tb = FilterBank(_bands(), ir_len=ir_len).bind(StreamSig(*sig))
     assert tb.kernel_geometry == tfl.bank_supported(n, 3, tb.ir_len, 2)
-    assert tb.kernel_geometry == (ir_len is None)
+    assert tb.kernel_geometry
     assert tb.num_outputs == 3 and tb.out_sigs == (StreamSig(*sig),) * 3
     np.testing.assert_array_equal(tb.params["responses"],
                                   jb.params["responses"])
