@@ -15,10 +15,15 @@
    phases (48 kHz, 384 kHz and 1.024 MHz to 44.1 kHz); #3 and #4 also at
    the geometries of paths E-G, at column lengths n1 = 77 and, #3, n1 =
    768, and (#4 at K = 3) at the five transforms past 128-point rows or
-   768 rows: m = n = 1000, 1001, 65536, 98304 and m = 6144, n = 98304;
-   #8 bit for bit, both forms, on paths E audio's and E rf's keyer
-   envelopes chunk after chunk and on random input clamped at every
-   sample; #9, which no block calls, at path F's AGC shape).  Each check
+   768 rows: m = n = 1000, 1001, 65536, 98304 and m = 6144, n = 98304,
+   and at the three whose column passes a one-column strip (the
+   device-memory column route): m = n = 10001, a prime N = 19373,
+   m = 1, n = 19373 and m = n = 10003, with #5 and #6 at m = n = 10001; #7 through both
+   signatures, the block's step (complex64 in place, a reset and a
+   stream without a previous output) and the float planes; #8 bit for
+   bit, both forms, on paths E audio's and E rf's keyer envelopes chunk
+   after chunk and on random input clamped at every sample; #9, which no
+   block calls, at path F's AGC shape).  Each check
    prints the call's bound: the larger of
    its bytes (each input read once, each output written once) over 3.35
    TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM data
@@ -61,9 +66,10 @@
       ``StreamSig(64, 1600, 48000)``: tones; #1's wide form.
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
-   repetitions, or one run of a 16-chunk sequence; every kernel but #7
-   also as a CUDA graph replay, its device time without the wrapper's
-   host work), and ``AgcControl``'s associative scan beside #9 at path
+   repetitions, or one run of a 16-chunk sequence; every kernel also as
+   a CUDA graph replay, one call and ten calls a replay, its device time
+   without the wrapper's host work, beside the replay floor of one fill
+   kernel), and ``AgcControl``'s associative scan beside #9 at path
    F's shape; ``--profile`` adds each path's device time by kernel
    (torch.profiler).
 
@@ -115,6 +121,14 @@ SLEW_ATOL = 0.0       # #8 kernel vs plain, max |diff|: bit for bit
 # (m, n) of the overlap-save transforms past 128-point rows or 768 rows.
 FAULT_GEOMETRIES = ((1000, 1000), (1001, 1001), (65536, 65536),
                     (98304, 98304), (6144, 98304))
+# (m, n, batch) of the transforms whose column passes a one-column strip:
+# Filter at chunk 10001 (20002 = 10001 x 2: generic passes of 73 and 137),
+# a prime N = 19373 (one 19373-point generic pass, 155 kflop a sample: a
+# batch of 2), m = 1, n = 19373 (19374 = 9687 x 2: passes of 3, 3229) and
+# chunk 10003 (20006 = 2 x 7 x 1429: a generic pass of 7).
+STRIP_FAULTS = ((10001, 10001, 64), (9686, 9687, 2), (1, 19373, 8),
+                (10003, 10003, 8))
+STRIP_CHUNK, STRIP_BATCH = 10001, 8   # #5 and #6 there
 # (input rate, output rate, bandwidth, chunk) of #1's wide plans.
 WIDE_PLANS = ((48000.0, 44100.0, 20000.0, 1600),
               (384000.0, 44100.0, 16000.0, 12800),
@@ -161,14 +175,18 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Mean ms per replay of ``fn`` captured in a CUDA graph: the device
-    time of its launches without the wrapper's host work.  ``fn`` has run
-    before (tables uploaded, library loaded)."""
+def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
+    """Mean ms per call of ``fn`` captured ``calls`` times in one CUDA
+    graph and replayed: the device time of its launches without the
+    wrapper's host work.  At one call a replay the graph's own launch
+    counts too (~5-7 us on an H100 80GB HBM3 for one small kernel); ten a
+    replay spread it.  ``fn`` has run before (tables uploaded, library
+    loaded)."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay, reps=reps)
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps=reps) / calls
 
 
 def compare(got, want):
@@ -492,7 +510,10 @@ def main() -> None:
     from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
     from radiorust_tpu_torch.models.wfm import wfm_receiver
     from radiorust_tpu_torch.blocks.resampling import Downsampler
+    from radiorust_tpu_torch.blocks.frontend import (FilterDemodFilter,
+                                                     FmDemodFilter)
     from radiorust_tpu_torch.blocks.transform import GainControl
+    from radiorust_tpu_torch.models.wfm import _deemphasis_band, _lowpass_100k
     from radiorust_tpu_torch.ops import _build
     from radiorust_tpu_torch.ops import channelizer as och
     from radiorust_tpu_torch.ops import filter as ofl
@@ -532,6 +553,12 @@ def main() -> None:
         if "Compiling entry function" in line or "Used " in line:
             print("ptxas:", line.split("info    :")[-1].strip())
     t0 = phase("build", t0)
+
+    # The graph replay's floor: one fill kernel of one element.
+    one = torch.zeros(1, device=dev)
+    print(f"graph replay floor: one fill kernel {graph_ms(one.zero_) * 1e3:.2f} "
+          f"us a replay, {graph_ms(one.zero_, calls=10) * 1e3:.2f} us a call "
+          f"at 10 a replay {tag}")
 
     # -- kernel vs plain at each path's shapes ------------------------------
     sig = StreamSig(BATCH, CHUNK, RATE)
@@ -580,9 +607,11 @@ def main() -> None:
         err, kind = (abs_err, "max|diff|") if absolute else (rel, "rel")
         bound_ms, bound_by = bound_of(
             io_bytes(args if inputs is None else inputs, res) / calls, flops)
-        device_ms = (graph_ms(lambda: kernel(*args)) / calls if graphed
-                     else None)
-        share = bound_ms / (device_ms or ms)
+        device_ms = device10_ms = None
+        if graphed:
+            device_ms = graph_ms(lambda: kernel(*args)) / calls
+            device10_ms = graph_ms(lambda: kernel(*args), calls=10) / calls
+        share = bound_ms / (device10_ms or ms)
         lib_ms = lib_rel = None
         lib_text = ""
         if library is not None:
@@ -591,7 +620,8 @@ def main() -> None:
             lib_ms = cuda_ms(call, reps=5, warmup=1)
             lib_text = (f", {label} {lib_ms * 1e3:.1f} us (rel "
                         f"{lib_rel:.1e} to plain)")
-        device = (f" (device {device_ms * 1e3:.1f} us in a CUDA graph)"
+        device = (f" (device {device_ms * 1e3:.1f} us in a CUDA graph, "
+                  f"{device10_ms * 1e3:.1f} us a call in a graph of 10)"
                   if graphed else "")
         print(f"{name}: max|diff|={abs_err:.3e} max|diff|/max|ref|="
               f"{rel:.3e} (bound {bound_:g} on {kind}); kernel "
@@ -603,7 +633,8 @@ def main() -> None:
                                  f"version ({err:.3e} > {bound_:g})")
         row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                   device_ms=device_ms, library_rel=lib_rel)
+                   device_ms=device_ms, device10_ms=device10_ms,
+                   library_rel=lib_rel)
         if record:
             kernels.append(dict(name=name, route="cuda", source=source,
                                 replaces=replaces, **row, geometries=[]))
@@ -779,20 +810,46 @@ def main() -> None:
     def occupied_frames(d):
         return [d[:, hist_lanes:].reshape(CH_BATCH, -1, 64)[..., occupied]]
 
-    ch_args = (*planes(ch_x), torch.tensor(chd.params["factor"], device=dev),
-               torch.from_numpy(chd.params["taps"]).to(dev))
-    # Per output frame: K real taps on 64 complex samples, a 64-point
-    # FFT, 64 demods.
-    k_br = chd.params["taps"].shape[0]
-    frames = ch_x.shape[1] // 64 - (k_br - 1)
+    taps_d = torch.from_numpy(chd.params["taps"]).to(dev)
+    fac_d = torch.tensor(chd.params["factor"], device=dev)
+    k_br = taps_d.shape[0]
+
+    def pfb_flops(frames):
+        """Per output frame: K real taps on 64 complex samples, a 64-point
+        FFT, 64 demods."""
+        return CH_BATCH * frames * (4 * k_br * 64 + fft_flops(64)
+                                    + DEMOD_FLOPS * 64)
+
+    # #7 as the block calls it, at D's step: complex64 history and chunk
+    # read in place; stream 0 has no previous output (its first frame
+    # repeats last_out), the last stream is reset (its history reads as
+    # zeros: its first 16 frames ramp up from nothing and are left out).
+    reset = torch.zeros(CH_BATCH, dtype=torch.bool, device=dev)
+    reset[-1] = True
+    have = torch.ones(CH_BATCH, dtype=torch.bool, device=dev)
+    have[0] = False
+    rows = [s * 64 + c for s in range(CH_BATCH - 1) for c in occupied]
+    reset_rows = [(CH_BATCH - 1) * 64 + c for c in occupied]
+    step_args = (ch_x[:, :chd.hist_len].contiguous(),
+                 ch_x[:, chd.hist_len:].contiguous(), reset, have,
+                 randn(CH_BATCH, 64), fac_d, taps_d)
     check("fused_pfb_demod", "radiorust_tpu_torch/csrc/pfb_demod.cu",
           "radiorust_tpu/ops/pallas_channelizer.py:130", FILTER_BOUND,
-          och.fused_pfb_demod, och.fused_pfb_demod_plain, ch_args,
-          CH_BATCH * frames * (4 * k_br * 64 + fft_flops(64)
-                               + DEMOD_FLOPS * 64),
-          outputs=occupied_frames)
-    if not bool(torch.isfinite(och.fused_pfb_demod(*ch_args)).all()):
-        raise AssertionError("fused_pfb_demod: non-finite output")
+          och.pfb_demod_step, och.pfb_demod_step_plain, step_args,
+          pfb_flops(CH_CHUNK // 64),
+          outputs=lambda r: [r[0][rows], r[0][reset_rows, 16:], r[1],
+                             r[2][:, occupied]], graphed=True)
+    ch_args = (*planes(ch_x), fac_d, taps_d)
+    check("fused_pfb_demod, float planes (the JAX signature), at D's shape",
+          "", "", FILTER_BOUND, och.fused_pfb_demod, och.fused_pfb_demod_plain,
+          ch_args, pfb_flops(ch_x.shape[1] // 64 - (k_br - 1)),
+          outputs=occupied_frames, record=False, of="fused_pfb_demod",
+          graphed=True)
+    for label, y in (("fused_pfb_demod", och.fused_pfb_demod(*ch_args)),
+                     ("pfb_demod_step", och.pfb_demod_step(*step_args)[0])):
+        if not bool(torch.isfinite(torch.view_as_real(y)
+                                   if y.is_complex() else y).all()):
+            raise AssertionError(f"{label}: non-finite output")
 
     # #8 at path E's shape, both forms (the rsqrt form is the block's),
     # bit for bit: on E audio's and E rf's keyer envelopes, chunk after
@@ -937,6 +994,54 @@ def main() -> None:
                   os_flops(rows, m + n, bands), record=False,
                   of="fused_filter_bank" if bank else "fused_overlap_save",
                   graphed=True)
+
+    # #3, #4 (K = 3), #5 and #6 past a one-column strip: the column
+    # launches take the device-memory route (before, the blocks raised on
+    # CUDA at these sizes).
+    for m, n, rows in STRIP_FAULTS:
+        n1, n2 = ofl.kernel_factors(m + n)
+        for bands in (1, 3):
+            gr, gi = random_grids(bands, m + n)
+            bank = bands > 1
+            check(f"{'fused_filter_bank (K = 3)' if bank else 'fused_overlap_save'}"
+                  f" at m = {m}, n = {n} (n1 = {n1}, n2 = {n2}, columns in "
+                  f"device memory, batch {rows})", "", "", FILTER_BOUND,
+                  ofl.fused_filter_bank if bank else ofl.fused_overlap_save,
+                  (ofl.fused_filter_bank_plain if bank
+                   else ofl.fused_overlap_save_plain),
+                  (randn(rows, m), randn(rows, m), randn(rows, n),
+                   randn(rows, n), *((gr, gi) if bank else (gr[0], gi[0]))),
+                  os_flops(rows, m + n, bands), record=False,
+                  of="fused_filter_bank" if bank else "fused_overlap_save",
+                  graphed=True)
+    m = n = STRIP_CHUNK
+    rows = STRIP_BATCH
+    strip_sig = StreamSig(rows, n, 384000.0)
+    fmd = FmDemodFilter(150e3, _deemphasis_band).bind(strip_sig)
+    fdf_s = FilterDemodFilter(_lowpass_100k, 150e3,
+                              _deemphasis_band).bind(strip_sig)
+    fm_s = torch.exp(1j * torch.cumsum(0.3 * randn(rows, m + n), dim=1))
+    have_s = (torch.arange(rows, device=dev) % 3 > 0).to(torch.float32)
+    last_s = torch.exp(1j * randn(rows))
+    check(f"fused_demod_filter at m = n = {n} (columns in device memory, "
+          f"batch {rows})", "", "", FILTER_BOUND, ofl.fused_demod_filter,
+          ofl.fused_demod_filter_plain,
+          (*planes(fm_s[:, m:]), *planes(last_s), randn(rows, m),
+           randn(rows), have_s, *grid_planes(fmd.params["response"]),
+           torch.tensor(fmd.params["factor"], device=dev)),
+          DEMOD_FLOPS * rows * n + os_flops(rows // 2, m + n), record=False,
+          of="fused_demod_filter", graphed=True)
+    check(f"fused_filter_demod_filter at m = n = {n} (columns in device "
+          f"memory, batch {rows})", "", "", FILTER_BOUND,
+          ofl.fused_filter_demod_filter, ofl.fused_filter_demod_filter_plain,
+          (*planes(fm_s[:, :m]), *planes(fm_s[:, m:]), *planes(last_s),
+           randn(rows, m), randn(rows), have_s,
+           *grid_planes(fdf_s.params["response1"]),
+           *grid_planes(fdf_s.params["response2"]),
+           torch.tensor(fdf_s.params["factor"], device=dev)),
+          os_flops(rows, m + n) + DEMOD_FLOPS * rows * n
+          + os_flops(rows // 2, m + n), record=False,
+          of="fused_filter_demod_filter", graphed=True)
 
     # #1's wide form at the plans past one block of the polyphase kernel.
     for rate_in, rate_out, bw, n in WIDE_PLANS:
@@ -1355,7 +1460,8 @@ def main() -> None:
         print(f"  {k['name']}: {k['launches']} launches on its path")
         for row in [dict(k, geometry="its path's shapes"), *k["geometries"]]:
             print(f"    {row['geometry']}: kernel {us(row['ms'])} us (device "
-                  f"{us(row['device_ms'])}), plain {us(row['plain_ms'])}, "
+                  f"{us(row['device_ms'])}, {us(row['device10_ms'])} at 10 a "
+                  f"replay), plain {us(row['plain_ms'])}, "
                   f"library {us(row['library_ms'])} us per call; least "
                   f"time {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) "
                   f"{tag}")

@@ -10,8 +10,9 @@ row ``b * M + c``.
   (:func:`radiorust_tpu_torch.ops.channelizer.pfb_channelize`);
 - :class:`ChannelizerDemod`: equals ``Chain(Channelizer(M, K),
   FmDemod(dev))`` in one kernel
-  (:func:`radiorust_tpu_torch.ops.channelizer.fused_pfb_demod`); it
-  raises at bind where the kernel does not take the geometry.
+  (:func:`radiorust_tpu_torch.ops.channelizer.pfb_demod_step`, which
+  also writes the new history and last outputs); it raises at bind where
+  the kernel does not take the geometry.
 """
 
 from __future__ import annotations
@@ -106,26 +107,12 @@ class _BoundChannelizerDemod(BoundBlock):
                 "have_prev": np.zeros((b,), bool)}
 
     def process(self, params, state, x, reset):
-        b, m = x.shape[0], self.m
-        t_out = self.out_sig.chunk_len
-        hist = torch.where(reset[:, None], torch.zeros_like(state["hist"]),
-                           state["hist"])
-        have = state["have_prev"] & ~reset
-        xp = torch.cat([hist, x], dim=-1)
-        d = _ochan.fused_pfb_demod(xp.real.contiguous(),
-                                   xp.imag.contiguous(), params["factor"],
-                                   params["taps"])
-        d = d[:, _ochan.HIST_FRAMES * m:]            # drop warm-up frames
-        # First output frame: channels whose stream just (re)started repeat
-        # the last output instead of demodulating against zero history.
-        first = torch.where(have[:, None], d[:, :m], state["last_out"])
-        d = torch.cat([first, d[:, m:]], dim=-1)
-        # Frame-major [b, T*M] -> folded channel rows [b*M, T].
-        y = d.reshape(b, t_out, m).transpose(1, 2).reshape(b * m, t_out)
-        new_state = {"hist": xp[:, -self.hist_len:],
-                     "last_out": d[:, -m:],
-                     "have_prev": torch.ones_like(have)}
-        return new_state, torch.complex(y, torch.zeros_like(y))
+        y, hist, last = _ochan.pfb_demod_step(
+            state["hist"], x, reset, state["have_prev"], state["last_out"],
+            params["factor"], params["taps"])
+        new_state = {"hist": hist, "last_out": last,
+                     "have_prev": torch.ones_like(state["have_prev"])}
+        return new_state, y
 
 
 class ChannelizerDemod(Block):

@@ -130,9 +130,9 @@ class _BoundFilter(BoundBlock):
         ir = design_impulse_response(freq_resp, window, m, sig.sample_rate)
         self._real_ir = _is_real_ir(ir)
         # Whether the overlap-save kernel takes this geometry: every one
-        # whose column fits a one-column strip (ops/filter.py supported).
-        # Where it does not, the block runs on CPU tensors only (process
-        # raises on CUDA ones).
+        # 32-bit sample indices reach (ops/filter.py supported).  Where it
+        # does not, the block runs on CPU tensors only (the kernel's
+        # wrapper raises on CUDA ones).
         self.kernel_geometry = _ofilter.supported(n, m)
         self.params = {"response":
                        extend_response(ir, pad=n).astype(
@@ -156,20 +156,10 @@ class _BoundFilter(BoundBlock):
             # impulse response filter(a + ib) = filter(a) + i filter(b).
             x = torch.complex(x[0::2].real, x[1::2].real)
             prev = torch.complex(prev[0::2].real, prev[1::2].real)
-        if self.kernel_geometry:
-            outr, outi = _ofilter.fused_overlap_save(
-                *_planes(prev), *_planes(x),
-                *self._grid.planes(params["response"]))
-            y = torch.complex(outr, outi)
-        elif x.is_cuda:
-            raise ValueError(
-                f"Filter geometry chunk {n}, ir_len {m} is not one the "
-                f"overlap-save kernel takes: its column (chunk + ir_len) / "
-                f"n2 is past {_ofilter._MAX_COLUMN} points")
-        else:
-            spec = (torch.fft.fft(torch.cat([prev, x], dim=-1))
-                    * params["response"])
-            y = torch.fft.ifft(spec)[..., :n]
+        outr, outi = _ofilter.fused_overlap_save(
+            *_planes(prev), *_planes(x),
+            *self._grid.planes(params["response"]))
+        y = torch.complex(outr, outi)
         if pair_real:
             yr = torch.stack([y.real, y.imag], dim=1).reshape(
                 x_full.shape[0], n)
@@ -245,7 +235,7 @@ class _BoundFilterBank(BoundBlock):
         self._real_irs = tuple(_is_real_ir(ir) for ir in irs)
         # Whether the bank kernel takes this geometry (ops/filter.py
         # bank_supported); where it does not, the block runs on CPU
-        # tensors only (process raises on CUDA ones).
+        # tensors only (the kernel's wrapper raises on CUDA ones).
         self.kernel_geometry = _ofilter.bank_supported(
             n, self.num_outputs, m, sig.batch)
         self.params = {"responses": np.stack(
@@ -264,23 +254,12 @@ class _BoundFilterBank(BoundBlock):
     def process(self, params, state, x, reset):
         n = self.in_sig.chunk_len
         m = self.ir_len
-        k = self.num_outputs
         prev = torch.where(reset[:, None], torch.zeros_like(state["prev"]),
                            state["prev"])
-        if self.kernel_geometry:
-            outr, outi = _ofilter.fused_filter_bank(
-                *_planes(prev), *_planes(x),
-                *self._grid.planes(params["responses"]))
-            ys = torch.complex(outr, outi).unbind(1)
-        elif x.is_cuda:
-            raise ValueError(
-                f"FilterBank geometry chunk {n}, ir_len {m} is not one the "
-                f"bank kernel takes: its column (chunk + ir_len) / n2 is "
-                f"past {_ofilter._MAX_COLUMN} points")
-        else:
-            spec = torch.fft.fft(torch.cat([prev, x], dim=-1))
-            ys = torch.fft.ifft(spec[None] * params["responses"][:, None],
-                                dim=-1)[..., :n].unbind(0)
+        outr, outi = _ofilter.fused_filter_bank(
+            *_planes(prev), *_planes(x),
+            *self._grid.planes(params["responses"]))
+        ys = torch.complex(outr, outi).unbind(1)
         return {"prev": x[..., n - m:]}, tuple(ys)
 
     def update_params(self, freq_resps, window: Optional[Window] = None):

@@ -64,14 +64,23 @@
 // columns) and run the column FFT as Stockham passes between the two
 // buffers: radix 8, 4, 2, 3 and 5 butterflies, one thread per butterfly
 // and column, and one generic pass (one thread per output) for any other
-// prime.  Launch 2 holds one grid row in registers, V = n2 / 32 complex
-// values a lane on a warp (n2 >= 32; a row of n2 < 32 points takes n2
-// lanes, one value each), and runs the row FFT there: a radix-V pass
-// across the lane's values, then radix-2 passes across lanes through
-// __shfl_xor_sync; no matrix sits in shared memory, so 9 blocks of 4
-// rows fit an SM (56 registers a thread at n2 = 128) and even 512 rows
-// spread over 128 blocks.  Plain float32 FMA: no tensor
-// cores, TF32 or library FFT.  Measured on an H100 80GB HBM3 at 700 W,
+// prime.  A column past a one-column strip (n1 > 9685: an odd N past
+// 9685, N = 2 x odd past 19370, ...) takes the same passes in device
+// memory instead, one launch per pass over all columns of all grids,
+// between the forward (or band) scratch and a column scratch [X, N] the
+// wrapper allocates (10 MB a pair at m = n = 10001, batch 64).  It is the
+// slow route that is right: a generic pass of a prime p re-reads each
+// input p times through L1 and gathers its roots, 8p flops a sample (N =
+// 19373: 155 kflop a sample); measured on an H100 80GB HBM3 at 700 W, #3
+// takes 1.08 ms at m = n = 10001, batch 64 (passes of 73 and 137), and
+// 7.5 ms at the prime N = 19373, batch 2.  Launch 2 holds one grid row
+// in registers, V = n2 / 32 complex values a lane on a warp (n2 >= 32; a
+// row of n2 < 32 points takes n2 lanes, one value each), and runs the
+// row FFT there: a radix-V pass across the lane's values, then radix-2
+// passes across lanes through __shfl_xor_sync; no matrix sits in shared
+// memory, so 9 blocks of 4 rows fit an SM (56 registers a thread at n2 =
+// 128) and even 512 rows spread over 128 blocks.  Plain float32 FMA: no
+// tensor cores, TF32 or library FFT.  Measured on an H100 80GB HBM3 at 700 W,
 // the three launches move 44 MB in 28.7 us at the receive chain's batch
 // 64 (~1.5 TB/s, mostly from L2): each launch is one short wave, and its
 // tail and the gaps between launches bound it before either roofline.
@@ -79,8 +88,13 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
+
+#include "fft.cuh"
 
 namespace {
+
+using namespace rr;
 
 constexpr int kMaxN2 = 256;       // the longest row: 8 values a lane
 constexpr int kColThreads = 256;  // threads of a column block: (C, 256 / C)
@@ -115,97 +129,6 @@ Plan make_plan(const float* tables, const int* radix, int npass, int n2,
   p.n1 = n1;
   p.n2 = n2;
   return p;
-}
-
-struct cf {
-  float r, i;
-};
-__device__ __forceinline__ cf operator+(cf a, cf b) {
-  return {a.r + b.r, a.i + b.i};
-}
-__device__ __forceinline__ cf operator-(cf a, cf b) {
-  return {a.r - b.r, a.i - b.i};
-}
-__device__ __forceinline__ cf cmul(cf a, cf b) {
-  return {fmaf(a.r, b.r, -a.i * b.i), fmaf(a.r, b.i, a.i * b.r)};
-}
-__device__ __forceinline__ cf scale(cf a, float s) {
-  return {a.r * s, a.i * s};
-}
-// Root j of a table, conjugated for the inverse.
-template <bool kInv>
-__device__ __forceinline__ cf root(const float* wr, const float* wi, int j) {
-  return {wr[j], kInv ? -wi[j] : wi[j]};
-}
-// x times the quarter root: -i forward, +i inverse.
-template <bool kInv>
-__device__ __forceinline__ cf quarter(cf x) {
-  return kInv ? cf{-x.i, x.r} : cf{x.i, -x.r};
-}
-
-// DFT_p of a[0..p) in place, p in {2, 3, 4, 5, 8}; the inverse with the
-// conjugate roots (unnormalised).
-template <bool kInv>
-__device__ __forceinline__ void dft4(cf& a0, cf& a1, cf& a2, cf& a3) {
-  const cf t0 = a0 + a2, t1 = a0 - a2, t2 = a1 + a3;
-  const cf t3 = quarter<kInv>(a1 - a3);
-  a0 = t0 + t2;
-  a1 = t1 + t3;
-  a2 = t0 - t2;
-  a3 = t1 - t3;
-}
-
-template <int P, bool kInv>
-__device__ __forceinline__ void butterfly(cf* a) {
-  if constexpr (P == 2) {
-    const cf t = a[0] - a[1];
-    a[0] = a[0] + a[1];
-    a[1] = t;
-  } else if constexpr (P == 3) {
-    const float s3 = 0.866025403784438646763723170752936183f;
-    const cf t = a[1] + a[2];
-    const cf u = a[0] - scale(t, 0.5f);
-    const cf v = quarter<kInv>(scale(a[1] - a[2], s3));
-    a[0] = a[0] + t;
-    a[1] = u + v;
-    a[2] = u - v;
-  } else if constexpr (P == 4) {
-    dft4<kInv>(a[0], a[1], a[2], a[3]);
-  } else if constexpr (P == 5) {
-    const float c1 = 0.309016994374947424102293417182819059f;
-    const float c2 = -0.809016994374947424102293417182819059f;
-    const float s1 = 0.951056516295153572116439333379382143f;
-    const float s2 = 0.587785252292473129168705954639072769f;
-    const cf t1 = a[1] + a[4], t2 = a[2] + a[3];
-    const cf d1 = a[1] - a[4], d2 = a[2] - a[3];
-    const cf u1 = a[0] + scale(t1, c1) + scale(t2, c2);
-    const cf u2 = a[0] + scale(t1, c2) + scale(t2, c1);
-    const cf v1 = quarter<kInv>(scale(d1, s1) + scale(d2, s2));
-    const cf v2 = quarter<kInv>(scale(d1, s2) - scale(d2, s1));
-    a[0] = a[0] + t1 + t2;
-    a[1] = u1 + v1;
-    a[4] = u1 - v1;
-    a[2] = u2 + v2;
-    a[3] = u2 - v2;
-  } else {
-    static_assert(P == 8, "specialised radices are 2, 3, 4, 5 and 8");
-    const float h = 0.707106781186547524400844362104849039f;
-    cf e[4] = {a[0], a[2], a[4], a[6]};
-    cf o[4] = {a[1], a[3], a[5], a[7]};
-    dft4<kInv>(e[0], e[1], e[2], e[3]);
-    dft4<kInv>(o[0], o[1], o[2], o[3]);
-    // o[r] times the eighth root to the r: (1 -+ i) h, -+i, (-1 -+ i) h.
-    o[1] = kInv ? cf{h * (o[1].r - o[1].i), h * (o[1].r + o[1].i)}
-                : cf{h * (o[1].r + o[1].i), h * (o[1].i - o[1].r)};
-    o[2] = quarter<kInv>(o[2]);
-    o[3] = kInv ? cf{-h * (o[3].r + o[3].i), h * (o[3].r - o[3].i)}
-                : cf{h * (o[3].i - o[3].r), -h * (o[3].r + o[3].i)};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[r] = e[r] + o[r];
-      a[r + 4] = e[r] - o[r];
-    }
-  }
 }
 
 // One Stockham pass of radix P down the C columns of a strip: butterfly
@@ -578,6 +501,154 @@ __global__ void __launch_bounds__(kColThreads)
   }
 }
 
+// The column route past a one-column strip (strip_cols 0: n1 > 9685
+// rows).  Launches 1 and 3 run the same Stockham passes, butterflies and
+// float32 column roots as column_fft, one launch per pass over whole
+// [n1, n2] grids in device memory (an L2-resident scratch), one thread per
+// butterfly and column (per output and column in a generic prime pass), so
+// each pass spreads over the card.
+
+// What a pass reads: element e of column c of grid row s, at t = e * n2 +
+// c of [a (m) || b] (row strides sa, sb): launch 1's [prev || cur], or a
+// scratch [rows, N] (m = N, a = b).
+struct GridSrc {
+  const float *ar, *ai, *br, *bi;
+  int sa, sb, m;
+  __device__ __forceinline__ cf at(int s, int t) const {
+    if (t < m) return {ar[(size_t)s * sa + t], ai[(size_t)s * sa + t]};
+    return {br[(size_t)s * sb + t - m], bi[(size_t)s * sb + t - m]};
+  }
+};
+
+// Where a pass writes element e of column c of grid row s: kScratch at
+// s * N + e * n2 + c of y; kTwiddle the same times tw[e, c] (launch 1's
+// last pass); kOutput at t = e * n2 + c of output row (s % row_mod) *
+// row_mul + s / row_mod, where e < ho and t < n (launch 3's last pass, as
+// os_inverse_columns writes).
+enum DstKind { kScratch, kTwiddle, kOutput };
+struct GridDst {
+  float *yr, *yi;
+  int kind, out_stride, n, ho, row_mod, row_mul;
+  __device__ __forceinline__ void put(const Plan& pl, int s, int e, int c,
+                                      cf v) const {
+    const int t = e * pl.n2 + c;
+    size_t at;
+    if (kind == kOutput) {
+      if (e >= ho || t >= n) return;
+      at = ((size_t)(s % row_mod) * row_mul + s / row_mod) * out_stride + t;
+    } else {
+      if (kind == kTwiddle) v = cmul(v, {pl.twr[t], pl.twi[t]});
+      at = (size_t)s * pl.n1 * pl.n2 + t;
+    }
+    yr[at] = v.r;
+    yi[at] = v.i;
+  }
+};
+
+constexpr int kPassThreads = 256;
+
+// One radix-P pass (P in 2, 3, 4, 5, 8) of every column of grid row
+// blockIdx.y: radix_pass with the strip's columns widened to the grid's.
+// grid (ceil(n1 / P * n2 / kPassThreads), rows), block kPassThreads.
+template <int P, bool kInv>
+__global__ void __launch_bounds__(kPassThreads)
+    os_column_pass(GridSrc x, GridDst y, Plan pl, int m, int s, int stride) {
+  const int row = blockIdx.y, n2 = pl.n2;
+  const int idx = blockIdx.x * kPassThreads + threadIdx.x;
+  if (idx >= m * s * n2) return;
+  const int c = idx % n2, b = idx / n2, k = b % s, q = b / s;
+  cf a[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) a[j] = x.at(row, (k + s * (q + m * j)) * n2 + c);
+  butterfly<P, kInv>(a);
+#pragma unroll
+  for (int r = 0; r < P; ++r)
+    y.put(pl, row, k + s * (P * q + r), c,
+          r ? cmul(a[r], root<kInv>(pl.r1r, pl.r1i, q * r * stride)) : a[r]);
+}
+
+// One generic pass of prime p: generic_pass with the grid's columns.
+// grid (ceil(n1 * n2 / kPassThreads), rows), block kPassThreads.
+template <bool kInv>
+__global__ void __launch_bounds__(kPassThreads)
+    os_column_generic(GridSrc x, GridDst y, Plan pl, int p, int m, int s,
+                      int stride) {
+  const int row = blockIdx.y, n2 = pl.n2;
+  const int idx = blockIdx.x * kPassThreads + threadIdx.x;
+  if (idx >= pl.n1 * n2) return;
+  const int c = idx % n2, o = idx / n2;
+  const int r = o % p, kq = o / p, k = kq % s, q = kq / s;
+  const int step = pl.n1 / p;
+  float accr = 0.f, acci = 0.f;
+  int e = 0;  // j * r mod p
+  for (int j = 0; j < p; ++j) {
+    const cf v = x.at(row, (k + s * (q + m * j)) * n2 + c);
+    const cf w = root<kInv>(pl.r1r, pl.r1i, e * step);
+    accr = fmaf(v.r, w.r, fmaf(-v.i, w.i, accr));
+    acci = fmaf(v.r, w.i, fmaf(v.i, w.r, acci));
+    e += r;
+    if (e >= p) e -= p;
+  }
+  cf v = {accr, acci};
+  if (r) v = cmul(v, root<kInv>(pl.r1r, pl.r1i, q * r * stride));
+  y.put(pl, row, k + s * (p * q + r), c, v);
+}
+
+// The pass order of an n-point column: ops/filter.py fft_radices (8 while
+// it divides, then 4 or 2, 3s, 5s, other primes ascending).  Returns the
+// number of passes.
+int column_radices(int n, int* out) {
+  int np = 0;
+  for (int p : {8, 4, 2, 3, 5})
+    while (n % p == 0) {
+      out[np++] = p;
+      n /= p;
+    }
+  for (int p = 7; n > 1; p += 2)
+    while (n % p == 0) {
+      out[np++] = p;
+      n /= p;
+    }
+  return np;
+}
+
+// Launch 1 or 3 by the device-memory route on `rows` grids: the passes
+// from src, each but the last writing near or far (the one before the
+// last writes near, and they alternate back), the last writing last.
+template <bool kInv>
+int column_passes(const GridSrc& src, const GridDst& near,
+                  const GridDst& far, const GridDst& last, const Plan& pl,
+                  int rows, cudaStream_t stream) {
+  int radix[32];
+  const int np = column_radices(pl.n1, radix);
+  const int N = pl.n1 * pl.n2;
+  GridSrc x = src;
+  int n = pl.n1, s = 1;
+  for (int ps = 0; ps < np; ++ps) {
+    const int p = radix[ps], m = n / p, stride = pl.n1 / n;
+    const GridDst& y = ps == np - 1 ? last : (np - 1 - ps) % 2 ? near : far;
+    // Threads a grid row: one a butterfly (specialised radices) or one an
+    // output (a generic prime, 7 included), times the columns.
+    const bool special = p == 2 || p == 3 || p == 4 || p == 5 || p == 8;
+    const int work = (special ? m * s : pl.n1) * pl.n2;
+    const dim3 grid((work + kPassThreads - 1) / kPassThreads, rows);
+    switch (p) {
+      case 2: os_column_pass<2, kInv><<<grid, kPassThreads, 0, stream>>>(x, y, pl, m, s, stride); break;
+      case 3: os_column_pass<3, kInv><<<grid, kPassThreads, 0, stream>>>(x, y, pl, m, s, stride); break;
+      case 4: os_column_pass<4, kInv><<<grid, kPassThreads, 0, stream>>>(x, y, pl, m, s, stride); break;
+      case 5: os_column_pass<5, kInv><<<grid, kPassThreads, 0, stream>>>(x, y, pl, m, s, stride); break;
+      case 8: os_column_pass<8, kInv><<<grid, kPassThreads, 0, stream>>>(x, y, pl, m, s, stride); break;
+      default:
+        os_column_generic<kInv><<<grid, kPassThreads, 0, stream>>>(x, y, pl, p, m, s, stride);
+    }
+    if (int err = (int)cudaGetLastError()) return err;
+    x = GridSrc{y.yr, y.yi, y.yr, y.yi, N, N, N};
+    n = m;
+    s *= p;
+  }
+  return 0;
+}
+
 // Demod prologue: thread per (stream s, t < N).  t < m copies prevd, the
 // rest demodulates sample i = t - m; stream 2j lands in zr[j], 2j+1 in zi[j].
 // Where flr/fli are given, the last input sample of each stream is written
@@ -630,17 +701,40 @@ int set_smem(const void* fn, size_t bytes) {
 // [nbands, n1, n2]).  Launch 1 writes the forward scratch fr/fi [X, N];
 // launch 2 writes band k of stream s to row k * X + s of the band scratch
 // br/bi [nbands * X, N] (the forward scratch itself, in place, for one
-// band); launch 3 writes it to output row s * nbands + k.
+// band); launch 3 writes it to output row s * nbands + k.  Past a
+// one-column strip, launches 1 and 3 take the device-memory route with
+// the column scratch tr/ti [nbands * X, N] (null where a strip fits).
 int run_stages(const float* prevr, const float* previ, int prev_stride,
                const float* curr, const float* curi, int cur_stride, int m,
                int n, int X, int nbands, const Plan& pl, const float* gr,
                const float* gi, float* fr, float* fi, float* br, float* bi,
-               float* outr, float* outi, int out_stride, int ho,
-               cudaStream_t stream) {
+               float* outr, float* outi, int out_stride, int ho, float* tr,
+               float* ti, cudaStream_t stream) {
   const int cols = strip_cols(pl.n1, pl.n2);
-  if (cols == 0 || pl.n2 > kMaxN2) return (int)cudaErrorInvalidValue;
-  const size_t strip = strip_bytes(pl.n1, cols);
+  if (pl.n2 > kMaxN2 || (cols == 0 && tr == nullptr))
+    return (int)cudaErrorInvalidValue;
   int err;
+  if (cols == 0) {
+    const int N = pl.n1 * pl.n2;
+    const GridDst tmp{tr, ti, kScratch}, fwd{fr, fi, kScratch},
+        bands{br, bi, kScratch};
+    const GridDst twiddled{fr, fi, kTwiddle};
+    const GridDst out{outr, outi, kOutput, out_stride, n, ho, X, nbands};
+    if ((err = column_passes<false>(
+             {prevr, previ, curr, curi, prev_stride, cur_stride, m}, tmp, fwd,
+             twiddled, pl, X, stream)))
+      return err;
+    if ((err = run_rows(fr, fi, br, bi, pl, gr, gi, X * pl.n1, nbands,
+                        stream)))
+      return err;
+    // The first inverse pass writes the column scratch, not its input.
+    int radix[32];
+    const bool odd = (column_radices(pl.n1, radix) - 1) % 2;
+    return column_passes<true>({br, bi, br, bi, N, N, N}, odd ? tmp : bands,
+                               odd ? bands : tmp, out, pl, X * nbands,
+                               stream);
+  }
+  const size_t strip = strip_bytes(pl.n1, cols);
   if ((err = set_smem((const void*)os_forward_columns, strip))) return err;
   if ((err = set_smem((const void*)os_inverse_columns, strip))) return err;
   const dim3 threads(cols, kColThreads / cols);
@@ -661,10 +755,11 @@ int run_pipeline(const float* prevr, const float* previ, int prev_stride,
                  const float* curr, const float* curi, int cur_stride,
                  int m, int n, int X, const Plan& pl, const float* gr,
                  const float* gi, float* scr_r, float* scr_i, float* outr,
-                 float* outi, int out_stride, int ho, cudaStream_t stream) {
+                 float* outi, int out_stride, int ho, float* tr, float* ti,
+                 cudaStream_t stream) {
   return run_stages(prevr, previ, prev_stride, curr, curi, cur_stride, m, n,
                     X, 1, pl, gr, gi, scr_r, scr_i, scr_r, scr_i, outr, outi,
-                    out_stride, ho, stream);
+                    out_stride, ho, tr, ti, stream);
 }
 
 }  // namespace
@@ -673,7 +768,9 @@ extern "C" {
 
 // Every entry point takes the geometry's tables (ops/filter.py _tables:
 // packed float32 roots and twiddle, int32 radices and their count), the
-// row length n2, the column length n1 and output rows ho = ceil(n / n2).
+// row length n2, the column length n1, output rows ho = ceil(n / n2) and
+// the column scratch planes tr/ti, as many rows as its largest scratch
+// (null where n1 fits a one-column strip).
 
 // One overlap-save step for X complex streams: prev [X, m] and cur [X, n]
 // planes (row strides given), grid planes [n1, n2], scratch planes
@@ -683,11 +780,11 @@ int rr_overlap_save(const float* prevr, const float* previ, int prev_stride,
                     int m, int n, int X, const float* tables,
                     const int* radix, int npass, int n2, const float* gr,
                     const float* gi, float* scr_r, float* scr_i, float* outr,
-                    float* outi, int out_stride, int n1, int ho,
-                    void* stream) {
+                    float* outi, int out_stride, int n1, int ho, float* tr,
+                    float* ti, void* stream) {
   return run_pipeline(prevr, previ, prev_stride, curr, curi, cur_stride, m,
                       n, X, make_plan(tables, radix, npass, n2, n1), gr, gi,
-                      scr_r, scr_i, outr, outi, out_stride, ho,
+                      scr_r, scr_i, outr, outi, out_stride, ho, tr, ti,
                       (cudaStream_t)stream);
 }
 
@@ -701,7 +798,7 @@ int rr_demod_filter(const float* curr, const float* curi, const float* plr,
                     int b, int n, int m, const float* tables,
                     const int* radix, int npass, int n2, const float* gr,
                     const float* gi, float* scr_r, float* scr_i, float* y,
-                    int n1, int ho, void* stream) {
+                    int n1, int ho, float* tr, float* ti, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int N = n + m;
   demod_pack<<<dim3((N + 255) / 256, b), 256, 0, st>>>(
@@ -711,7 +808,7 @@ int rr_demod_filter(const float* curr, const float* curi, const float* plr,
   if (err) return err;
   return run_pipeline(zr, zi, N, zr + m, zi + m, N, m, n, b / 2,
                       make_plan(tables, radix, npass, n2, n1), gr, gi, scr_r,
-                      scr_i, y, y + n, 2 * n, ho, st);
+                      scr_i, y, y + n, 2 * n, ho, tr, ti, st);
 }
 
 // Channel filter, FM demod and deemphasis filter of b streams (b even), the
@@ -729,19 +826,20 @@ int rr_filter_demod_filter(
     float* zi, float* flr, float* fli, int b, int n, int m,
     const float* tables, const int* radix, int npass, int n2, const float* g1r,
     const float* g1i, const float* g2r, const float* g2i, float* scr_r,
-    float* scr_i, float* y, int n1, int ho, void* stream) {
+    float* scr_i, float* y, int n1, int ho, float* tr, float* ti,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int N = n + m;
   const Plan pl = make_plan(tables, radix, npass, n2, n1);
   int err = run_pipeline(prevr, previ, m, curr, curi, n, m, n, b, pl, g1r,
-                         g1i, scr_r, scr_i, fr, fi, n, ho, st);
+                         g1i, scr_r, scr_i, fr, fi, n, ho, tr, ti, st);
   if (err) return err;
   demod_pack<<<dim3((N + 255) / 256, b), 256, 0, st>>>(
       fr, fi, plr, pli, prevd, last_out, have_prev, fac, dout, zr, zi, flr,
       fli, n, m);
   if ((err = (int)cudaGetLastError())) return err;
   return run_pipeline(zr, zi, N, zr + m, zi + m, N, m, n, b / 2, pl, g2r,
-                      g2i, scr_r, scr_i, y, y + n, 2 * n, ho, st);
+                      g2i, scr_r, scr_i, y, y + n, 2 * n, ho, tr, ti, st);
 }
 
 // K overlap-save filters of b complex streams sharing one forward
@@ -753,10 +851,10 @@ int rr_filter_bank(const float* prevr, const float* previ, const float* curr,
                    const float* tables, const int* radix, int npass, int n2,
                    const float* gr, const float* gi, float* fr, float* fi,
                    float* br, float* bi, float* outr, float* outi, int n1,
-                   int ho, void* stream) {
+                   int ho, float* tr, float* ti, void* stream) {
   return run_stages(prevr, previ, m, curr, curi, n, m, n, b, nbands,
                     make_plan(tables, radix, npass, n2, n1), gr, gi, fr, fi, br,
-                    bi, outr, outi, n, ho, (cudaStream_t)stream);
+                    bi, outr, outi, n, ho, tr, ti, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -41,6 +41,7 @@ _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PLAN = [_P, _P, _I, _I]   # overlap-save tables, radices, passes, n2
+_COLUMN_SCRATCH = [_P, _P]  # overlap-save column scratch planes, or null
 # C signatures: argument types of every entry point (pointers and the
 # stream as void*, sizes as int).
 _SIGNATURES = {
@@ -48,13 +49,15 @@ _SIGNATURES = {
     "rr_mix_decimate": [_P, _I, _I, _P],
     "rr_decimate_wide": [_P, _P, _I, _I, _I, _P],   # args, band, tm, qb, uc
     "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + _PLAN
-                        + [_P] * 6 + [_I, _I, _I, _P]),
-    "rr_demod_filter": [_P] * 11 + [_I] * 3 + _PLAN + [_P] * 5 + [_I, _I,
-                                                                  _P],
+                        + [_P] * 6 + [_I, _I, _I] + _COLUMN_SCRATCH + [_P]),
+    "rr_demod_filter": ([_P] * 11 + [_I] * 3 + _PLAN + [_P] * 5 + [_I, _I]
+                        + _COLUMN_SCRATCH + [_P]),
     "rr_filter_demod_filter": ([_P] * 17 + [_I] * 3 + _PLAN + [_P] * 7
-                               + [_I, _I, _P]),
-    "rr_filter_bank": [_P] * 4 + [_I] * 4 + _PLAN + [_P] * 8 + [_I, _I, _P],
-    "rr_pfb_demod": [_P] * 7 + [_I] * 3 + [_P],
+                               + [_I, _I] + _COLUMN_SCRATCH + [_P]),
+    "rr_filter_bank": ([_P] * 4 + [_I] * 4 + _PLAN + [_P] * 8 + [_I, _I]
+                       + _COLUMN_SCRATCH + [_P]),
+    "rr_pfb_demod": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
+    "rr_pfb_demod_step": [_P] * 6 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
     "rr_slew_scan": [_P] * 9 + [_I] * 4 + [_P],
     "rr_agc_scan": [_P] * 7 + [_I] * 2 + [_P],
 }

@@ -11,14 +11,20 @@ code there too: the branch DFT is a ``torch.matmul``) and
   ``+c * rate / M`` (numpy bin convention);
 - :func:`fused_pfb_demod` of ``fused_pfb_demod``: the same for M = 64,
   then the quadrature FM demod of every channel against its previous
-  frame, in one pass.  On CUDA it launches the kernel of
-  ``csrc/pfb_demod.cu`` and counts the launch in its ``launches``
-  attribute; on the CPU it runs :func:`fused_pfb_demod_plain`.
+  frame, in one pass, on float planes with the warm-up frames included;
+- :func:`pfb_demod_step`: the same kernel as ``ChannelizerDemod``'s step,
+  reading the complex64 history and chunk in place and writing the
+  block's channel rows, its new history and last outputs.
+
+On CUDA both launch the kernel of ``csrc/pfb_demod.cu`` and count the
+launch in ``fused_pfb_demod.launches``; on the CPU they run their plain
+versions (:func:`fused_pfb_demod_plain`, :func:`pfb_demod_step_plain`).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -26,15 +32,17 @@ import torch
 from ..math import sinc
 from ..windowing import Kaiser
 from . import _build
-from .filter import _factor_vector
+from .filter import _factor_vector, fft_roots
 
 __all__ = ["design_prototype", "branch_fir", "dft_channels",
            "pfb_channelize", "fused_pfb_demod", "fused_pfb_demod_plain",
-           "pfb_demod_supported", "HIST_FRAMES"]
+           "pfb_demod_step", "pfb_demod_step_plain", "pfb_demod_supported",
+           "HIST_FRAMES"]
 
 M = 64            # channels of the fused kernel (kM in csrc/pfb_demod.cu)
 HIST_FRAMES = 2   # warm-up frames recomputed per chunk (continuity + drop)
-_TILE = 32        # frames per block (kTile in csrc/pfb_demod.cu)
+_TILE = 15        # output frames a block (kTile in csrc/pfb_demod.cu)
+_WARPS = 4        # warps a block (kWarps)
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -112,14 +120,46 @@ def pfb_channelize(xp: torch.Tensor, taps: torch.Tensor,
 
 
 def _smem_bytes(k: int) -> int:
-    return 4 * (2 * (_TILE + k) * M + k * M + 2 * M * M + 2 * (_TILE + 1) * M)
+    """Shared bytes of a block at k taps a branch (``smem_bytes`` in
+    csrc/pfb_demod.cu): the staged frames of 72 complex samples, a
+    warp's exchange tile (8 x 33 complex) and last frame (8 x 9), the
+    taps."""
+    return 8 * ((_TILE + k) * (M + 8) + _WARPS * 8 * (33 + 9)) + 4 * k * M
+
+
+def _check_smem(k: int):
+    if _smem_bytes(k) > _SMEM_LIMIT:
+        raise ValueError(f"{k} taps per branch: the block's span does not "
+                         f"fit shared memory")
+
+
+_device_roots = {}
+
+
+def _roots(device) -> torch.Tensor:
+    """The kernel's float32 table of exp(-2 pi i j / 64), re then im, on
+    ``device``, uploaded once."""
+    key = str(device)
+    if key not in _device_roots:
+        _device_roots[key] = torch.from_numpy(
+            np.concatenate(fft_roots(M))).to(device)
+    return _device_roots[key]
+
+
+def _factor_arg(factor, b: int, device) -> Tuple[torch.Tensor, int]:
+    """(tensor, stride) of the demod factor for the kernel: a device
+    scalar or [b] vector read in place (stride 0 or 1), else a copy."""
+    f = torch.as_tensor(factor, dtype=torch.float32, device=device)
+    if f.numel() == 1:
+        return f.reshape(1), 0
+    return f.expand(b).contiguous(), 1
 
 
 def pfb_demod_supported(n: int, num_channels: int,
                         taps_per_branch: int) -> bool:
     """Whether the fused kernel takes this geometry: 64 channels, whole
-    frames per chunk, and a block's staged span, taps and DFT within
-    shared memory."""
+    frames per chunk, and a block's staged span, exchange tiles and taps
+    within shared memory (up to 256 taps a branch)."""
     return (num_channels == M and n % M == 0 and n >= M
             and taps_per_branch >= 1
             and _smem_bytes(taps_per_branch) <= _SMEM_LIMIT)
@@ -162,22 +202,87 @@ def fused_pfb_demod(xr, xi, factor, taps):
                          f"{total} samples")
     if not _build.on_cuda(xr, xi, taps):
         return fused_pfb_demod_plain(xr, xi, factor, taps)
-    if _smem_bytes(k) > _SMEM_LIMIT:
-        raise ValueError(f"{k} taps per branch: the block's span does not "
-                         f"fit shared memory")
+    _check_smem(k)
     dev = xr.device
-    wr, wi = _dft_tensors(M, dev)
-    fac = _factor_vector(factor, b, dev)
+    fac, fac_stride = _factor_arg(factor, b, dev)
     d = torch.empty((b, total - (k - 1) * M), dtype=torch.float32,
                     device=dev)
     ptr = _build.f32_ptr
     fused_pfb_demod.launches += 1
     err = _build.lib().rr_pfb_demod(
-        ptr(xr, "xr"), ptr(xi, "xi"), fac.data_ptr(), ptr(taps, "taps"),
-        wr.data_ptr(), wi.data_ptr(), d.data_ptr(), b, total, k,
+        ptr(xr, "xr"), ptr(xi, "xi"), fac.data_ptr(), fac_stride,
+        ptr(taps, "taps"), _roots(dev).data_ptr(), d.data_ptr(), b, total, k,
         _build.stream_handle(dev))
     _build.check(err, "fused_pfb_demod")
     return d
 
 
 fused_pfb_demod.launches = 0
+
+
+def pfb_demod_step_plain(hist, x, reset, have_prev, last_out, factor, taps):
+    """Plain PyTorch version of :func:`pfb_demod_step`: the block's glue
+    around :func:`fused_pfb_demod_plain`."""
+    b, n = x.shape
+    hist = torch.where(reset[:, None], torch.zeros_like(hist), hist)
+    have = have_prev & ~reset
+    xp = torch.cat([hist, x], dim=-1)
+    d = fused_pfb_demod_plain(xp.real.contiguous(), xp.imag.contiguous(),
+                              factor, taps)
+    d = d[:, HIST_FRAMES * M:]                   # drop warm-up frames
+    # First output frame: channels whose stream just (re)started repeat
+    # the last output instead of demodulating against zero history.
+    first = torch.where(have[:, None], d[:, :M], last_out)
+    d = torch.cat([first, d[:, M:]], dim=-1)
+    # Frame-major [b, T*M] -> folded channel rows [b*M, T].
+    y = d.reshape(b, n // M, M).transpose(1, 2).reshape(b * M, n // M)
+    return (torch.complex(y, torch.zeros_like(y)), xp[:, -hist.shape[1]:],
+            d[:, -M:])
+
+
+def pfb_demod_step(hist, x, reset, have_prev, last_out, factor, taps):
+    """One ``ChannelizerDemod`` step.
+
+    ``hist``: [batch, (K + 1) * M] complex64 raw-input history (read as
+    zeros where ``reset``); ``x``: [batch, n] complex64 chunk, n a
+    multiple of M; ``reset``, ``have_prev``: [batch] bool; ``last_out``:
+    [batch, M] float32 last output frame; ``factor``: demod factor, a
+    scalar or [batch]; ``taps``: [K, M].  Returns (y [batch * M, n / M]
+    complex64 channel rows with a zero imaginary part, the new history
+    [batch, (K + 1) * M], the new last output frame [batch, M]).
+    """
+    b, n = x.shape
+    k, m = taps.shape
+    if m != M or n % M or n < M or tuple(hist.shape) != (b, (k + 1) * M):
+        raise ValueError(f"pfb_demod_step takes {M} channels, whole frames "
+                         f"and a history of K + 1 frames; got taps "
+                         f"{tuple(taps.shape)}, chunk {n}, history "
+                         f"{tuple(hist.shape)}")
+    tensors = (hist, x, reset, have_prev, last_out, taps)
+    if not _build.on_cuda(*tensors):
+        return pfb_demod_step_plain(hist, x, reset, have_prev, last_out,
+                                    factor, taps)
+    _check_smem(k)
+    for t, name, dtype in ((hist, "hist", torch.complex64),
+                           (x, "x", torch.complex64),
+                           (reset, "reset", torch.bool),
+                           (have_prev, "have_prev", torch.bool)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: kernel takes a contiguous {dtype} "
+                             f"tensor, got {t.dtype}, contiguous="
+                             f"{t.is_contiguous()}")
+    dev = x.device
+    fac, fac_stride = _factor_arg(factor, b, dev)
+    y = torch.empty((b * M, n // M), dtype=torch.complex64, device=dev)
+    new_hist = torch.empty_like(hist)
+    last = torch.empty((b, M), dtype=torch.float32, device=dev)
+    ptr = _build.f32_ptr
+    fused_pfb_demod.launches += 1
+    err = _build.lib().rr_pfb_demod_step(
+        hist.data_ptr(), x.data_ptr(), reset.data_ptr(), have_prev.data_ptr(),
+        ptr(last_out, "last_out"), fac.data_ptr(), fac_stride,
+        ptr(taps, "taps"), _roots(dev).data_ptr(), y.data_ptr(),
+        new_hist.data_ptr(), last.data_ptr(), b, n, k,
+        _build.stream_handle(dev))
+    _build.check(err, "pfb_demod_step")
+    return y, new_hist, last

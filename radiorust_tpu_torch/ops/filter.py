@@ -27,11 +27,12 @@ in.
 
 The kernels run the length-n1 column transforms as mixed-radix Stockham
 passes (:func:`fft_radices` gives the pass order) on strips of
-:func:`strip_cols` columns in shared memory, and the n2-point row
-transforms in registers: a radix-n2/32 pass across a lane's values and
-radix-2 passes across the lanes (a row of fewer than 32 points takes
-n2 lanes); every twiddle comes from the float32 root tables of
-:func:`fft_roots`.
+:func:`strip_cols` columns in shared memory (a column past a one-column
+strip, n1 > 9685, one launch per pass in device memory instead), and the
+n2-point row transforms in registers: a radix-n2/32 pass across a lane's
+values and radix-2 passes across the lanes (a row of fewer than 32
+points takes n2 lanes); every twiddle comes from the float32 root tables
+of :func:`fft_roots`.
 
 Each wrapper takes the JAX function's arguments as float32 tensors.  On
 CUDA it launches the kernels of ``csrc/overlap_save.cu`` and counts the
@@ -69,22 +70,20 @@ def strip_cols(n1: int, n2: int) -> int:
     """Columns of a strip in the column launches (``strip_cols`` in
     csrc/overlap_save.cu): the widest of 32, 16, ..., 1 within the row
     length whose two buffers of n1 rows (re and im each) and n1 roots fit
-    shared memory; 0 where not even one column fits."""
+    shared memory; 0 where not even one column fits (the column launches
+    then run their passes in device memory)."""
     for c in (32, 16, 8, 4, 2, 1):
         if c <= n2 and 4 * (4 * n1 * c + 2 * n1) <= _SMEM:
             return c
     return 0
 
 
-# The longest column a one-column strip holds.
-_MAX_COLUMN = _SMEM // 24
-
-
 def kernel_factors(n_total: int):
-    """(n1, n2) of the kernels' plan for an n_total-point transform, or
-    None: n2 is the largest power of two dividing n_total up to 128, or
-    256 where n_total / 128 is past 768 and 256 divides n_total; n1 =
-    n_total / n2 must fit a one-column strip (n1 <= 9685)."""
+    """(n1, n2) of the kernels' plan for an n_total-point transform (None
+    for n_total < 1): n2 is the largest power of two dividing n_total up
+    to 128, or 256 where n_total / 128 is past 768 and 256 divides
+    n_total; n1 = n_total / n2.  A column past a one-column strip
+    (:func:`strip_cols` 0, n1 > 9685) runs its passes in device memory."""
     if n_total < 1:
         return None
     n2 = 1
@@ -92,21 +91,17 @@ def kernel_factors(n_total: int):
         n2 *= 2
     if n2 == N2 and n_total // N2 > _MAX_N1 and n_total % _MAX_N2 == 0:
         n2 = _MAX_N2
-    n1 = n_total // n2
-    return (n1, n2) if strip_cols(n1, n2) else None
+    return n_total // n2, n2
 
 
 def supported(n: int, m: int = None) -> bool:
     """Whether the kernel takes n new samples per step against an m-tap
-    history (m = n when omitted).
-
-    Every N = m + n whose column n1 = N / n2 (n2: the power of two of
-    :func:`kernel_factors`, at most 256) is at most 9685 points: then a
-    strip of one column fits shared memory.  Past that (an odd N above
-    9685, or N = 2 x odd above 19370, ...) the kernel raises."""
+    history (m = n when omitted): every N = m + n that 32-bit sample
+    indices reach.  Columns that fit a strip of shared memory run there,
+    longer ones in device memory."""
     if m is None:
         m = n
-    return 0 < m and 0 < n and kernel_factors(n + m) is not None
+    return 0 < m and 0 < n and n + m < 2 ** 31
 
 
 def bank_supported(n: int, K: int, m: int = None, batch: int = None) -> bool:
@@ -190,8 +185,19 @@ def _constants(N: int, n: int, device) -> Tuple[int, int, tuple]:
 def _check_geometry(n: int, m: int):
     if not supported(n, m):
         raise ValueError(f"overlap-save geometry m={m}, n={n} is not one "
-                         f"the kernel takes: its column (m + n) / n2 is "
-                         f"past {_MAX_COLUMN} points")
+                         f"the kernel takes: 32-bit sample indices do not "
+                         f"reach its transform")
+
+
+def _column_scratch(N: int, rows: int, device) -> Tuple[int, int, tuple]:
+    """(re, im pointers, planes) of the column scratch [rows, N] of the
+    device-memory column route, where the plan's column does not fit a
+    one-column strip; (0, 0, ()) where it does."""
+    if strip_cols(*kernel_factors(N)):
+        return 0, 0, ()
+    planes = tuple(torch.empty((rows, N), dtype=torch.float32, device=device)
+                   for _ in range(2))
+    return planes[0].data_ptr(), planes[1].data_ptr(), planes
 
 
 def _grid_vector(resp_gr, resp_gi) -> torch.Tensor:
@@ -234,13 +240,14 @@ def fused_overlap_save(prevr, previ, curr, curi, resp_gr, resp_gi):
                     for _ in range(2))
     outr, outi = (torch.empty((b, n), dtype=torch.float32, device=dev)
                   for _ in range(2))
+    tr, ti, _tmp = _column_scratch(N, b, dev)
     fused_overlap_save.launches += 1
     err = _build.lib().rr_overlap_save(
         ptr(prevr, "prevr"), ptr(previ, "previ"), m,
         ptr(curr, "curr"), ptr(curi, "curi"), n, m, n, b, *consts,
         ptr(resp_gr, "resp_gr"), ptr(resp_gi, "resp_gi"),
         scr_r.data_ptr(), scr_i.data_ptr(), outr.data_ptr(),
-        outi.data_ptr(), n, n1, ho, _build.stream_handle(dev))
+        outi.data_ptr(), n, n1, ho, tr, ti, _build.stream_handle(dev))
     _build.check(err, "fused_overlap_save")
     return outr, outi
 
@@ -289,13 +296,15 @@ def fused_filter_bank(prevr, previ, curr, curi, resp_gr, resp_gi):
               for _ in range(2))
     outr, outi = (torch.empty((b, K, n), dtype=torch.float32, device=dev)
                   for _ in range(2))
+    tr, ti, _tmp = _column_scratch(N, K * b, dev)
     names = ("prevr", "previ", "curr", "curi")
     fused_filter_bank.launches += 1
     err = _build.lib().rr_filter_bank(
         *(ptr(t, nm) for t, nm in zip(tensors, names)), m, n, b, K,
         *consts, ptr(resp_gr, "resp_gr"), ptr(resp_gi, "resp_gi"),
         fr.data_ptr(), fi.data_ptr(), br.data_ptr(), bi.data_ptr(),
-        outr.data_ptr(), outi.data_ptr(), n1, ho, _build.stream_handle(dev))
+        outr.data_ptr(), outi.data_ptr(), n1, ho, tr, ti,
+        _build.stream_handle(dev))
     _build.check(err, "fused_filter_bank")
     return outr, outi
 
@@ -361,12 +370,13 @@ def fused_demod_filter(curr, curi, prev_last_r, prev_last_i, prevd,
     zr, zi, scr_r, scr_i = (torch.empty((b // 2, N), dtype=torch.float32,
                                         device=dev) for _ in range(4))
     y = torch.empty((b, n), dtype=torch.float32, device=dev)
+    tr, ti, _tmp = _column_scratch(N, b // 2, dev)
     fused_demod_filter.launches += 1
     err = _build.lib().rr_demod_filter(
         *ptrs, fac.data_ptr(), dout.data_ptr(), zr.data_ptr(),
         zi.data_ptr(), b, n, m, *consts,
         _build.f32_ptr(resp_gr, "resp_gr"), _build.f32_ptr(resp_gi, "resp_gi"),
-        scr_r.data_ptr(), scr_i.data_ptr(), y.data_ptr(), n1, ho,
+        scr_r.data_ptr(), scr_i.data_ptr(), y.data_ptr(), n1, ho, tr, ti,
         _build.stream_handle(dev))
     _build.check(err, "fused_demod_filter")
     return y, dout
@@ -433,12 +443,14 @@ def fused_filter_demod_filter(prevr, previ, curr, curi, prev_last_r,
                     for _ in range(2))
     flr, fli = (torch.empty((b,), dtype=torch.float32, device=dev)
                 for _ in range(2))
+    tr, ti, _tmp = _column_scratch(N, b, dev)
     fused_filter_demod_filter.launches += 1
     err = _build.lib().rr_filter_demod_filter(
         *ptrs, fac.data_ptr(), fr.data_ptr(), fi.data_ptr(), dout.data_ptr(),
         zr.data_ptr(), zi.data_ptr(), flr.data_ptr(), fli.data_ptr(), b, n,
         m, *consts, *grids, scr_r.data_ptr(),
-        scr_i.data_ptr(), y.data_ptr(), n1, ho, _build.stream_handle(dev))
+        scr_i.data_ptr(), y.data_ptr(), n1, ho, tr, ti,
+        _build.stream_handle(dev))
     _build.check(err, "fused_filter_demod_filter")
     return y, dout, flr, fli
 

@@ -7,8 +7,9 @@ and index arithmetic of ``csrc/overlap_save.cu`` (``column_fft``,
 ``row_fft``, ``row_ifft`` and the three launches), in complex64, fed the
 same float32 tables, and are held against ``np.fft`` and against the
 wrappers' plain ``torch.fft`` versions, at the row length n2 and the
-strip width each plan takes (:func:`kernel_factors`, :func:`strip_cols`).
-Nothing here needs a GPU.
+strip width each plan takes (:func:`kernel_factors`, :func:`strip_cols`),
+and, past a one-column strip, through the passes of the device-memory
+column route (``column_passes``).  Nothing here needs a GPU.
 """
 
 import numpy as np
@@ -26,6 +27,11 @@ GEOMETRIES = (16, 64, 120, 77, 761, 768)   # F/G, E, A/C, 7*11, prime, max
 # and with a 6144-tap response there.
 WIDE = ((1000, 1000), (1001, 1001), (65536, 65536), (98304, 98304),
         (6144, 98304))
+# (m, n) whose column passes a one-column strip (n1 > 9685): Filter at
+# chunk 10001 (20002 = 10001 x 2, two generic passes of 73 and 137), a
+# prime N = 19373 (one 19373-point generic pass), N = 38746 = 19373 x 2,
+# and chunk 10003 (20006 = 2 x 7 x 1429: a generic pass of 7).
+PAST_STRIP = ((10001, 10001), (9686, 9687), (19373, 19373), (10003, 10003))
 
 
 def _roots(n, inverse=False):
@@ -121,13 +127,68 @@ def row_ifft(v):
     return np.moveaxis(v, 0, -2).reshape(*v.shape[1:-1], n2)
 
 
+def device_column_passes(x, inverse=False):
+    """``column_passes``: the passes of :func:`column_fft` over every
+    column of a grid x [n1, n2] at once, one launch per pass; each block of
+    up to 256 outputs r of a pass computed as its threads do, one output
+    per thread and column."""
+    n1, n2 = x.shape
+    w = _roots(n1, inverse)
+    x = x.astype(np.complex64)
+    n, s = n1, 1
+    for p in tfl.fft_radices(n1):
+        m = n // p
+        # The launch's threads a grid row: one a butterfly of a specialised
+        # radix (P outputs each), one an output of a generic prime.
+        special = p in (2, 3, 4, 5, 8)
+        threads = (m * s if special else n1) * n2
+        assert threads * (p if special else 1) == n1 * n2
+        j = np.arange(p)
+        k = np.arange(s)[None, :, None]
+        q = np.arange(m)[None, None, :]
+        a = x[k + s * (q + m * j[:, None, None])]            # [p, s, m, cols]
+        y = np.empty_like(x)
+        for r0 in range(0, p, 256):
+            r = np.arange(r0, min(p, r0 + 256))
+            dft = w[(np.outer(r, j) % p) * (n1 // p)]        # [r, j]
+            b = np.tensordot(dft, a, axes=(1, 0)).astype(np.complex64)
+            rr = r[:, None, None]
+            y[k + s * (p * q + rr)] = b * w[q * rr * (n1 // n)][..., None]
+        x, n, s = y, m, s * p
+    return x
+
+
+def device_pass_buffers(npass, inverse):
+    """(read, written) buffers of each pass of ``column_passes`` as
+    ``run_stages`` hands it them: the forward passes from the input through
+    the column scratch ("tmp") and the forward scratch ("fwd"), the last
+    writing "fwd" (twiddled); the inverse ones from the band scratch
+    ("bands") through "tmp" and "bands", the last writing "out"."""
+    if inverse:
+        src, last = "bands", "out"
+        near, far = (("tmp", "bands") if (npass - 1) % 2
+                     else ("bands", "tmp"))
+    else:
+        src, last, near, far = "input", "fwd", "tmp", "fwd"
+    out = []
+    for ps in range(npass):
+        dst = last if ps == npass - 1 else near if (npass - 1 - ps) % 2 \
+            else far
+        out.append((src, dst))
+        src = dst
+    return out
+
+
 def column_strips(z, inverse=False):
-    """Launches 1 and 3's column FFT of one stream's grid z [n1, n2]: strip
-    by strip of ``strip_cols(n1, n2)`` columns (block x of the launch's
-    grid), as the kernel stages them."""
+    """Launches 1 and 3's column FFT of one stream's grid z [n1, n2], by
+    the route ``run_stages`` takes: strip by strip of ``strip_cols(n1,
+    n2)`` columns (block x of the launch's grid), as the kernel stages
+    them, or, past a one-column strip, in device memory."""
     n1, n2 = z.shape
     cols = tfl.strip_cols(n1, n2)
-    assert cols and n2 % cols == 0
+    if not cols:
+        return device_column_passes(z, inverse)
+    assert n2 % cols == 0
     return np.concatenate([column_fft(z[:, c0:c0 + cols], inverse)
                            for c0 in range(0, n2, cols)], axis=1)
 
@@ -312,10 +373,54 @@ def test_plan_and_strips(m, n, plan, cols):
 
 @pytest.mark.parametrize("m, n", [(10001, 10001), (9686, 9687), (1, 19373)])
 def test_columns_past_one_column_strip_are_refused(m, n):
-    """The one limit left: a column longer than a one-column strip holds
-    (odd N past 9685, N = 2 x odd past 19370)."""
-    assert tfl.kernel_factors(m + n) is None
-    assert not tfl.supported(n, m) and not tfl.bank_supported(n, 2, m)
+    """Columns longer than a one-column strip holds (odd N past 9685,
+    N = 2 x odd past 19370) were refused before the device-memory route:
+    now they get a plan with no strip, and both kernels take them."""
+    n1, n2 = tfl.kernel_factors(m + n)
+    assert n1 * n2 == m + n and n1 > 9685 and tfl.strip_cols(n1, n2) == 0
+    assert tfl.supported(n, m) and tfl.bank_supported(n, 2, m, 64)
+
+
+@pytest.mark.parametrize("m, n, K", [(*g, 1) for g in PAST_STRIP]
+                         + [(10001, 10001, 3)])
+def test_device_column_route_matches_numpy_fft(m, n, K):
+    """The launches with the device-memory column route, against an np.fft
+    overlap-save step in float64 (and the plain version, at N = 20002)."""
+    n1, n2 = tfl.kernel_factors(m + n)
+    assert tfl.strip_cols(n1, n2) == 0
+    rng = np.random.default_rng(m + n + K)
+    X = 1
+
+    def c64(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    prev, cur = c64(X, m), c64(X, n)
+    resp = c64(K, m + n)
+    grid = tfl.response_grid(torch.from_numpy(resp))
+    got = four_step(prev, cur, grid.numpy())
+    z = np.concatenate([prev, cur], axis=1).astype(np.complex128)
+    want = np.fft.ifft(np.fft.fft(z)[:, None] * resp[None].astype(
+        np.complex128))[..., :n]
+    assert _rel(got, want) <= PLAIN_REL
+    if m + n == 20002:
+        planes = [torch.from_numpy(np.ascontiguousarray(p)) for p in
+                  (prev.real, prev.imag, cur.real, cur.imag)]
+        yr, yi = tfl.fused_filter_bank_plain(*planes, grid.real, grid.imag)
+        assert _rel((yr + 1j * yi).numpy(), want) <= PLAIN_REL
+
+
+@pytest.mark.parametrize("npass", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_device_route_passes_never_run_in_place(npass, inverse):
+    """Each pass reads one buffer and writes another; the first inverse
+    pass leaves the band scratch it reads whole until it is done."""
+    passes = device_pass_buffers(npass, inverse)
+    assert passes[0][0] == ("bands" if inverse else "input")
+    assert passes[-1][1] == ("out" if inverse else "fwd")
+    assert all(src != dst for src, dst in passes)
+    if inverse and npass > 1:
+        assert passes[0][1] == "tmp"
 
 
 @pytest.mark.parametrize("n1", [125, 408, 512, 816, 1001, 1536, 9685])
