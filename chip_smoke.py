@@ -22,8 +22,14 @@
    signatures, the block's step (complex64 in place, a reset and a
    stream without a previous output) and the float planes; #8 bit for
    bit, both forms, on paths E audio's and E rf's keyer envelopes chunk
-   after chunk and on random input clamped at every sample; #9, which no
-   block calls, at path F's AGC shape).  Each check
+   after chunk and on random input clamped at every sample; #9 through
+   both signatures, ``agc_step`` as ``AgcControl`` calls it against the
+   associative scan and the float planes against the per-sample loop,
+   then each signature against both plain versions at path F's AGC
+   shape, where the gain clamps, on NaN-bearing rows (NaN where the plain
+   version has it), at 3 x 4097 and at T = 1, under sustained overdrive
+   finite and clamped, and its lane counts swept at F's shape).  Each
+   check
    prints the call's bound: the larger of
    its bytes (each input read once, each output written once) over 3.35
    TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM data
@@ -56,10 +62,12 @@
       magnitude and demodulates to 700 Hz;
    F. ``am_receiver(tune_shift=-30e3, agc=True)`` at ``StreamSig(64,
       8192, 256000)``: AM stations with a 6 dB fade halfway; each peaks
-      at its tone and the AGC holds the level within 15%;
+      at its tone and the AGC (#9, once a step) holds the level within
+      15%;
    G. ``isb_receiver(tune_shift=-30e3, agc=True)`` at ``{"iq":
       StreamSig(64, 8192, 256000)}``: a tone on each sideband; each
-      output peaks at its own tone, the other below 0.02 of it;
+      output peaks at its own tone, the other below 0.02 of it (#9 twice
+      a step);
    H. ``wfm_receiver()`` at ``StreamSig(8, 262144, 1.024e6)``, 4 chunks:
       FM tones; its two Filters on #3 at 768 x 256 points;
    I. ``Downsampler(44100, 20000)`` and ``GainControl`` at
@@ -69,9 +77,9 @@
    repetitions, or one run of a 16-chunk sequence; every kernel also as
    a CUDA graph replay, one call and ten calls a replay, its device time
    without the wrapper's host work, beside the replay floor of one fill
-   kernel), and ``AgcControl``'s associative scan beside #9 at path
-   F's shape; ``--profile`` adds each path's device time by kernel
-   (torch.profiler).
+   kernel), and ``AgcControl`` as routed (#9) beside its plain version,
+   the associative scan, with the scan's launches, at path F's shape;
+   ``--profile`` adds each path's device time by kernel (torch.profiler).
 
 ``--clocks`` runs only #8's cycle split instead, from a development build
 of the kernels (``-DRR_SCAN_CLOCKS``): the serial tiled walk the segments
@@ -137,6 +145,7 @@ WIDE_CHUNK = 262144   # wfm_receiver() on long chunks: mid chunk 98304
 WIDE_BATCH, WIDE_T = 8, 4
 RESAMPLE_RATE, RESAMPLE_CHUNK = 48000.0, 1600   # 48 kHz -> 44.1 kHz
 AGC_ATOL, GAIN_ATOL = 2e-4, 2e-3   # #9 outputs and carried gain, the same
+CLAMP_ATOL = 3e-4     # #9 outputs where the gain clamps (the JAX package's)
 UNIT_ATOL = 1e-5      # morse RF: | |y| - 1 |
 KEYING_RATIO = 10.0   # morse audio: key-down level over key-up level
 FADE_REL = 0.15       # AM with AGC: RMS after a 6 dB fade vs before
@@ -187,6 +196,17 @@ def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
         for _ in range(calls):
             fn()
     return cuda_ms(graph.replay, reps=reps) / calls
+
+
+def device_launches(fn) -> int:
+    """Kernels and copies ``fn`` issues on the device (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def compare(got, want):
@@ -903,25 +923,198 @@ def main() -> None:
           SLEW_FLOPS * 8 * t_odd, record=False, of="slew_scan",
           absolute=True, plain_timing=(0, 1), graphed=True)
 
-    # #9 at path F's AGC shape, in the loop's contracting regime (rate *
-    # |x| well below 2), as the JAX package's kernel test feeds it.  The
-    # knobs are device scalars, as a block's params are: Python floats
-    # would time a host-to-device copy per call.
+    def agc_gain_check(label, kernel, plain, args, bound_):
+        """#9's carried gain (the last result) against the plain one."""
+        err = float((kernel(*args)[-1] - plain(*args)[-1]).abs().max())
+        print(f"{label} carried gain: max|diff|={err:.3e} (bound "
+              f"{bound_:g})")
+        if not err <= bound_:
+            raise AssertionError(f"{label}: carried gain disagrees")
+
+    def nan_both(p):
+        """Planes [yr, yi, g] with NaN in both planes of y wherever either
+        has it, as the complex signature's x * g gives it (a NaN in one
+        plane of x makes both of y NaN there; the plane signature's g x
+        per plane, only that plane)."""
+        m = torch.isnan(p[0]) | torch.isnan(p[1])
+        return [torch.where(m, float("nan"), p[0]),
+                torch.where(m, float("nan"), p[1]), p[2]]
+
+    def agc_compare(got_p, want_p):
+        """(NaN masks equal in every plane, max|diff| of y and of the gain
+        off the reference's NaN, NaN plane samples of the reference's y)."""
+        masks = all(torch.equal(torch.isnan(u), torch.isnan(w))
+                    for u, w in zip(got_p, want_p))
+        diffs = [float((u - w)[~torch.isnan(w)].abs().max())
+                 if bool((~torch.isnan(w)).any()) else 0.0
+                 for u, w in zip(got_p, want_p)]
+        nans = sum(int(torch.isnan(w).sum()) for w in want_p[:2])
+        return masks, max(diffs[:2]), diffs[2], nans
+
+    def agc_case(label, x, knobs, atol, kind):
+        """#9 through both signatures on complex64 rows ``x`` from a unit
+        gain, each against both plain versions: ``agc_step_plain`` (the
+        associative scan) and ``agc_scan_plain`` (the loop).  Across
+        signatures the NaN masks are compared as ``nan_both`` gives them.
+        ``kind`` "close": y within ``atol``, the gain within GAIN_ATOL;
+        "nan": NaN in each plane of y and in the gain exactly where the
+        plain version has it, the rest as "close"; "overdrive" (chaotic,
+        where the two plain versions part): finite, the gain in
+        [0, max_gain], |y| <= max_gain |x|, with no error to record; the
+        row records how far past those bounds the output came
+        (``clamp_excess``, <= 0 when clamped).  Each signature timed as
+        graph replays of 1 and 10 calls, listed under #9's entry."""
+        b, n = x.shape
+        g0 = torch.ones(b, device=dev)
+        entry = next(k for k in kernels if k["name"] == "agc_scan")
+        step_p = lambda r: [r[0].real, r[0].imag, r[1]]
+        refs = {"agc_step_plain": step_p(osc.agc_step_plain(x, g0, *knobs)),
+                "agc_scan_plain": list(osc.agc_scan_plain(*planes(x), g0,
+                                                          *knobs))}
+        for sig, kernel, plain, args, to_p in (
+                ("agc_step", osc.agc_step, osc.agc_step_plain,
+                 (x, g0, *knobs), step_p),
+                ("agc_scan", osc.agc_scan, osc.agc_scan_plain,
+                 (*planes(x), g0, *knobs), list)):
+            res = kernel(*args)
+            got_p = to_p(res)
+            torch.cuda.synchronize()
+            excess = None
+            if kind == "overdrive":
+                y_abs = torch.abs(torch.complex(got_p[0], got_p[1]))
+                g = got_p[2]
+                excess = max(float((y_abs - knobs[2] * x.abs()).max()),
+                             float((-g).max()), float((g - knobs[2]).max()))
+                ok = (all(bool(torch.isfinite(t).all()) for t in got_p)
+                      and bool(((g >= 0) & (g <= knobs[2])).all())
+                      and bool((y_abs <= knobs[2] * x.abs()
+                                * (1 + 1e-6)).all()))
+                err = None
+                verdict = (("finite and clamped" if ok else "NOT clamped")
+                           + f", clamp excess {excess:.3e}")
+            else:
+                ok, err, parts = True, 0.0, []
+                for pname, want_p in refs.items():
+                    same = (sig == "agc_step") == (pname == "agc_step_plain")
+                    masks, e, gain_err, nans = agc_compare(
+                        got_p if same else nan_both(got_p),
+                        want_p if same else nan_both(want_p))
+                    ok = (ok and masks and e <= atol and gain_err <= GAIN_ATOL
+                          and (kind != "nan" or nans > 0))
+                    err = max(err, e)
+                    parts.append(
+                        f"vs {pname}: max|diff|={e:.3e} (bound {atol:g}), "
+                        f"gain {gain_err:.3e} (bound {GAIN_ATOL:g})"
+                        + (f", NaN in the same {nans} plane samples"
+                           if kind == "nan" else "")
+                        + ("" if masks else ", NaN MASKS DIFFER"))
+                verdict = "; ".join(parts)
+            ms = cuda_ms(lambda: kernel(*args))
+            plain_ms = cuda_ms(lambda: plain(*args), reps=1, warmup=0)
+            device_ms = graph_ms(lambda: kernel(*args))
+            device10_ms = graph_ms(lambda: kernel(*args), calls=10)
+            bound_ms, bound_by = bound_of(io_bytes(args, res),
+                                          AGC_FLOPS * b * n)
+            name = f"{sig} {label} ({b} x {n})"
+            print(f"{name}: {verdict}; kernel {ms * 1e3:.1f} us (device "
+                  f"{device_ms * 1e3:.1f} us in a CUDA graph, "
+                  f"{device10_ms * 1e3:.1f} us a call in a graph of 10), "
+                  f"plain {plain_ms * 1e3:.1f} us per call; least time "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}) {tag}")
+            if not ok:
+                raise AssertionError(f"{name}: kernel disagrees with its "
+                                     f"plain version")
+            entry["geometries"].append(dict(
+                geometry=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                device_ms=device_ms, device10_ms=device10_ms,
+                library_rel=None, clamp_excess=excess))
+
+    # #9 as AgcControl calls it (agc_step: complex64 rows in place, the
+    # block's params as the knobs) at path F's AGC shape, in the loop's
+    # contracting regime (rate * |x| well below 2), against its plain
+    # version, the associative scan; then the float-plane signature (the
+    # JAX kernel's) against the per-sample loop, as the JAX package's
+    # kernel test feeds it.  The knobs are device scalars, as a block's
+    # params are: Python floats would time a host-to-device copy per call.
     n_aud = bound_f.out_sig.chunk_len
+    agc_knobs = tuple(torch.tensor(v, device=dev)
+                      for v in (5e-3, 1.0, 100.0))
+    f_knobs = tuple(torch.tensor(bound_f.blocks[-1].params[k], device=dev)
+                    for k in ("rate", "reference", "max_gain"))
+    agc_step_args = (cplx(BATCH, n_aud) * 0.2, torch.ones(BATCH, device=dev),
+                     *f_knobs)
+    check("agc_scan", scan_src, "radiorust_tpu/ops/pallas_scan.py:216",
+          AGC_ATOL, osc.agc_step, osc.agc_step_plain, agc_step_args,
+          AGC_FLOPS * BATCH * n_aud, outputs=lambda r: r[:1], absolute=True,
+          graphed=True)
+    agc_gain_check("agc_step", osc.agc_step, osc.agc_step_plain,
+                   agc_step_args, GAIN_ATOL)
     agc_args = (0.2 * randn(BATCH, n_aud), 0.2 * randn(BATCH, n_aud),
-                torch.ones(BATCH, device=dev),
-                *(torch.tensor(v, device=dev) for v in (5e-3, 1.0, 100.0)))
-    check("agc_scan", "radiorust_tpu_torch/csrc/scan.cu",
-          "radiorust_tpu/ops/pallas_scan.py:216", AGC_ATOL,
-          osc.agc_scan, osc.agc_scan_plain, agc_args,
+                torch.ones(BATCH, device=dev), *agc_knobs)
+    check("agc_scan, float planes (the JAX signature), at F's shape", "",
+          "", AGC_ATOL, osc.agc_scan, osc.agc_scan_plain, agc_args,
           AGC_FLOPS * BATCH * n_aud, outputs=lambda r: r[:2], absolute=True,
-          plain_timing=(1, 3), graphed=True)
-    gain_err = float((osc.agc_scan(*agc_args)[2]
-                      - osc.agc_scan_plain(*agc_args)[2]).abs().max())
-    print(f"agc_scan carried gain: max|diff|={gain_err:.3e} "
-          f"(bound {GAIN_ATOL:g})")
-    if not gain_err <= GAIN_ATOL:
-        raise AssertionError("agc_scan: carried gain disagrees")
+          plain_timing=(1, 3), record=False, of="agc_scan", graphed=True)
+    agc_gain_check("agc_scan", osc.agc_scan, osc.agc_scan_plain, agc_args,
+                   GAIN_ATOL)
+    agc_case("at F's shape and knobs", agc_step_args[0], f_knobs, AGC_ATOL,
+             "close")
+
+    # #9 past the contracting regime and at other shapes, through both
+    # signatures, each against both plain versions: where the gain clamps at 0 and at max_gain (bursts at
+    # rate * |x| ~ 1), under sustained overdrive (rate * |x| = 5: chaotic,
+    # so only finite and clamped), on rows with NaN samples, at a ragged
+    # 3 x 4097 (two tiles of a row) and at T = 1.
+    t_idx = torch.arange(n_aud, device=dev)
+    burst = torch.where((t_idx // 40) % 2 == 0, 0.02, 3.0)
+    nan_x = 0.2 * cplx(BATCH, n_aud)
+    nan_x.real[0, 250] = float("nan")
+    nan_x.imag[1, 37] = float("nan")
+    nan_x[BATCH - 1, 1000:] = complex(float("nan"), float("nan"))
+    phase_ = 0.3 * torch.arange(BATCH * n_aud, device=dev,
+                                dtype=torch.float32).reshape(BATCH, n_aud)
+    for label, x, knobs, atol, kind in (
+            ("where the gain clamps", burst * cplx(BATCH, n_aud),
+             (0.3, 1.0, 2.5), CLAMP_ATOL, "close"),
+            ("under sustained overdrive (rate |x| = 5)",
+             10.0 * torch.polar(torch.ones_like(phase_), phase_),
+             (0.5, 1.0, 4.0), None, "overdrive"),
+            ("on rows with NaN samples", nan_x, (5e-3, 1.0, 100.0), AGC_ATOL,
+             "nan"),
+            ("at 3 x 4097", 0.2 * cplx(3, 4097), (5e-3, 1.0, 100.0),
+             AGC_ATOL, "close"),
+            (f"at {BATCH} x 1", 0.2 * cplx(BATCH, 1), (5e-3, 1.0, 100.0),
+             AGC_ATOL, "close")):
+        agc_case(label, x.contiguous(),
+                 tuple(torch.tensor(v, device=dev) for v in knobs), atol,
+                 kind)
+
+    # The lane count at F's shape (one block per stream, L samples a lane;
+    # 32 lanes is one warp per stream): the C entry point at each, held
+    # against the wrapper's output.  The wrappers take 256 lanes, the
+    # fastest of this sweep; it runs on to check the other lane counts on
+    # the card and to show the choice still holds.
+    x_sw, g_sw = agc_step_args[:2]
+    y_ref, gain_ref = osc.agc_step(*agc_step_args)
+    for lanes_ in (32, 64, 128, 256):
+        lanes_, seg_ = osc.agc_geometry(n_aud, lanes_)
+        y_sw = torch.empty_like(x_sw)
+        gain_sw = torch.empty_like(g_sw)
+        launch = lambda: _build.check(_build.lib().rr_agc_step(
+            x_sw.data_ptr(), g_sw.data_ptr(),
+            *(k.data_ptr() for k in f_knobs), y_sw.data_ptr(),
+            gain_sw.data_ptr(), BATCH, n_aud, lanes_, seg_,
+            _build.stream_handle(dev)), "rr_agc_step")
+        launch()
+        err_sw, _ = compare([y_sw, gain_sw], [y_ref, gain_ref])
+        print(f"agc_step sweep at {BATCH} x {n_aud}: {lanes_} lanes of "
+              f"{seg_} samples: {graph_ms(launch) * 1e3:.1f} us a replay, "
+              f"{graph_ms(launch, calls=10) * 1e3:.1f} us a call at 10 a "
+              f"replay; max|diff| to {osc.agc_geometry(n_aud)[0]} lanes "
+              f"{err_sw:.3e} {tag}")
+        if not err_sw <= AGC_ATOL:
+            raise AssertionError(f"agc_step at {lanes_} lanes disagrees")
 
     # #3 and #4 at the geometries of paths E-G.
     filt_e = bound_e.blocks[1]
@@ -1295,7 +1488,10 @@ def main() -> None:
     state0 = tree_to_torch(bound_f.init_state(), dev)
     (_, ys), launches_f = drive(
         "F", lambda: scan(bound_f, params, state0, xs),
-        [ofe.decimate, ofl.fused_overlap_save])
+        [ofe.decimate, ofl.fused_overlap_save, osc.agc_scan])
+    if launches_f["agc_scan"] != T:
+        raise AssertionError(f"path F launched agc_scan "
+                             f"{launches_f['agc_scan']} times in {T} steps")
     assert ys.shape == (T, BATCH, n_aud), ys.shape
     finite("F", [ys])
     v = bound_f.valid_from
@@ -1322,29 +1518,32 @@ def main() -> None:
     vs_cpu("F", ys.cpu().numpy()[v:v + 4, :2], ys_cpu.numpy()[v:],
            CPU_ATOL)
     timed("F", lambda: scan(bound_f, params, state0, xs), BATCH * AN_CHUNK)
-    # AgcControl's log-depth associative scan beside the sequential AGC
-    # kernel (#9) at the block's shape and knobs.  The route stays the
-    # associative scan, as in the JAX package.
+    # AgcControl as routed (one launch of #9) against its plain version,
+    # the associative scan, on the same CUDA tensors at the block's shape
+    # and knobs.
     agc, p_agc = bound_f.blocks[-1], params[-1]
     x_agc = torch.complex(randn(BATCH, n_aud), torch.zeros(BATCH, n_aud,
                                                           device=dev))
     g0 = torch.ones(BATCH, device=dev)
     no_reset = torch.zeros(BATCH, dtype=torch.bool, device=dev)
-    seq_args = (*planes(x_agc), g0, p_agc["rate"], p_agc["reference"],
-                p_agc["max_gain"])
-    st_scan, y_scan = agc.process(p_agc, {"gain": g0}, x_agc, no_reset)
-    y_seq_r, y_seq_i, g_seq = osc.agc_scan(*seq_args)
-    ab_err = float((torch.view_as_real(y_scan)
-                    - torch.stack([y_seq_r, y_seq_i], -1)).abs().max())
-    scan_ms = cuda_ms(lambda: agc.process(p_agc, {"gain": g0}, x_agc,
-                                          no_reset))
-    seq_ms = cuda_ms(lambda: osc.agc_scan(*seq_args))
-    print(f"path F AGC at {BATCH} x {n_aud}: AgcControl.process "
-          f"(associative scan) {scan_ms * 1e3:.1f} us, agc_scan kernel (#9) "
-          f"{seq_ms * 1e3:.1f} us per call; outputs max|diff|={ab_err:.3e} "
-          f"(bound {AGC_ATOL:g}) {tag}")
-    if not ab_err <= AGC_ATOL:
-        raise AssertionError("path F: AgcControl and agc_scan disagree")
+    knobs_f = (p_agc["rate"], p_agc["reference"], p_agc["max_gain"])
+    st_blk, y_blk = agc.process(p_agc, {"gain": g0}, x_agc, no_reset)
+    y_scan, g_scan = osc.agc_step_plain(x_agc, g0, *knobs_f)
+    ab_err, _ = compare([y_blk], [y_scan])
+    ab_gain, _ = compare([st_blk["gain"]], [g_scan])
+    block_ms = cuda_ms(lambda: agc.process(p_agc, {"gain": g0}, x_agc,
+                                           no_reset))
+    scan_ms = cuda_ms(lambda: osc.agc_step_plain(x_agc, g0, *knobs_f))
+    scan_launches = device_launches(
+        lambda: osc.agc_step_plain(x_agc, g0, *knobs_f))
+    print(f"path F AGC at {BATCH} x {n_aud}: AgcControl.process (#9) "
+          f"{block_ms * 1e3:.1f} us, associative scan {scan_ms * 1e3:.1f} us "
+          f"({scan_launches} launches) per call; outputs max|diff|="
+          f"{ab_err:.3e} (bound {AGC_ATOL:g}), gain {ab_gain:.3e} (bound "
+          f"{GAIN_ATOL:g}) {tag}")
+    if not (ab_err <= AGC_ATOL and ab_gain <= GAIN_ATOL):
+        raise AssertionError("path F: AgcControl disagrees with the "
+                             "associative scan")
     t0 = phase("path F", t0)
 
     # Path G: the ISB receiver graph.
@@ -1354,7 +1553,10 @@ def main() -> None:
     state0 = tree_to_torch(bound_g.init_state(), dev)
     (_, ys), launches_g = drive(
         "G", lambda: graph_scan(bound_g, params, state0, xs),
-        [ofe.decimate, ofl.fused_filter_bank])
+        [ofe.decimate, ofl.fused_filter_bank, osc.agc_scan])
+    if launches_g["agc_scan"] != 2 * T:
+        raise AssertionError(f"path G launched agc_scan "
+                             f"{launches_g['agc_scan']} times in {T} steps")
     finite("G", ys.values())
     v = max(bound_g.valid_from.values())
     upper, lower = isb_tones(BATCH)
@@ -1438,8 +1640,6 @@ def main() -> None:
     t0 = phase("path I", t0)
 
     # Each kernel's launches are those of the path it was checked at.
-    # agc_scan has no block path (AgcControl runs the associative scan):
-    # its count on path F, where it was held, is 0.
     path_of = {"decimate": launches_a, "fused_mix_decimate": launches_a,
                "fused_overlap_save": launches_a,
                "fused_demod_filter": launches_a,
@@ -1450,7 +1650,8 @@ def main() -> None:
                "agc_scan": launches_f}
     print(f"launches on paths E rf {launches_erf['slew_scan']} (slew_scan), "
           f"F {launches_f['decimate']} (decimate), G "
-          f"{launches_g['fused_filter_bank']} (fused_filter_bank), H "
+          f"{launches_g['fused_filter_bank']} (fused_filter_bank), "
+          f"{launches_g['agc_scan']} (agc_scan), H "
           f"{launches_h['fused_overlap_save']} (fused_overlap_save), "
           f"{launches_h['decimate']} (decimate), I "
           f"{launches_i['decimate']} (decimate)")

@@ -2,9 +2,11 @@
 (PyTorch port of the JAX package's ``blocks/transform.py``; the mixer
 tables are designed on the host in float64 exactly as there).  The
 functions of :class:`MapSample` and :class:`Combine` take and return torch
-tensors.  :class:`Squelch` and :class:`AgcControl` run their per-sample
-recurrences as exact log-depth associative scans
-(``ops/assoc_scan.py``), as the JAX package does."""
+tensors.  :class:`Squelch` runs its per-sample recurrence as an exact
+log-depth associative scan (``ops/assoc_scan.py``), as the JAX package
+does.  :class:`AgcControl` calls ``ops.scan.agc_step``: on CPU tensors
+the same associative scan as the JAX package's block, on CUDA tensors
+one launch of the AGC kernel (``csrc/scan.cu``)."""
 
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from .. import numbers as _nums
 from ..math import round_half_away
 from ..numbers import TAU
 from ..ops.assoc_scan import associative_scan
+from ..ops import scan as _oscan
 from .base import Block, BoundBlock, StreamSig
 
 __all__ = ["GainControl", "AgcControl", "Squelch", "MapSample", "Nop",
@@ -100,42 +103,6 @@ class Squelch(Block):
         return _BoundSquelch(sig, self.threshold, self.alpha)
 
 
-# Slope and offset cap of the composed clamped-affine maps: under
-# sustained overdrive the slope products grow exponentially and would
-# overflow float32 to inf, then compose to NaN.  At |a| = 1e18 the
-# unclamped interval of initial gains is narrower than max_gain / 1e18,
-# far below float32 resolution of [0, max_gain], so the cap is exact for
-# every representable gain while 1e18^2 stays finite.
-_AGC_CAP = 1e18
-
-
-def _agc_elems(params, x):
-    """Per-sample clamped-affine maps of the AGC loop: sample n sends the
-    loop gain through ``g -> clip(a g + b, lo, hi)`` with
-    ``a = 1 - rate |x[n]|``, ``b = rate reference``."""
-    absx = torch.abs(x)
-    a = torch.clamp(1.0 - params["rate"] * absx, -_AGC_CAP, _AGC_CAP)
-    b = (params["rate"] * params["reference"]).expand(a.shape)
-    lo = torch.zeros_like(a)
-    hi = params["max_gain"].expand(a.shape)
-    return a, b, lo, hi
-
-
-def _agc_compose(e1, e2):
-    """``(f2 . f1)(g)`` of clamped-affine maps ``f(g) = clip(a g + b, lo,
-    hi)``, ``e1`` the earlier.  The family is closed under composition for
-    either slope sign, so the element stays four numbers and the scan is
-    exact; slope and offset saturate at ``_AGC_CAP``."""
-    a1, b1, l1, h1 = e1
-    a2, b2, l2, h2 = e2
-    a = torch.clamp(a1 * a2, -_AGC_CAP, _AGC_CAP)
-    b = torch.clamp(a2 * b1 + b2, -_AGC_CAP, _AGC_CAP)
-    inner_lo = torch.minimum(a2 * l1, a2 * h1) + b2
-    inner_hi = torch.maximum(a2 * l1, a2 * h1) + b2
-    return (a, b, torch.clamp(inner_lo, l2, h2),
-            torch.clamp(inner_hi, l2, h2))
-
-
 class _BoundAgc(BoundBlock):
     @property
     def output_is_real(self):
@@ -155,16 +122,12 @@ class _BoundAgc(BoundBlock):
         # y[n] = g[n] x[n];  g[n+1] = clip(g[n] + rate (ref - |y[n]|)).
         # With g >= 0, |y| = |x| g, so the update is the clamped-affine map
         # g' = clip(a g + b) with a = 1 - rate |x|, b = rate ref; such maps
-        # compose, so the loop is one log-depth scan.  The gain is a
-        # tuning state and carries across stream breaks: ``reset`` is
-        # unused.
-        pa, pb, plo, phi = associative_scan(_agc_compose,
-                                            _agc_elems(params, x))
-        g0 = state["gain"]
-        g_inc = torch.clamp(pa * g0[:, None] + pb, plo, phi)
-        # y[n] uses the gain before sample n's update (exclusive form).
-        g_exc = torch.cat([g0[:, None], g_inc[:, :-1]], dim=-1)
-        return {"gain": g_inc[:, -1]}, x * g_exc
+        # compose (``ops/scan.py::agc_step``).  The gain is a tuning state
+        # and carries across stream breaks: ``reset`` is unused.
+        y, gain = _oscan.agc_step(x.contiguous(), state["gain"],
+                                  params["rate"], params["reference"],
+                                  params["max_gain"])
+        return {"gain": gain}, y
 
 
 class AgcControl(Block):
@@ -172,11 +135,16 @@ class AgcControl(Block):
     ``reference`` with loop gain ``rate`` per sample, the gain clamped to
     ``[0, max_gain]`` (``g += rate * (reference - |g*x|)``).
 
-    The loop contracts, and the scan matches the per-sample recurrence to
-    float32, while ``rate * |x| < 2``.  Under sustained overdrive beyond
-    that the recurrence is chaotic: outputs and state stay finite and
-    inside ``[0, max_gain]``, but are one valid shadowing of the chaos,
-    not bit-reproducible against a sequential evaluation.
+    On CPU tensors the loop runs as the JAX package's exact log-depth
+    scan of its clamped-affine maps; on CUDA tensors as one launch of the
+    AGC kernel, which composes the maps of each lane's segment, scans them
+    across the block and walks each segment with the loop's own step.
+    The loop contracts, and both routes match the per-sample recurrence
+    to float32, while ``rate * |x| < 2``.  Under sustained overdrive
+    beyond that the recurrence is chaotic: outputs and state stay finite
+    and inside ``[0, max_gain]``, but are one valid shadowing of the
+    chaos, not bit-reproducible against a sequential evaluation.  A NaN
+    sample makes the output and the gain NaN from that sample on.
     """
 
     def __init__(self, reference: float = 1.0, rate: float = 1e-3,

@@ -1,17 +1,20 @@
 // Per-sample feedback recurrences over [B, T] streams: the complex slew-rate
-// clamp and the sequential AGC loop.
+// clamp and the feedback AGC loop.
 //
 // Replaces two TPU kernels of radiorust_tpu/ops/pallas_scan.py:
 //   rr_slew_scan  <- slew_scan (:191; steps _slew_step :161 and
 //                    _slew_step_rsqrt :175, both run by _run_scan :115)
 //   rr_agc_scan   <- agc_scan  (:216; step _agc_step :203, also _run_scan)
+//   rr_agc_step      the same AGC kernel on complex64 rows, for the step
+//                    of AgcControl (radiorust_tpu/blocks/transform.py:218)
 //
 // What it computes, per stream s and sample t in order (carry c[s]):
 //   slew:  d = x - p;  p += d * min(1, md / |d|);  y = p;  carry p
 //          (rsqrt form: compare |d|^2 > md^2, scale = md * rsqrt(|d|^2))
 //   agc:   y = g x;  g = clip(g + rate (ref - |y|), 0, max_gain);  carry g
 // The slew recurrence has no associative form, so each stream is a serial
-// loop over time.
+// loop over time.  The AGC update is a clamped-affine map of g, and such
+// maps compose (below).
 //
 // What bounds it on an H100: latency, not bandwidth or arithmetic.  Each
 // sample is a chain of about a dozen dependent instructions (one MUFU
@@ -58,14 +61,52 @@
 // padding of B to 128, its [T, B] transpose and its 8x unroll are Mosaic
 // rules and are gone.
 //
-// AGC: one thread per stream, its carry in registers (walk_tiles).  A
-// block owns kRows = 32 streams.  Streams are rows of a row-major [B, T]
-// array, so a thread walking its own row would read at stride T; instead
-// the block's four warps stage a [kRows x kTile] time tile of both planes
-// into shared memory with coalesced row reads (rows padded to kTile + 1
-// floats, so the walking warp hits 32 distinct banks), warp 0 walks the
-// tile writing each output over its input, and all warps store the tile
-// back coalesced.
+// AGC: a block-parallel scan of the loop's clamped-affine maps
+// (agc_segments).  A call reads x and writes y, 16 bytes a sample: 1.05 MB
+// at path F's 64 x 1024, 0.31 us at 3.35 TB/s.  A serial walk instead
+// takes T dependent steps of ~40 cycles or more (two multiplies, a sqrt,
+// an update, a clamp): the design before this one, one thread a stream
+// and 32 streams a block, took 81.6 us a call there.  With g >= 0,
+// |y| = g |x|, so sample t sends the gain through
+//   f_t(g) = clip(a_t g + b, 0, max_gain),  a_t = 1 - rate |x_t|,
+//   b = rate ref,
+// and the composition of two such maps is one, (a, b, lo, hi): the JAX
+// package's _agc_compose (radiorust_tpu/blocks/transform.py:183), slope
+// and offset capped at +-1e18 so that sustained overdrive stays finite.
+// One block per stream; lane k owns the samples [k L, k L + L) of a tile:
+//   1. the block stages the tile into shared memory with coalesced 16-byte
+//      loads (two complex64 samples, or four of one plane, a load);
+//      segments sit L | 1 floats apart, an odd stride, so the lanes'
+//      reads of their own segments hit 32 distinct banks;
+//   2. fold: each lane composes its segment's maps into one;
+//   3. combine: an exclusive scan of the lanes' maps, five __shfl_up_sync
+//      rounds in a warp, then the warp totals through shared memory,
+//      applied in turn to the gain entering the tile;
+//   4. entry gain and walk: each lane applies its prefix to that gain and
+//      walks its L samples with the loop's own step, writing y over x in
+//      the shared copy; the lane owning the tile's last sample hands its
+//      gain on to the next tile, or out;
+//   5. y leaves in one coalesced copy.
+// The critical path is about 2 L steps, five shuffle rounds and a few
+// warp applies, not T steps.  The wrapper gives 256 lanes (whole warps,
+// fewer for a row of fewer samples): L = 4 at F's T = 1024, where 32, 64,
+// 128 and 256 lanes took 12.7, 7.8, 5.4 and 4.6 us a call (chip_smoke.py's
+// sweep, graph replays of 10 calls, H100 80GB HBM3).  A row longer than a
+// tile (kAgcTile samples) goes through tile after tile with the gain
+// carried.  Only the entry
+// gains come from composed maps; the walk is the loop's own arithmetic.
+// So in the loop's contracting regime (rate |x| < 2) y and g agree with
+// the serial loop to rounding, and under sustained overdrive, where the
+// loop is chaotic, they are one finite, clamped shadowing of it, as the
+// JAX package's AgcControl is.
+//
+// NaN: the walk clamps with comparisons (g < 0 -> 0, g > max_gain ->
+// max_gain), and the maps' min, max and clip keep NaN, as torch.clamp,
+// torch.minimum and jnp.clip do (fminf / fmaxf return the operand that is
+// not NaN, which would reset the gain): a NaN sample makes y and g NaN
+// from that sample on, as in the plain versions.  rr_agc_step writes y as
+// PyTorch's complex product x (g + 0i), so that a NaN or inf in one plane
+// reaches both as in AgcControl's x * g.
 //
 // Rounding: every step uses __fmul_rn / __fadd_rn / __fsub_rn, so nvcc
 // contracts nothing into an FMA and each operation rounds as the plain
@@ -80,59 +121,18 @@
 // registers, and of the segmented kernel (walks, passes).
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kRows = 32;      // streams per block: one warp walks them
-constexpr int kTile = 128;     // samples per staged time tile
-constexpr int kThreads = 128;  // four warps stage and store tiles
 constexpr int kMaxSegments = 256;    // slew segments of a stream (threads)
 constexpr size_t kMaxSlewSmem = 232448 - 2 * 4 * kMaxSegments;
                                      // a block's shared copy of its row
-
-// Run ``step`` over every sample of the block's rows, in time order, with
-// the output written in place of the input.  ``step(xr, xi)`` is called
-// by thread r < rows for row r only.
-template <class Step>
-__device__ __forceinline__ void walk_tiles(const float* __restrict__ xr,
-                                           const float* __restrict__ xi,
-                                           float* __restrict__ yr,
-                                           float* __restrict__ yi, int B,
-                                           int T, Step& step) {
-  __shared__ float sr[kRows][kTile + 1];
-  __shared__ float si[kRows][kTile + 1];
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, B - row0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int t0 = 0; t0 < T; t0 += kTile) {
-    const int tt = min(kTile, T - t0);
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      const size_t base = (size_t)(row0 + r) * T + t0;
-      for (int c = lane; c < tt; c += 32) {
-        sr[r][c] = xr[base + c];
-        si[r][c] = xi[base + c];
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < rows) {
-      float* pr = sr[threadIdx.x];
-      float* pi = si[threadIdx.x];
-      for (int c = 0; c < tt; ++c) step(pr[c], pi[c]);
-    }
-    __syncthreads();
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      const size_t base = (size_t)(row0 + r) * T + t0;
-      for (int c = lane; c < tt; c += 32) {
-        yr[base + c] = sr[r][c];
-        yi[base + c] = si[r][c];
-      }
-    }
-    __syncthreads();  // the next tile's loads overwrite sr / si
-  }
-}
+constexpr int kAgcMaxThreads = 256;  // AGC lanes (segments) of a block
+constexpr int kAgcTile = 4096;       // AGC samples of a row staged at once
+constexpr float kAgcCap = 1e18f;     // slope / offset cap: _AGC_CAP
 
 template <bool RSQRT>
 struct SlewStep {
@@ -152,20 +152,6 @@ struct SlewStep {
     pi = __fadd_rn(pi, __fmul_rn(di, scale));
     xr = pr;
     xi = pi;
-  }
-};
-
-struct AgcStep {
-  float rate, ref, max_gain, g;
-  __device__ __forceinline__ void operator()(float& xr, float& xi) {
-    const float yr = __fmul_rn(xr, g);
-    const float yi = __fmul_rn(xi, g);
-    const float env = __fsqrt_rn(__fadd_rn(__fmul_rn(yr, yr),
-                                           __fmul_rn(yi, yi)));
-    g = __fadd_rn(g, __fmul_rn(rate, __fsub_rn(ref, env)));
-    g = fminf(fmaxf(g, 0.f), max_gain);
-    xr = yr;
-    xi = yi;
   }
 };
 
@@ -394,6 +380,10 @@ int launch_slew(const float* xr, const float* xi, const float* prev_r,
 }
 
 #ifdef RR_SCAN_CLOCKS
+constexpr int kRows = 32;      // streams per block: one warp walks them
+constexpr int kTile = 128;     // samples per staged time tile
+constexpr int kThreads = 128;  // four warps stage and store tiles
+
 // The serial tiled walk that slew_segments replaced (one thread per
 // stream, kRows streams a block, four warps staging kTile-sample tiles
 // through shared memory, warp 0 walking), with clock64() stamps by thread
@@ -478,17 +468,236 @@ __global__ void slew_chain_clocks(const float* __restrict__ md, int T,
 }
 #endif
 
-// sc: rate, reference, max_gain as three floats on the device.
-__global__ void __launch_bounds__(kThreads) agc_kernel(
+// A clamped-affine map of the AGC loop gain: g -> clip(a g + b, lo, hi).
+struct Clamped {
+  float a, b, lo, hi;
+};
+
+// min, max and clip that keep NaN, as torch.minimum, torch.maximum and
+// torch.clamp do.
+__device__ __forceinline__ float nan_min(float p, float q) {
+  return (p < q || isnan(p)) ? p : q;
+}
+
+__device__ __forceinline__ float nan_max(float p, float q) {
+  return (p > q || isnan(p)) ? p : q;
+}
+
+__device__ __forceinline__ float nan_clip(float v, float lo, float hi) {
+  return nan_min(nan_max(v, lo), hi);
+}
+
+// (f2 . f1), f1 the earlier map: the JAX package's _agc_compose, term for
+// term.
+__device__ __forceinline__ Clamped compose(const Clamped& f1,
+                                           const Clamped& f2) {
+  const float p = __fmul_rn(f2.a, f1.lo), q = __fmul_rn(f2.a, f1.hi);
+  Clamped r;
+  r.a = nan_clip(__fmul_rn(f1.a, f2.a), -kAgcCap, kAgcCap);
+  r.b = nan_clip(__fadd_rn(__fmul_rn(f2.a, f1.b), f2.b), -kAgcCap, kAgcCap);
+  r.lo = nan_clip(__fadd_rn(nan_min(p, q), f2.b), f2.lo, f2.hi);
+  r.hi = nan_clip(__fadd_rn(nan_max(p, q), f2.b), f2.lo, f2.hi);
+  return r;
+}
+
+__device__ __forceinline__ float apply(const Clamped& f, float g) {
+  return nan_clip(__fadd_rn(__fmul_rn(f.a, g), f.b), f.lo, f.hi);
+}
+
+__device__ __forceinline__ Clamped shfl_up(const Clamped& f, int d) {
+  return {__shfl_up_sync(0xffffffffu, f.a, d),
+          __shfl_up_sync(0xffffffffu, f.b, d),
+          __shfl_up_sync(0xffffffffu, f.lo, d),
+          __shfl_up_sync(0xffffffffu, f.hi, d)};
+}
+
+struct AgcKnobs {
+  float rate, ref, max_gain, rb;   // rb = rate * ref
+};
+
+// Sample (xr, xi)'s map: a = clip(1 - rate |x|, +-cap), b = rate ref,
+// bounds [0, max_gain].
+__device__ __forceinline__ Clamped sample_map(const AgcKnobs& k, float xr,
+                                              float xi) {
+  const float absx =
+      __fsqrt_rn(__fadd_rn(__fmul_rn(xr, xr), __fmul_rn(xi, xi)));
+  return {nan_clip(__fsub_rn(1.f, __fmul_rn(k.rate, absx)), -kAgcCap,
+                   kAgcCap),
+          k.rb, 0.f, k.max_gain};
+}
+
+// One step of the loop on sample (xr, xi), which it overwrites with y:
+// g x per plane, or with kComplex the complex product x (g + 0i).
+template <bool kComplex>
+__device__ __forceinline__ void agc_walk_step(const AgcKnobs& k, float& g,
+                                              float& xr, float& xi) {
+  const float yr = __fmul_rn(xr, g), yi = __fmul_rn(xi, g);
+  const float env =
+      __fsqrt_rn(__fadd_rn(__fmul_rn(yr, yr), __fmul_rn(yi, yi)));
+  float ng = __fadd_rn(g, __fmul_rn(k.rate, __fsub_rn(k.ref, env)));
+  ng = ng < 0.f ? 0.f : ng;   // comparisons: NaN passes through
+  ng = ng > k.max_gain ? k.max_gain : ng;
+  if (kComplex) {
+    const float re = __fsub_rn(yr, __fmul_rn(xi, 0.f));
+    xi = __fadd_rn(__fmul_rn(xr, 0.f), yi);
+    xr = re;
+  } else {
+    xr = yr;
+    xi = yi;
+  }
+  g = ng;
+}
+
+// Tile sample t's slot in a plane of the shared copy: segment t / L at
+// (t / L) * P, P = L | 1.
+__device__ __forceinline__ int agc_slot(int t, int L, int P) {
+  return (t / L) * P + t % L;
+}
+
+template <class F>
+struct Quad {   // the 16-byte vector of a float pointer, const or not
+  using type = float4;
+};
+template <>
+struct Quad<const float> {
+  using type = const float4;
+};
+
+// Copy the tile's n samples at row offset `at` between device memory and
+// the shared planes (kLoad: into them from p, q; else out of them into p,
+// q), coalesced: 16-byte accesses where the tile's rows are 16-byte
+// aligned (two complex samples, or four samples of each plane), the rest
+// one sample a thread.  kComplex: p is the interleaved complex64 row, q
+// unused; else p, q are the planes.
+template <bool kComplex, bool kLoad, class F>
+__device__ __forceinline__ void agc_copy(F* p, F* q, size_t at, int n,
+                                         int L, int P, float* sr,
+                                         float* si) {
+  using F4 = typename Quad<F>::type;
+  constexpr int per = kComplex ? 2 : 4;   // samples a 16-byte access
+  F* a = kComplex ? p + 2 * at : p + at;
+  F* b = kComplex ? a : q + at;
+  const bool vec = (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+  const int nv = vec ? n / per * per : 0;
+  for (int v = threadIdx.x; v < nv / per; v += blockDim.x) {
+    F4* a4 = reinterpret_cast<F4*>(a) + v;
+    F4* b4 = reinterpret_cast<F4*>(b) + v;
+    alignas(16) float u[4];
+    alignas(16) float w[4];
+    if constexpr (kLoad) {
+      *reinterpret_cast<float4*>(u) = __ldg(a4);
+      if (!kComplex) *reinterpret_cast<float4*>(w) = __ldg(b4);
+    }
+#pragma unroll
+    for (int e = 0; e < per; ++e) {
+      const int s = agc_slot(per * v + e, L, P);
+      float& re = kComplex ? u[2 * e] : u[e];
+      float& im = kComplex ? u[2 * e + 1] : w[e];
+      if constexpr (kLoad) {
+        sr[s] = re;
+        si[s] = im;
+      } else {
+        re = sr[s];
+        im = si[s];
+      }
+    }
+    if constexpr (!kLoad) {
+      *a4 = *reinterpret_cast<const float4*>(u);
+      if (!kComplex) *b4 = *reinterpret_cast<const float4*>(w);
+    }
+  }
+  for (int t = nv + threadIdx.x; t < n; t += blockDim.x) {
+    const int s = agc_slot(t, L, P);
+    F* re = kComplex ? a + 2 * t : a + t;
+    F* im = kComplex ? re + 1 : b + t;
+    if constexpr (kLoad) {
+      sr[s] = *re;
+      si[s] = *im;
+    } else {
+      *re = sr[s];
+      *im = si[s];
+    }
+  }
+}
+
+// The AGC loop over one stream a block (see the head of this file).
+// blockDim.x lanes, a multiple of 32 up to kAgcMaxThreads, of L samples
+// each; a tile holds blockDim.x * L <= kAgcTile samples.  rate, ref,
+// max_gain: one float each on the device.  kComplex: x and y are complex64
+// rows read and written as interleaved floats (xr, yr; xi, yi unused), y =
+// x (g + 0i); else float planes, y = g x per plane.
+template <bool kComplex>
+__global__ void __launch_bounds__(kAgcMaxThreads) agc_segments(
     const float* __restrict__ xr, const float* __restrict__ xi,
-    const float* __restrict__ gain, const float* __restrict__ sc,
+    const float* __restrict__ gain, const float* __restrict__ rate,
+    const float* __restrict__ ref, const float* __restrict__ max_gain,
     float* __restrict__ yr, float* __restrict__ yi,
-    float* __restrict__ gain_out, int B, int T) {
-  const int s = blockIdx.x * kRows + threadIdx.x;
-  const bool mine = threadIdx.x < kRows && s < B;
-  AgcStep step{sc[0], sc[1], sc[2], mine ? gain[s] : 0.f};
-  walk_tiles(xr, xi, yr, yi, B, T, step);
-  if (mine) gain_out[s] = step.g;
+    float* __restrict__ gain_out, int T, int L) {
+  __shared__ float sr[kAgcTile + kAgcMaxThreads];
+  __shared__ float si[kAgcTile + kAgcMaxThreads];
+  __shared__ Clamped warp_total[kAgcMaxThreads / 32];
+  __shared__ float carry;
+  const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
+  const int P = L | 1;
+  AgcKnobs kn;
+  kn.rate = rate[0];
+  kn.ref = ref[0];
+  kn.max_gain = max_gain[0];
+  kn.rb = __fmul_rn(kn.rate, kn.ref);
+  const size_t row = (size_t)blockIdx.x * T;
+  const int tile = blockDim.x * L;
+  float* pr = sr + k * P;   // this lane's segment in the shared copy
+  float* pi = si + k * P;
+  float g = gain[blockIdx.x];   // the gain entering the tile
+  for (int t0 = 0; t0 < T; t0 += tile) {
+    const int n = min(tile, T - t0);
+    agc_copy<kComplex, true>(xr, xi, row + t0, n, L, P, sr, si);
+    __syncthreads();
+    const int len = max(0, min(n - k * L, L));
+    // Fold.  A lane without samples holds the identity; only lanes
+    // without samples come after it, so no lane with samples reads it.
+    Clamped f = {1.f, 0.f, -CUDART_INF_F, CUDART_INF_F};
+    if (len > 0) {
+      f = sample_map(kn, pr[0], pi[0]);
+      for (int i = 1; i < len; ++i)
+        f = compose(f, sample_map(kn, pr[i], pi[i]));
+    }
+    // Combine: the inclusive scan of the warp's maps, the map before this
+    // lane's, the warp's total.
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Clamped o = shfl_up(f, d);
+      if (lane >= d) f = compose(o, f);
+    }
+    const Clamped before = shfl_up(f, 1);
+    if (lane == 31) warp_total[warp] = f;
+    __syncthreads();
+    // Entry gain, then the walk.
+    float gl = g;
+    for (int w = 0; w < warp; ++w) gl = apply(warp_total[w], gl);
+    if (lane > 0) gl = apply(before, gl);
+    for (int i = 0; i < len; ++i)
+      agc_walk_step<kComplex>(kn, gl, pr[i], pi[i]);
+    if (len > 0 && k * L + len == n) carry = gl;
+    __syncthreads();
+    agc_copy<kComplex, false>(yr, yi, row + t0, n, L, P, sr, si);
+    g = carry;
+    __syncthreads();   // the next tile overwrites sr, si, carry
+  }
+  if (k == 0) gain_out[blockIdx.x] = g;
+}
+
+template <bool kComplex>
+int launch_agc(const float* xr, const float* xi, const float* gain,
+               const float* rate, const float* ref, const float* max_gain,
+               float* yr, float* yi, float* gain_out, int b, int t,
+               int threads, int seg, cudaStream_t st) {
+  if (threads < 32 || threads % 32 || threads > kAgcMaxThreads || seg < 1 ||
+      seg > kAgcTile / threads)
+    return (int)cudaErrorInvalidValue;
+  agc_segments<kComplex><<<b, threads, 0, st>>>(
+      xr, xi, gain, rate, ref, max_gain, yr, yi, gain_out, t, seg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -531,13 +740,29 @@ int rr_slew_clocks(const float* xr, const float* xi, const float* prev_r,
 }
 #endif
 
+// The AGC loop on [b, t] float planes; rate, ref, max_gain: one float each
+// on the device.  The wrapper checks b > 0, t > 0, shapes, dtypes and
+// contiguity, and gives the geometry: threads lanes (a multiple of 32, at
+// most kAgcMaxThreads) of seg samples, threads * seg <= kAgcTile.
 int rr_agc_scan(const float* xr, const float* xi, const float* gain,
-                const float* sc, float* yr, float* yi, float* gain_out,
-                int b, int t, void* stream) {
-  const dim3 grid((b + kRows - 1) / kRows);
-  agc_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      xr, xi, gain, sc, yr, yi, gain_out, b, t);
-  return (int)cudaGetLastError();
+                const float* rate, const float* ref, const float* max_gain,
+                float* yr, float* yi, float* gain_out, int b, int t,
+                int threads, int seg, void* stream) {
+  return launch_agc<false>(xr, xi, gain, rate, ref, max_gain, yr, yi,
+                           gain_out, b, t, threads, seg,
+                           (cudaStream_t)stream);
+}
+
+// The same on [b, t] complex64 rows x, read in place, and y (x (g + 0i)),
+// written in place; the checks and geometry as for rr_agc_scan.
+int rr_agc_step(const void* x, const float* gain, const float* rate,
+                const float* ref, const float* max_gain, void* y,
+                float* gain_out, int b, int t, int threads, int seg,
+                void* stream) {
+  return launch_agc<true>(static_cast<const float*>(x), nullptr, gain, rate,
+                          ref, max_gain, static_cast<float*>(y), nullptr,
+                          gain_out, b, t, threads, seg,
+                          (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -59,7 +59,8 @@ _SIGNATURES = {
     "rr_pfb_demod": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "rr_pfb_demod_step": [_P] * 6 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
     "rr_slew_scan": [_P] * 9 + [_I] * 4 + [_P],
-    "rr_agc_scan": [_P] * 7 + [_I] * 2 + [_P],
+    "rr_agc_scan": [_P] * 9 + [_I] * 4 + [_P],   # b, t, lanes, seg
+    "rr_agc_step": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 # Entry points of a development build only (``lib(defines)``).

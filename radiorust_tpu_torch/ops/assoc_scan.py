@@ -5,7 +5,9 @@ The JAX package runs its affine and clamped-affine scans (``Squelch``,
 PyTorch has no stable counterpart, so this is a Hillis-Steele doubling
 scan: ``ceil(log2 n)`` rounds, round ``k`` combining every element with
 the one ``2**k`` before it.  Each round is a handful of elementwise
-tensor ops over the whole [..., n] operand.
+tensor ops over the whole [..., n] operand.  ``Squelch`` runs it on
+every device; ``AgcControl`` on CPU tensors only (``ops/scan.py::
+agc_step_plain``), CUDA tensors taking the AGC kernel.
 """
 
 from __future__ import annotations

@@ -6,9 +6,10 @@ Tolerances: ``Squelch`` outputs atol 1e-5 and envelope rtol 1e-4 (the
 JAX package's squelch-vs-oracle bounds); ``AgcControl`` atol 2e-4 and
 gain atol 2e-3 in its contracting regime, atol 3e-4 where the gain clamps
 at both bounds (the JAX package's AGC bounds); under sustained overdrive
-the loop is chaotic, so only finiteness and the clamp are checked; the
-receivers from ``valid_from`` at 1e-3 (``tools/validate_tpu.py:351``, am,
-ssb and isb).
+the loop is chaotic, so only finiteness and the clamp are checked; on CPU
+tensors ``AgcControl`` gives the scan it ran inline before it called
+``ops.scan.agc_step``, bit for bit; the receivers from ``valid_from`` at
+1e-3 (``tools/validate_tpu.py:351``, am, ssb and isb).
 """
 
 import numpy as np
@@ -170,6 +171,57 @@ def test_agc_survives_sustained_overdrive():
     assert np.isfinite(y).all() and np.isfinite(g).all()
     assert (g >= 0.0).all() and (g <= 4.0).all()
     assert np.abs(y).max() <= 4.0 * 10.0 + 1e-3
+
+
+def _old_agc_process(params, state, x):
+    """``_BoundAgc.process`` as it was before it called
+    ``ops.scan.agc_step``: the clamped-affine scan inline."""
+    cap = 1e18
+    absx = torch.abs(x)
+    a = torch.clamp(1.0 - params["rate"] * absx, -cap, cap)
+    b = (params["rate"] * params["reference"]).expand(a.shape)
+    elems = (a, b, torch.zeros_like(a), params["max_gain"].expand(a.shape))
+
+    def compose(e1, e2):
+        a1, b1, l1, h1 = e1
+        a2, b2, l2, h2 = e2
+        lo = torch.minimum(a2 * l1, a2 * h1) + b2
+        hi = torch.maximum(a2 * l1, a2 * h1) + b2
+        return (torch.clamp(a1 * a2, -cap, cap),
+                torch.clamp(a2 * b1 + b2, -cap, cap),
+                torch.clamp(lo, l2, h2), torch.clamp(hi, l2, h2))
+
+    pa, pb, plo, phi = associative_scan(compose, elems)
+    g0 = state["gain"]
+    g_inc = torch.clamp(pa * g0[:, None] + pb, plo, phi)
+    g_exc = torch.cat([g0[:, None], g_inc[:, :-1]], dim=-1)
+    return {"gain": g_inc[:, -1]}, x * g_exc
+
+
+@pytest.mark.parametrize("amp, spec", [
+    (0.2, dict(reference=1.0, rate=5e-3, max_gain=100.0)),
+    (3.0, dict(reference=1.0, rate=0.3, max_gain=2.5)),
+    (10.0, dict(reference=1.0, rate=0.5, max_gain=4.0)),
+], ids=["contracting", "clamping", "overdrive"])
+def test_agc_cpu_output_unchanged_bit_for_bit(amp, spec):
+    # AgcControl on CPU tensors now goes through ops.scan.agc_step; its
+    # output and gain are the inline scan's bit for bit, NaNs included.
+    rng = np.random.default_rng(13)
+    B, n = 3, 777
+    x = (amp * (rng.standard_normal((B, n))
+                + 1j * rng.standard_normal((B, n)))).astype(np.complex64)
+    x.real[1, 400] = np.nan
+    b = ttr.AgcControl(**spec).bind(tbase.StreamSig(B, n, 1000.0))
+    params = tree_to_torch(b.params, "cpu")
+    state = {"gain": torch.tensor([1.0, 0.5, 2.0])}
+    st, y = b.process(params, state, torch.from_numpy(x), tbase.no_reset(B))
+    want_st, want = _old_agc_process(params, state, torch.from_numpy(x))
+    assert torch.equal(torch.view_as_real(y).view(torch.int32),
+                       torch.view_as_real(want).view(torch.int32))
+    assert torch.equal(st["gain"].view(torch.int32),
+                       want_st["gain"].view(torch.int32))
+    assert bool(torch.isnan(y[1, 400:]).all())
+    assert not bool(torch.isnan(y[1, :400]).any())
 
 
 def synth(t_chunks, streams, offset=30000.0):

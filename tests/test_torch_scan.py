@@ -5,17 +5,21 @@ per-sample oracles, on the same numpy inputs.
 Tolerances are the JAX package's own (``tests/test_pallas_scan.py``):
 slew outputs and carry atol 1e-5; AGC outputs atol 2e-4 and the carried
 gain atol 2e-3, in the loop's contracting regime (rate * |x| well below 2).
+A NaN sample puts NaN where the JAX package puts it, exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.experimental.pallas as pl
 import jax.numpy as jnp
 
 import oracles
 from radiorust_tpu import config
+from radiorust_tpu.blocks import base as jbase
+from radiorust_tpu.blocks import transform as jtr
 from radiorust_tpu.ops import pallas_scan
 from radiorust_tpu_torch.ops import scan as tscan
 
@@ -127,6 +131,67 @@ def test_agc_plain_matches_pallas_and_oracle(chunks):
     assert tscan.agc_scan.launches == 0
 
 
+def test_agc_step_plain_matches_jax_agc_control():
+    # agc_step_plain is the JAX package's AgcControl route: its clamped-
+    # affine maps composed by an associative scan.
+    rng = np.random.default_rng(9)
+    B, T = 3, 300
+    x = cplx(rng, B, T, scale=0.2)
+    gain = rng.uniform(0.5, 2.0, B).astype(np.float32)
+    knobs = (np.float32(5e-3), np.float32(1.0), np.float32(100.0))
+    blk = jtr.AgcControl(reference=1.0, rate=5e-3, max_gain=100.0).bind(
+        jbase.StreamSig(B, T, 1000.0))
+    params = {k: jnp.asarray(v) for k, v in blk.params.items()}
+    st, want = jax.jit(blk.process)(params, {"gain": jnp.asarray(gain)},
+                                    jnp.asarray(x), jnp.zeros((B,), bool))
+    y, g = tscan.agc_step(t(x), t(gain), *knobs)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=AGC_ATOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(st["gain"]),
+                               atol=GAIN_ATOL)
+    for b in range(B):
+        oy, og = oracles.oracle_agc(x[b], 1.0, 5e-3, 100.0, gain0=gain[b])
+        np.testing.assert_allclose(y[b].numpy(), oy, atol=AGC_ATOL)
+        np.testing.assert_allclose(float(g[b]), og, atol=GAIN_ATOL)
+    assert tscan.agc_scan.launches == 0
+
+
+def test_agc_plain_versions_put_nan_where_jax_does():
+    # A NaN in one plane of a sample: from that sample on y and the gain
+    # are NaN in both packages.  The plane signature scales each plane (the
+    # other plane stays finite at that sample), the complex one multiplies
+    # complex numbers (both planes NaN there), as the JAX package does.
+    rng = np.random.default_rng(10)
+    B, T = 3, 200
+    x = cplx(rng, B, T, scale=0.2)
+    x.real[0, 120] = np.nan
+    x.imag[2, 7] = np.nan
+    gain = np.ones(B, np.float32)
+    knobs = (np.float32(5e-3), np.float32(1.0), np.float32(100.0))
+    xr, xi = planes(x)
+    wr, wi, wg = pallas_scan.agc_scan(jnp.asarray(xr), jnp.asarray(xi),
+                                      jnp.asarray(gain), *knobs)
+    gr, gi, gg = tscan.agc_scan_plain(t(xr), t(xi), t(gain), *knobs)
+    blk = jtr.AgcControl(reference=1.0, rate=5e-3, max_gain=100.0).bind(
+        jbase.StreamSig(B, T, 1000.0))
+    params = {k: jnp.asarray(v) for k, v in blk.params.items()}
+    st, wy = jax.jit(blk.process)(params, {"gain": jnp.asarray(gain)},
+                                  jnp.asarray(x), jnp.zeros((B,), bool))
+    y, g = tscan.agc_step_plain(t(x), t(gain), *knobs)
+    pairs = [(gr.numpy(), np.asarray(wr)), (gi.numpy(), np.asarray(wi)),
+             (gg.numpy(), np.asarray(wg)),
+             (y.numpy().real, np.asarray(wy).real),
+             (y.numpy().imag, np.asarray(wy).imag),
+             (g.numpy(), np.asarray(st["gain"]))]
+    for got, want in pairs:
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        ok = ~np.isnan(got)
+        np.testing.assert_allclose(got[ok], want[ok], atol=GAIN_ATOL)
+    assert np.isnan(gr.numpy()[0, 120:]).all()
+    assert not np.isnan(gr.numpy()[0, :120]).any()
+    assert not np.isnan(gr.numpy()[2, 7]) and np.isnan(y.numpy().real[2, 7])
+    assert np.isnan(gg.numpy()[[0, 2]]).all() and not np.isnan(gg.numpy()[1])
+
+
 def test_scan_wrappers_dispatch_by_device_only():
     x = torch.zeros((2, 64))
     c = torch.zeros(2)
@@ -143,7 +208,22 @@ def test_scan_wrappers_dispatch_by_device_only():
         tscan.agc_scan(x, x, torch.zeros(3), 1e-3, 1.0, 10.0)
     with pytest.raises(ValueError, match=r"\[B, T\]"):
         tscan.slew_scan(x, x[:, :32], c, c, 0.1)
+    z = torch.zeros((2, 64), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="tensors on"):
+        tscan.agc_step(z, c.to("meta"), 1e-3, 1.0, 10.0)
+    with pytest.raises(ValueError, match="meta"):
+        tscan.agc_step(z.to("meta"), c.to("meta"), 1e-3, 1.0, 10.0)
+    with pytest.raises(ValueError, match="empty"):
+        tscan.agc_step(z[:, :0], c, 1e-3, 1.0, 10.0)
+    with pytest.raises(ValueError, match="carry"):
+        tscan.agc_step(z, torch.zeros(3), 1e-3, 1.0, 10.0)
+    with pytest.raises(ValueError, match="complex"):
+        tscan.agc_step(x, c, 1e-3, 1.0, 10.0)
+    with pytest.raises(ValueError, match="complex"):
+        tscan.agc_step(z[0], c, 1e-3, 1.0, 10.0)
     # On CPU tensors no kernel is launched, whatever the inputs.
     tscan.slew_scan(x, x, c, c, torch.tensor(0.1))
     tscan.agc_scan(x, x, c, torch.tensor(1e-3), 1.0, 10.0)
+    tscan.agc_step(z, c, torch.tensor(1e-3), 1.0, 10.0)
+    tscan.agc_step(z[:, ::2], c, 1e-3, 1.0, 10.0)
     assert tscan.slew_scan.launches == tscan.agc_scan.launches == 0
