@@ -145,6 +145,10 @@ WIDE_CHUNK = 262144   # wfm_receiver() on long chunks: mid chunk 98304
 WIDE_BATCH, WIDE_T = 8, 4
 RESAMPLE_RATE, RESAMPLE_CHUNK = 48000.0, 1600   # 48 kHz -> 44.1 kHz
 AGC_ATOL, GAIN_ATOL = 2e-4, 2e-3   # #9 outputs and carried gain, the same
+TX_CPU_ATOL = 1e-2    # J vs CPU: FmMod's cumsum sums in another order
+BW_REL = 9e-3         # L's bandwidth in Hz vs CPU (TOL["bw_meter"])
+K_RATE, K_BW = 44100.0, 36000.0   # path K's tail: 384 kHz -> 44.1 kHz
+L_CHUNK = 10240
 CLAMP_ATOL = 3e-4     # #9 outputs where the gain clamps (the JAX package's)
 UNIT_ATOL = 1e-5      # morse RF: | |y| - 1 |
 KEYING_RATIO = 10.0   # morse audio: key-down level over key-up level
@@ -159,6 +163,23 @@ PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 # mixer's two complex multiplies and the oscillator's product 18; one
 # slew-limiter step 12, one AGC step 10.
 DEMOD_FLOPS, MIX_FLOPS, SLEW_FLOPS, AGC_FLOPS = 8, 18, 12, 10
+
+
+def phase_plans(plan_downsample, plan_upsample):
+    """(label, plan, batch, chunk, chained steps) of #1's phase-mode
+    checks."""
+    k_plan = plan_downsample(384000.0, K_RATE, K_BW)
+    return (
+        ("at path K's plan, 384 kHz -> 44.1 kHz at chunk 6144", k_plan,
+         BATCH, 6144, 5),
+        *((f"8:3 at chunk {n}", plan_downsample(1024.0, 384.0, 200.0),
+           BATCH, n, 8) for n in (60, 100, 7)),
+        ("upsample 384 -> 1024 at chunk 64",
+         plan_upsample(384.0, 1024.0, 300.0), BATCH, 64, 8),
+        ("1.024 MHz -> 44.1 kHz at chunk 16384",
+         plan_downsample(1024000.0, 44100.0, 17640.0), BATCH, 16384, 5),
+        ("1.024 MHz -> 22.05 kHz at chunk 16384",
+         plan_downsample(1024000.0, 22050.0, 8820.0), BATCH, 16384, 5))
 
 
 def card() -> str:
@@ -221,12 +242,25 @@ def compare(got, want):
 
 
 def tensors(obj):
-    """The tensors of a nested tuple or list of arguments or results."""
+    """The tensors of a nested tuple, list or dict of arguments or
+    results."""
     if isinstance(obj, torch.Tensor):
         return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
     if isinstance(obj, (tuple, list)):
         return [t for o in obj for t in tensors(o)]
     return []
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| of two tensors; for integer or bool tensors, the count
+    of elements that differ."""
+    if a.numel() == 0:
+        return 0.0
+    if a.is_floating_point() or a.is_complex():
+        return float((a - b).abs().max())
+    return float((a != b).sum())
 
 
 def io_bytes(args, results) -> int:
@@ -393,6 +427,24 @@ def isb_signal(streams):
     return out
 
 
+def bw_meter_input(t_chunks, streams, n):
+    """[T, streams, n] complex64: tools/validate_tpu.py's bw_meter input,
+    FM tones at +5 and -4 kHz (exact integer carrier phases), one phase
+    offset per stream."""
+    idx = np.arange(t_chunks * n)
+    t = idx.astype(np.float32) / np.float32(RATE)
+    x = np.zeros(t_chunks * n, np.complex64)
+    for k, audio, amp in ((5, 150.0, 1.0), (1024 - 4, 230.0, 0.7)):
+        carrier = ((idx * k) % 1024).astype(np.float32) / 1024.0
+        fm = (np.float32(0.3 * 1000.0 / audio)
+              * (1.0 - np.cos(2 * np.pi * np.float32(audio) * t)))
+        th = (2 * np.pi * carrier + fm).astype(np.float32)
+        x = x + amp * np.exp(1j * th).astype(np.complex64)
+    ph = np.exp(1j * np.linspace(0.0, 0.5, streams)).astype(np.complex64)
+    return np.ascontiguousarray((x[None, :] * ph[:, None]).reshape(
+        streams, t_chunks, n).transpose(1, 0, 2))
+
+
 def level_at(signal, rate, f):
     """Windowed spectrum peak within 2 bins of ``f``."""
     n = len(signal)
@@ -424,9 +476,10 @@ def tone_levels(signal, rate):
     return out
 
 
-def profile_chain(run, steps: int, tag: str) -> None:
+def profile_chain(run, steps: int, tag: str) -> float:
     """Device time by kernel over ``steps`` chain steps (torch.profiler),
-    and the device's busy share of the window's wall time."""
+    and the device's busy share of the window's wall time; returns the
+    device's busy us per step."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
@@ -450,6 +503,7 @@ def profile_chain(run, steps: int, tag: str) -> None:
     busy = sum(r[0] for r in rows)
     print(f"profile over {steps} steps: wall {wall_us:.1f} us, device busy "
           f"{busy:.1f} us ({100 * busy / wall_us:.1f}%) {tag}")
+    busy_per_step = busy / steps
     # Glue: PyTorch's own kernels (namespace at::) and copies between
     # the port's kernels.
     glue = [r for r in rows if "at::" in r[2] or r[2].startswith("Mem")]
@@ -459,6 +513,7 @@ def profile_chain(run, steps: int, tag: str) -> None:
     for dev_us, count, key in rows[:15]:
         print(f"  {dev_us / steps:9.1f} us/step  {count // steps:3d} "
               f"calls/step  {key[:90]}")
+    return busy_per_step
 
 
 def slew_clocks(dev, randn) -> None:
@@ -518,7 +573,8 @@ def main() -> None:
     if not (HERE / "radiorust_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: radiorust_tpu_torch is not beside this script")
     sys.path.insert(0, str(HERE))
-    from radiorust_tpu_torch.blocks.base import Chain, StreamSig, scan
+    from radiorust_tpu_torch.blocks.base import (Chain, StreamSig, jit_step,
+                                                 make_scan, scan)
     from radiorust_tpu_torch.blocks.filters import (SlewRateLimiter,
                                                     deemphasis_factor)
     from radiorust_tpu_torch.blocks.graph import graph_scan
@@ -529,7 +585,14 @@ def main() -> None:
                                                      morse_rf_chain)
     from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
     from radiorust_tpu_torch.models.wfm import wfm_receiver
+    from radiorust_tpu_torch.blocks.filters import Filter
+    from radiorust_tpu_torch.blocks.modulation import FmDemod
     from radiorust_tpu_torch.blocks.resampling import Downsampler
+    from radiorust_tpu_torch.blocks.transform import FreqShifter
+    from radiorust_tpu_torch.models.bandwidth_meter import (
+        bandwidth_meter_chain, measure_bandwidth)
+    from radiorust_tpu_torch.models.wfm import (wfm_receiver_graph,
+                                                wfm_transmitter)
     from radiorust_tpu_torch.blocks.frontend import (FilterDemodFilter,
                                                      FmDemodFilter)
     from radiorust_tpu_torch.blocks.transform import GainControl
@@ -539,7 +602,8 @@ def main() -> None:
     from radiorust_tpu_torch.ops import filter as ofl
     from radiorust_tpu_torch.ops import frontend as ofe
     from radiorust_tpu_torch.ops import scan as osc
-    from radiorust_tpu_torch.ops.polyphase import plan_downsample
+    from radiorust_tpu_torch.ops.polyphase import (plan_downsample,
+                                                   plan_upsample)
 
     t_start = time.perf_counter()
     name = card()
@@ -1244,13 +1308,70 @@ def main() -> None:
                        f"{wplan.p}, q = {wplan.q}, Kw = "
                        f"{wplan.kernel.shape[1]}, two planes)", wplan, BATCH,
                        n, False)
+
+    # #1's phase-mode entry (rr_decimate_phase) against its plain version,
+    # rational_fir_phase, chained chunk after chunk (history and grid
+    # phase handed on): at path K's plan over one schedule period, 8:3 at
+    # chunks 60, 100 and 7 (the history longer than the chunk), the
+    # upsample 384 -> 1024 at 64, and 1.024 MHz -> 44.1 kHz and 22.05 kHz
+    # at 16384 (at 22.05 kHz some steps have no window).  The yardstick:
+    # one conv1d over the first step's windows at its offset.
+    def phase_chunks(fn, xs, h, ph, w, p, q):
+        ys = []
+        for x in xs:
+            y, h, ph = fn(x, h, ph, w, p, q)
+            ys.append(y)
+        return (*ys, h, ph)
+
+    def check_phase(label, plan, b, n, steps):
+        w = torch.from_numpy(plan.kernel).to(dev)
+        p, q, kw = plan.p, plan.q, w.shape[1]
+        xs, h = cplx(steps, b, n), cplx(b, kw - 1)
+        ph = torch.zeros(b, dtype=torch.int32, device=dev)
+        valid = plan.valid_counts(n, 0, steps)
+        e, v0 = -(-n // p), int(valid[0]) // q
+        flops = (2 * 2 * b * (int(valid.sum()) // q) * nonzero_taps(plan)
+                 / steps)
+        library = None
+        if v0:
+            buf = torch.cat([h, xs[0], torch.zeros(b, p - 1, device=dev,
+                                                   dtype=h.dtype)], -1)
+            buf = buf[:, p - 1:p - 1 + e * p + kw - p]
+            lhs = torch.stack([buf.real, buf.imag]).reshape(
+                2 * b, 1, -1).contiguous()
+            library = ("conv1d (the first step's windows)",
+                       lambda: torch.nn.functional.conv1d(
+                           lhs, w[:, None, :], stride=p)[..., :v0],
+                       lambda r: [torch.stack([r[0].real, r[0].imag])
+                                  .reshape(2 * b, e, q)
+                                  .transpose(1, 2)[..., :v0]])
+        check(f"decimate, phase mode, {label} (p = {p}, q = {q}, Kw = {kw}, "
+              f"batch {b}, {steps} chunks chained: valid "
+              f"{sorted(set(valid.tolist()))})", "", "", FIR_BOUND,
+              lambda *a: phase_chunks(ofe.decimate_phase_complex, *a),
+              lambda *a: phase_chunks(ofe.rational_fir_phase, *a),
+              (xs, h, ph, w, p, q), flops, record=False, of="decimate",
+              graphed=True, library=library, calls=steps,
+              inputs=(xs, h, ph, w))
+        got = phase_chunks(ofe.decimate_phase_complex, xs, h, ph, w, p, q)
+        for k, v in enumerate(valid):
+            if bool((got[k][:, v:] != 0).any()):
+                raise AssertionError(f"phase mode {label}: chunk {k} is "
+                                     f"not zero behind its {v} samples")
+        if not bool((got[-1] == (steps * n) % p).all()):
+            raise AssertionError(f"phase mode {label}: phase off schedule")
+
+    for label, plan, b, n, steps in phase_plans(plan_downsample,
+                                                plan_upsample):
+        check_phase(label, plan, b, n, steps)
     t0 = phase("kernel checks", t0)
 
     # -- the paths ------------------------------------------------------------
+    # The nine kernels' counters, and that of #1's phase-mode entry.
     wrappers = [ofe.decimate, ofe.fused_mix_decimate, ofl.fused_overlap_save,
                 ofl.fused_filter_bank, ofl.fused_demod_filter,
                 ofl.fused_filter_demod_filter, och.fused_pfb_demod,
-                osc.slew_scan, osc.agc_scan]
+                osc.slew_scan, osc.agc_scan, ofe.decimate_phase_complex]
 
     def drive(label, run, want, chunks=T):
         """Run a path with every launch counter at 0 just before and read
@@ -1285,9 +1406,125 @@ def main() -> None:
         msps = samples_per_step / (step_ms * 1e-3) / 1e6
         print(f"path {label}: {step_ms * 1e3:.1f} us per chunk step, "
               f"{msps:.1f} Msamples/s input {tag}")
+        busy = None
         if "--profile" in sys.argv[1:]:
-            profile_chain(run, chunks, f"path {label} {tag}")
+            busy = profile_chain(run, chunks, f"path {label} {tag}")
+        eager_rows[label] = (step_ms, busy)
         return step_ms
+
+    eager_rows = {}
+    graphed_rows = {}
+
+    def host_us(run, chunks):
+        """Host us per chunk step to issue ``run`` (no synchronise inside:
+        the time the host holds the step), after one warm call (a capture
+        empties the allocator's cache, so a cold call would time its
+        allocations) and a synchronise."""
+        run()
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        run()
+        us = (time.perf_counter() - t_host) * 1e6 / chunks
+        torch.cuda.synchronize()
+        return us
+
+    def graphed(label, bound_, params, state0, xs, eager, samples,
+                chunks=T, want=()):
+        """The path again through ``make_scan``: one CUDA graph of its
+        chunk loop, captured at the first call (launch counters count
+        there: each kernel of ``want`` must have been launched), then
+        replayed.  Output and final state equal to the eager run's bit for
+        bit; us per chunk step (CUDA events over replays, inputs copied in
+        and outputs copied out as every call does), Msamples/s, capture
+        ms, host us per step, launches per step (torch.profiler) beside
+        the eager run's, and with --profile the device's idle share."""
+        run = make_scan(bound_)
+        eager_fn = ((lambda: graph_scan(bound_, params, state0, xs))
+                    if isinstance(xs, dict)
+                    else (lambda: scan(bound_, params, state0, xs)))
+        torch.cuda.synchronize()
+        for w in wrappers:
+            w.launches = 0
+        got = run(params, state0, xs)
+        torch.cuda.synchronize()
+        at_capture = {w.__name__: w.launches for w in wrappers}
+        for w in want:
+            if at_capture[w.__name__] < 1:
+                raise AssertionError(f"graphed path {label}: {w.__name__} "
+                                     f"was not captured")
+        pairs = list(zip(tensors(got), tensors(eager)))
+        if len(pairs) != len(tensors(eager)) or not pairs:
+            raise AssertionError(f"graphed path {label}: other outputs")
+        diff = max(max_abs_diff(a, b) for a, b in pairs)
+        same = all(torch.equal(a, b) for a, b in pairs)
+        for w in wrappers:
+            w.launches = 0
+        step_ms = cuda_ms(lambda: run(params, state0, xs), reps=3) / chunks
+        replays = {w.__name__: w.launches for w in wrappers}
+        host = host_us(lambda: run(params, state0, xs), chunks)
+        eager_host = host_us(eager_fn, chunks)
+        n_graphed = device_launches(lambda: run(params, state0, xs)) / chunks
+        n_eager = device_launches(eager_fn) / chunks
+        busy = None
+        if "--profile" in sys.argv[1:]:
+            busy = profile_chain(lambda: run(params, state0, xs), chunks,
+                                 f"graphed path {label} {tag}")
+        eager_ms, eager_busy = eager_rows[label]
+        msps = samples / (step_ms * 1e-3) / 1e6
+        idle = None if busy is None else 1.0 - busy / (step_ms * 1e3)
+        eager_idle = (None if eager_busy is None
+                      else 1.0 - eager_busy / (eager_ms * 1e3))
+        pct = lambda v: "not measured" if v is None else f"{100 * v:.1f}%"
+        print(f"graphed path {label}: {step_ms * 1e3:.1f} us per chunk step "
+              f"(eager {eager_ms * 1e3:.1f}), {msps:.1f} Msamples/s, idle "
+              f"{pct(idle)} (eager {pct(eager_idle)}), capture "
+              f"{run.capture_ms:.1f} ms, host {host:.1f} us a step (eager "
+              f"{eager_host:.1f}), device launches a step {n_graphed:.2f} "
+              f"(eager {n_eager:.2f}); vs eager max|diff|={diff:.3e} over "
+              f"{len(pairs)} tensors, bit for bit: {same}; wrapper counts at "
+              f"capture {sum(at_capture.values())}, on replays "
+              f"{sum(replays.values())} {tag}")
+        if not same:
+            raise AssertionError(f"graphed path {label} differs from the "
+                                 f"eager run")
+        graphed_rows[label] = dict(
+            us_per_step=step_ms * 1e3, eager_us_per_step=eager_ms * 1e3,
+            msamples_s=msps, idle=idle, eager_idle=eager_idle,
+            capture_ms=run.capture_ms, host_us_per_step=host,
+            eager_host_us_per_step=eager_host,
+            device_launches_per_step=n_graphed,
+            eager_device_launches_per_step=n_eager, max_abs_diff=diff)
+        run.free()
+        del run, got
+        torch.cuda.synchronize()
+
+    def jit_loop(bound_, params, state0, xs, eager):
+        """Path A through a loop of ``jit_step`` calls (one captured step,
+        its state advanced in place and passed back): equal to the eager
+        run bit for bit; host us to issue a step, and us per step."""
+        step = jit_step(bound_)
+        st, ys = state0, []
+        for x in xs:
+            st, y = step(params, st, x)
+            ys.append(y)
+        torch.cuda.synchronize()
+        pairs = list(zip(tensors((st, torch.stack(ys))), tensors(eager)))
+        same = all(torch.equal(a, b) for a, b in pairs)
+        diff = max(max_abs_diff(a, b) for a, b in pairs)
+        loop = lambda: [step(params, st, x) for x in xs]
+        step_ms = cuda_ms(loop, reps=3) / T
+        host = host_us(loop, T)
+        print(f"path A through jit_step: {step_ms * 1e3:.1f} us per chunk "
+              f"step, host {host:.1f} us a step, capture "
+              f"{step.capture_ms:.1f} ms, {step.captures} capture; vs eager "
+              f"max|diff|={diff:.3e}, bit for bit: {same} {tag}")
+        if not same:
+            raise AssertionError("path A through jit_step differs from the "
+                                 "eager run")
+        graphed_rows["A jit_step"] = dict(
+            us_per_step=step_ms * 1e3, host_us_per_step=host,
+            capture_ms=step.capture_ms, max_abs_diff=diff)
+        step.free()
 
     def chain_paths(label, kw, bound_, want):
         tones = 400.0 + 190.0 * np.arange(BATCH)
@@ -1295,7 +1532,7 @@ def main() -> None:
         xs = torch.from_numpy(xs_host).to(dev)
         params = tree_to_torch(bound_.params, dev)
         state0 = tree_to_torch(bound_.init_state(), dev)
-        (_, ys), launches = drive(
+        (st_e, ys), launches = drive(
             label, lambda: scan(bound_, params, state0, xs), want)
         assert ys.shape == (T, BATCH, bound_.out_sig.chunk_len), ys.shape
         finite(label, [ys])
@@ -1318,6 +1555,10 @@ def main() -> None:
                          torch.from_numpy(xs_host[:v + 4, :2]))
         vs_cpu(label, ys_host[v:v + 4, :2], ys_cpu.numpy()[v:], CPU_ATOL)
         timed(label, lambda: scan(bound_, params, state0, xs), BATCH * CHUNK)
+        graphed(label, bound_, params, state0, xs, (st_e, ys), BATCH * CHUNK,
+                want=want)
+        if label == "A":
+            jit_loop(bound_, params, state0, xs, (st_e, ys))
         return launches
 
     launches_a = chain_paths("A", CHAIN, bound,
@@ -1334,10 +1575,10 @@ def main() -> None:
     xs = {"iq": torch.from_numpy(xs_host).to(dev)}
     params = tree_to_torch(bound_st.params, dev)
     state0 = tree_to_torch(bound_st.init_state(), dev)
-    (_, ys), launches_c = drive(
-        "C", lambda: graph_scan(bound_st, params, state0, xs),
-        [ofe.fused_mix_decimate, ofl.fused_overlap_save,
-         ofl.fused_filter_bank, ofe.decimate])
+    want_c = [ofe.fused_mix_decimate, ofl.fused_overlap_save,
+              ofl.fused_filter_bank, ofe.decimate]
+    (st_c, ys), launches_c = drive(
+        "C", lambda: graph_scan(bound_st, params, state0, xs), want_c)
     finite("C", ys.values())
     v = bound_st.valid_from["stereo"]
     stereo = ys["stereo"].cpu().numpy()
@@ -1372,6 +1613,8 @@ def main() -> None:
                ys_cpu[k][vk:].numpy(), CPU_ATOL)
     timed("C", lambda: graph_scan(bound_st, params, state0, xs),
           BATCH * CHUNK)
+    graphed("C", bound_st, params, state0, xs, (st_c, ys), BATCH * CHUNK,
+            want=want_c)
     t0 = phase("path C", t0)
 
     # Path D: the channelizer.
@@ -1379,7 +1622,7 @@ def main() -> None:
     xs = torch.from_numpy(xs_host).to(dev)
     params = tree_to_torch(bound_ch.params, dev)
     state0 = tree_to_torch(bound_ch.init_state(), dev)
-    (_, ys), launches_d = drive(
+    (st_d, ys), launches_d = drive(
         "D", lambda: scan(bound_ch, params, state0, xs),
         [och.fused_pfb_demod])
     finite("D", [ys])
@@ -1402,6 +1645,8 @@ def main() -> None:
     vs_cpu("D", out[:4, rows], ys_cpu.numpy().real[:, rows], CH_CPU_ATOL)
     timed("D", lambda: scan(bound_ch, params, state0, xs),
           CH_BATCH * CH_CHUNK)
+    graphed("D", bound_ch, params, state0, xs, (st_d, ys),
+            CH_BATCH * CH_CHUNK, want=[och.fused_pfb_demod])
     t0 = phase("path D", t0)
 
     # Path E: the morse transmit chains on keyer envelopes.
@@ -1411,9 +1656,9 @@ def main() -> None:
         xs = torch.from_numpy(xs_host).to(dev)
         params = tree_to_torch(bound_.params, dev)
         state0 = tree_to_torch(bound_.init_state(), dev)
-        (_, ys), launches = drive(
-            label, lambda: scan(bound_, params, state0, xs),
-            [osc.slew_scan, ofl.fused_overlap_save])
+        want = [osc.slew_scan, ofl.fused_overlap_save]
+        (st_e, ys), launches = drive(
+            label, lambda: scan(bound_, params, state0, xs), want)
         assert ys.shape == (T, BATCH, MORSE_CHUNK), ys.shape
         finite(label, [ys])
         v = bound_.valid_from
@@ -1425,6 +1670,8 @@ def main() -> None:
         vs_cpu(label, ys_host[v:v + 4, :2], ys_cpu.numpy()[v:], CPU_ATOL)
         timed(label, lambda: scan(bound_, params, state0, xs),
               BATCH * MORSE_CHUNK)
+        graphed(label, bound_, params, state0, xs, (st_e, ys),
+                BATCH * MORSE_CHUNK, want=want)
         return xs_host, ys_host, v, launches
 
     key_e, ys_e, v, launches_e = morse_path("E audio", morse_audio_chain,
@@ -1486,9 +1733,9 @@ def main() -> None:
     xs = torch.from_numpy(xs_host).to(dev)
     params = tree_to_torch(bound_f.params, dev)
     state0 = tree_to_torch(bound_f.init_state(), dev)
-    (_, ys), launches_f = drive(
-        "F", lambda: scan(bound_f, params, state0, xs),
-        [ofe.decimate, ofl.fused_overlap_save, osc.agc_scan])
+    want_f = [ofe.decimate, ofl.fused_overlap_save, osc.agc_scan]
+    (st_f, ys), launches_f = drive(
+        "F", lambda: scan(bound_f, params, state0, xs), want_f)
     if launches_f["agc_scan"] != T:
         raise AssertionError(f"path F launched agc_scan "
                              f"{launches_f['agc_scan']} times in {T} steps")
@@ -1518,6 +1765,8 @@ def main() -> None:
     vs_cpu("F", ys.cpu().numpy()[v:v + 4, :2], ys_cpu.numpy()[v:],
            CPU_ATOL)
     timed("F", lambda: scan(bound_f, params, state0, xs), BATCH * AN_CHUNK)
+    graphed("F", bound_f, params, state0, xs, (st_f, ys), BATCH * AN_CHUNK,
+            want=want_f)
     # AgcControl as routed (one launch of #9) against its plain version,
     # the associative scan, on the same CUDA tensors at the block's shape
     # and knobs.
@@ -1551,9 +1800,9 @@ def main() -> None:
     xs = {"iq": torch.from_numpy(xs_host).to(dev)}
     params = tree_to_torch(bound_g.params, dev)
     state0 = tree_to_torch(bound_g.init_state(), dev)
-    (_, ys), launches_g = drive(
-        "G", lambda: graph_scan(bound_g, params, state0, xs),
-        [ofe.decimate, ofl.fused_filter_bank, osc.agc_scan])
+    want_g = [ofe.decimate, ofl.fused_filter_bank, osc.agc_scan]
+    (st_g, ys), launches_g = drive(
+        "G", lambda: graph_scan(bound_g, params, state0, xs), want_g)
     if launches_g["agc_scan"] != 2 * T:
         raise AssertionError(f"path G launched agc_scan "
                              f"{launches_g['agc_scan']} times in {T} steps")
@@ -1591,6 +1840,8 @@ def main() -> None:
                ys_cpu[k][vk:].numpy(), CPU_ATOL)
     timed("G", lambda: graph_scan(bound_g, params, state0, xs),
           BATCH * AN_CHUNK)
+    graphed("G", bound_g, params, state0, xs, (st_g, ys), BATCH * AN_CHUNK,
+            want=want_g)
     t0 = phase("path G", t0)
 
     # Path H: wfm_receiver() on long chunks (input chunk 262144, mid
@@ -1601,7 +1852,7 @@ def main() -> None:
         params = tree_to_torch(bound_.params, dev)
         state0 = tree_to_torch(bound_.init_state(), dev)
         chunks = xs_host.shape[0]
-        (_, ys), launches = drive(
+        (st_h, ys), launches = drive(
             label, lambda: scan(bound_, params, state0, xs), want, chunks)
         finite(label, [ys])
         v = bound_.valid_from
@@ -1618,6 +1869,8 @@ def main() -> None:
         vs_cpu(label, ys_host[v:, :2], ys_cpu.numpy()[v:], CPU_ATOL)
         timed(label, lambda: scan(bound_, params, state0, xs),
               xs_host.shape[1] * xs_host.shape[2], chunks)
+        graphed(label, bound_, params, state0, xs, (st_h, ys),
+                xs_host.shape[1] * xs_host.shape[2], chunks, want=want)
         return launches
 
     long_sig = StreamSig(WIDE_BATCH, WIDE_CHUNK, RATE)
@@ -1639,6 +1892,186 @@ def main() -> None:
         [ofe.decimate], rs_tones, 44100.0)
     t0 = phase("path I", t0)
 
+    # Path J: the WFM transmitter (Upsampler on #1's wide form, q = 64),
+    # two-tone audio as tools/validate_tpu.py's wfm_tx, then its IQ into
+    # wfm_receiver().
+    tx_sig = StreamSig(BATCH, 768, 48000.0)
+    bound_j = wfm_transmitter().bind(tx_sig)
+    idx = np.arange(T * 768)
+    two_tone = (0.4 * np.sin(2 * np.pi * (idx % 48) / 48.0)
+                + 0.2 * np.sin(2 * np.pi * (idx % 16) / 16.0))
+    amp = np.linspace(0.6, 1.0, BATCH)
+    xs_host = (amp[:, None] * two_tone[None, :]).astype(np.complex64).reshape(
+        BATCH, T, 768).transpose(1, 0, 2).copy()
+    xs = torch.from_numpy(xs_host).to(dev)
+    params = tree_to_torch(bound_j.params, dev)
+    state0 = tree_to_torch(bound_j.init_state(), dev)
+    want_j = [ofl.fused_overlap_save, ofe.decimate]
+    (st_j, ys_j), launches_j = drive(
+        "J", lambda: scan(bound_j, params, state0, xs), want_j)
+    assert ys_j.shape == (T, BATCH, 16384), ys_j.shape
+    finite("J", [ys_j])
+    v = bound_j.valid_from
+    unit = float((ys_j[v:].abs() - 1.0).abs().max())
+    print(f"path J: max | |y| - 1 | = {unit:.3e} from chunk {v} (bound 1e-3)")
+    if not unit <= 1e-3:
+        raise AssertionError("path J: not of unit magnitude")
+    small = wfm_transmitter().bind(StreamSig(2, 768, 48000.0))
+    _, ys_cpu = scan(small, tree_to_torch(small.params, "cpu"),
+                     tree_to_torch(small.init_state(), "cpu"),
+                     torch.from_numpy(xs_host[:v + 4, :2]))
+    vs_cpu("J", ys_j[v:v + 4, :2].cpu().numpy(), ys_cpu.numpy()[v:],
+           TX_CPU_ATOL)
+    rx = wfm_receiver().bind(StreamSig(BATCH, 16384, RATE))
+    _, audio = scan(rx, tree_to_torch(rx.params, dev),
+                    tree_to_torch(rx.init_state(), dev), ys_j)
+    audio = audio.cpu().numpy().real
+    for s_ in (0, 1, BATCH - 1):
+        peak = peak_hz(audio[rx.valid_from + 1:, s_].reshape(-1), 48000.0)
+        print(f"path J stream {s_}: received audio peak {peak:.1f} Hz (tone "
+              f"1000 Hz)")
+        if abs(peak - 1000.0) > TONE_HZ:
+            raise AssertionError(f"path J stream {s_}: peak {peak} Hz")
+    timed("J", lambda: scan(bound_j, params, state0, xs), BATCH * 768)
+    graphed("J", bound_j, params, state0, xs, (st_j, ys_j), BATCH * 768,
+            want=want_j)
+    t0 = phase("path J", t0)
+
+    # Path K: examples/audio_44k_receiver.py's chain; its 44.1 kHz tail in
+    # phase mode (p = 1280, q = 147 at chunk 6144: 735-sample chunks of
+    # 588 or 735 valid samples, a schedule of 5 steps).
+    def k_chain():
+        return Chain(FreqShifter.with_shift(0.0),
+                     Downsampler(384000.0, 200000.0),
+                     Filter.new(_lowpass_100k), FmDemod(150000.0),
+                     Filter.new_rectangular(_deemphasis_band),
+                     Downsampler(K_RATE, K_BW))
+
+    bound_k = k_chain().bind(StreamSig(BATCH, 16384, RATE))
+    tail_k = bound_k.blocks[-1]
+    assert tail_k.phase_mode and bound_k.ragged_output
+    k_tones = 400.0 + 190.0 * np.arange(BATCH)
+    xs_host = fm_tones(k_tones, T, 16384, offset=0.0)
+    xs = torch.from_numpy(xs_host).to(dev)
+    params = tree_to_torch(bound_k.params, dev)
+    state0 = tree_to_torch(bound_k.init_state(), dev)
+    want_k = [ofe.decimate, ofl.fused_overlap_save,
+              ofe.decimate_phase_complex]
+    (st_k, ys_k), launches_k = drive(
+        "K", lambda: scan(bound_k, params, state0, xs), want_k)
+    finite("K", [ys_k])
+    valid = bound_k.valid_counts(0, T)
+    v = bound_k.valid_from
+    out = ys_k.cpu().numpy()
+    lengths = set()
+    for k, n_valid in enumerate(valid):
+        if np.any(out[k, :, n_valid:] != 0):
+            raise AssertionError(f"path K chunk {k}: not zero behind its "
+                                 f"{n_valid} valid samples")
+        if k >= v:
+            nz = np.nonzero(np.any(out[k] != 0, axis=0))[0]
+            lengths.add((int(nz[-1]) + 1, int(n_valid)))
+    print(f"path K: valid counts {valid.tolist()} (the schedule); nonzero "
+          f"prefix, schedule pairs from chunk {v}: {sorted(lengths)}")
+    if any(a != b for a, b in lengths):
+        raise AssertionError("path K: valid prefixes off the schedule")
+    if not bool((st_k[-1]["phase"] == (T * 6144) % tail_k.plan.p).all()):
+        raise AssertionError("path K: the grid phase is off its schedule")
+    for s_ in (0, 1, BATCH - 1):
+        trimmed = np.concatenate([out[k, s_, :valid[k]]
+                                  for k in range(v, T)]).real
+        peak = peak_hz(trimmed, K_RATE)
+        print(f"path K stream {s_}: tone {k_tones[s_]:.1f} Hz, peak "
+              f"{peak:.1f} Hz")
+        if abs(peak - k_tones[s_]) > TONE_HZ:
+            raise AssertionError(f"path K stream {s_}: peak {peak} Hz")
+    small = k_chain().bind(StreamSig(2, 16384, RATE))
+    _, ys_cpu = scan(small, tree_to_torch(small.params, "cpu"),
+                     tree_to_torch(small.init_state(), "cpu"),
+                     torch.from_numpy(xs_host[:v + 4, :2]))
+    vs_cpu("K", out[v:v + 4, :2], ys_cpu.numpy()[v:], CPU_ATOL)
+    timed("K", lambda: scan(bound_k, params, state0, xs), BATCH * 16384)
+    graphed("K", bound_k, params, state0, xs, (st_k, ys_k), BATCH * 16384,
+            want=want_k)
+    t0 = phase("path K", t0)
+
+    # Path L: the bandwidth meter at tools/validate_tpu.py's setup (FM
+    # tones at +5 and -4 kHz).
+    bound_l = bandwidth_meter_chain().bind(StreamSig(BATCH, L_CHUNK, RATE))
+    xs_host = bw_meter_input(T, BATCH, L_CHUNK)
+    xs = torch.from_numpy(xs_host).to(dev)
+    params = tree_to_torch(bound_l.params, dev)
+    state0 = tree_to_torch(bound_l.init_state(), dev)
+    want_l = [ofe.decimate, ofl.fused_overlap_save]
+    (st_l, ys_l), launches_l = drive(
+        "L", lambda: scan(bound_l, params, state0, xs), want_l)
+    finite("L", [ys_l])
+    v = bound_l.valid_from
+    rate_l = bound_l.out_sig.sample_rate
+    bw = measure_bandwidth(ys_l[v:], rate_l).cpu().numpy()
+    small = bandwidth_meter_chain().bind(StreamSig(2, L_CHUNK, RATE))
+    _, ys_cpu = scan(small, tree_to_torch(small.params, "cpu"),
+                     tree_to_torch(small.init_state(), "cpu"),
+                     torch.from_numpy(xs_host[:v + 4, :2]))
+    bw_cpu = measure_bandwidth(ys_cpu[v:], rate_l).numpy()
+    rel = float(np.abs(bw[:4, :2] - bw_cpu).max() / np.abs(bw_cpu).max())
+    print(f"path L: occupied bandwidth {bw.min():.1f} .. {bw.max():.1f} Hz; "
+          f"vs CPU tensors max rel {rel:.3e} (bound {BW_REL:g})")
+    if not (rel <= BW_REL and np.all(np.isfinite(bw)) and bw.min() > 0):
+        raise AssertionError("path L: bandwidth disagrees with the CPU run")
+    timed("L", lambda: scan(bound_l, params, state0, xs), BATCH * L_CHUNK)
+    graphed("L", bound_l, params, state0, xs, (st_l, ys_l), BATCH * L_CHUNK,
+            want=want_l)
+    t0 = phase("path L", t0)
+
+    # Path M: wfm_receiver_graph through graph_scan: audio and a spectrum
+    # tap of the tuned, channel-filtered front end.
+    bound_m = wfm_receiver_graph(tune_shift=100e3).bind(
+        {"iq": StreamSig(BATCH, 16384, RATE)})
+    m_tones = 400.0 + 190.0 * np.arange(BATCH)
+    xs_host = fm_tones(m_tones, T, 16384, offset=-100e3)
+    xs = {"iq": torch.from_numpy(xs_host).to(dev)}
+    params = tree_to_torch(bound_m.params, dev)
+    state0 = tree_to_torch(bound_m.init_state(), dev)
+    want_m = [ofe.decimate, ofl.fused_overlap_save]
+    (st_m, ys_m), launches_m = drive(
+        "M", lambda: graph_scan(bound_m, params, state0, xs), want_m)
+    finite("M", ys_m.values())
+    va, vsp = bound_m.valid_from["audio"], bound_m.valid_from["spectrum"]
+    audio = ys_m["audio"].cpu().numpy().real
+    for s_ in (0, 1, BATCH - 1):
+        peak = peak_hz(audio[va:, s_].reshape(-1), 48000.0)
+        print(f"path M stream {s_}: tone {m_tones[s_]:.1f} Hz, audio peak "
+              f"{peak:.1f} Hz")
+        if abs(peak - m_tones[s_]) > TONE_HZ:
+            raise AssertionError(f"path M stream {s_}: peak {peak} Hz")
+    spec = (ys_m["spectrum"][vsp:].abs() ** 2).mean(dim=(0, 1)).cpu().numpy()
+    freqs = np.fft.fftfreq(spec.shape[-1], 1.0 / 384000.0)
+    inband = spec[np.abs(freqs) <= 150000.0].sum()
+    outband = spec[np.abs(freqs) > 150000.0].sum()
+    centroid = float((spec * freqs).sum() / spec.sum())
+    print(f"path M spectrum: in-band over out-of-band energy "
+          f"{inband / outband:.1f}, centroid {centroid:.1f} Hz (the tuned "
+          f"carrier at 0)")
+    if not (inband > 50.0 * outband and abs(centroid) < 5000.0):
+        raise AssertionError("path M: the spectrum is off the tuned carrier")
+    small = wfm_receiver_graph(tune_shift=100e3).bind(
+        {"iq": StreamSig(2, 16384, RATE)})
+    vmax = max(va, vsp)
+    _, ys_cpu = graph_scan(small, tree_to_torch(small.params, "cpu"),
+                           tree_to_torch(small.init_state(), "cpu"),
+                           {"iq": torch.from_numpy(xs_host[:vmax + 4, :2])})
+    for k, vk in bound_m.valid_from.items():
+        got_k = ys_m[k][vk:vmax + 4, :2].cpu().numpy()
+        want_k_ = ys_cpu[k][vk:].numpy()
+        scale = 1.0 if k == "audio" else float(np.abs(want_k_).max())
+        vs_cpu(f"M {k}", got_k / scale, want_k_ / scale, CPU_ATOL)
+    timed("M", lambda: graph_scan(bound_m, params, state0, xs),
+          BATCH * 16384)
+    graphed("M", bound_m, params, state0, xs, (st_m, ys_m), BATCH * 16384,
+            want=want_m)
+    t0 = phase("path M", t0)
+
     # Each kernel's launches are those of the path it was checked at.
     path_of = {"decimate": launches_a, "fused_mix_decimate": launches_a,
                "fused_overlap_save": launches_a,
@@ -1654,7 +2087,11 @@ def main() -> None:
           f"{launches_g['agc_scan']} (agc_scan), H "
           f"{launches_h['fused_overlap_save']} (fused_overlap_save), "
           f"{launches_h['decimate']} (decimate), I "
-          f"{launches_i['decimate']} (decimate)")
+          f"{launches_i['decimate']} (decimate), J "
+          f"{launches_j['decimate']} (decimate, the upsampler), K "
+          f"{launches_k['decimate_phase_complex']} (the phase-mode entry), "
+          f"L {launches_l['decimate']}, M {launches_m['decimate']} "
+          f"(decimate)")
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     for k in kernels:
         k["launches"] = path_of[k["name"]][k["name"]]
@@ -1667,6 +2104,7 @@ def main() -> None:
                   f"time {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) "
                   f"{tag}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"graphed": graphed_rows}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ per-sample recurrence on the scan kernel (``ops/scan.py``).
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -94,21 +95,26 @@ def _planes(z: torch.Tensor):
 
 
 class GridCache:
-    """The response-grid planes of the last response tensor a bound block
-    was given, kept while that same tensor comes back unmodified: a step
+    """The response-grid planes of each response tensor a bound block is
+    given, kept while that tensor lives and comes back unmodified: a step
     loop passes one params tree, so the grid is built once, and a retune
-    hands in a new tensor, which rebuilds it."""
+    hands in a new tensor, which builds its own.  Grids of other live
+    trees stay: a captured CUDA graph (``jit_step``, ``make_scan``) holds
+    its params tree and reads the grid it was captured with."""
 
     def __init__(self):
-        self._resp = None
-        self._version = None
-        self._planes = None
+        self._entries = {}
 
     def planes(self, response: torch.Tensor):
-        if response is not self._resp or response._version != self._version:
-            self._planes = _planes(_ofilter.response_grid(response))
-            self._resp, self._version = response, response._version
-        return self._planes
+        hit = self._entries.get(id(response))
+        if (hit is None or hit[0]() is not response
+                or hit[1] != response._version):
+            for k in [k for k, h in self._entries.items() if h[0]() is None]:
+                del self._entries[k]
+            hit = (weakref.ref(response), response._version,
+                   _planes(_ofilter.response_grid(response)))
+            self._entries[id(response)] = hit
+        return hit[2]
 
 
 class _BoundFilter(BoundBlock):

@@ -75,6 +75,23 @@
 // to 8 in registers) and meet by shuffles; partial sums over the chunks
 // collect in shared memory.  The last tile's first phase block copies the
 // new history from the sources, bit for bit.
+//
+// Phase mode (rr_decimate_phase), a chunk of C samples that is not a whole
+// number of periods.  The JAX package computes it with XLA's convolution
+// on a slice at a traced offset (radiorust_tpu/ops/polyphase.py
+// rational_fir_phase, no Pallas kernel); here it is the wide kernel with
+// the offset read on the device.  The history is the last Kw - 1 samples,
+// buf = [hist || x || zeros], and the step's grid phase ph = phase[0] (an
+// int32 in device memory: a captured CUDA graph replays the step as the
+// phase walks its schedule) puts window w at buf[p - 1 - ph + w p ..).
+// E = ceil(C / p) windows are written; those from v = (ph + C) / p on are
+// exact zeros (not yet complete this step).  The new history is buf[C,
+// C + Kw - 1), which may reach back into the old history (a chunk shorter
+// than the window), and the new phase (phase + C) mod p per stream.
+// Bytes bound it as they bound the wide form (384 kHz -> 44.1 kHz at
+// chunk 6144, 64 streams: 5.1 MB, 1.5 us; 0.05 GFLOP, 0.7 us); it is the
+// wide form unchanged but for the offset, the zero reads and the masked
+// windows, a simple first kernel whose time PERF.md records.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -442,14 +459,23 @@ constexpr int kWideStatic = 64;     // static shared bytes kept free
 // grid (ceil(M / tm), batch, ceil(q / QB)), block kWideThreads.  Shared:
 // S [NP][tm][UC] staged windows, then red [NP][QB][tm] partial sums.
 // band [q][2]: row r's nonzero taps [lo, hi) (lo = Kw, hi = 0 for a zero
-// row).  A.taps: W [q][Kw], row-major.
-template <int NP>
+// row).  A.taps: W [q][Kw], row-major.  PHASE: phase mode (see the head of
+// this file), A.hist = Kw - 1, M = ceil(n / p) windows from the offset
+// p - 1 - phase_in[0]; else aligned, A.hist = Kw - p, M = n / p from 0.
+template <int NP, bool PHASE>
 __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
-    DecimArgs A, const int* __restrict__ band, int tm, int QB, int UC) {
+    DecimArgs A, const int* __restrict__ band, int tm, int QB, int UC,
+    const int* __restrict__ phase_in, int* __restrict__ phase_out) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int ulo_s, uhi_s;
-  const int p = A.p, q = A.q, n = A.n, hist = A.hist, kw = hist + p;
-  const int M = n / p, s = blockIdx.y;
+  const int p = A.p, q = A.q, n = A.n, hist = A.hist;
+  const int kw = PHASE ? hist + 1 : hist + p;
+  const int M = PHASE ? (n + p - 1) / p : n / p, s = blockIdx.y;
+  // Window m reads buf[start + m p + u]; windows from v on are not
+  // complete.
+  const int ph = PHASE ? __ldg(phase_in) : 0;
+  const int64_t start = PHASE ? p - 1 - ph : 0;
+  const int v = PHASE ? (ph + n) / p : M;
   const int m0 = blockIdx.x * tm, mt = min(tm, M - m0);
   const int r0 = blockIdx.z * QB, nr = min(QB, q - r0);
   float* S = smem;
@@ -474,15 +500,16 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
   const float* x1 = NP == 2 ? A.x[1] + s * A.x_row : nullptr;
   for (int U0 = ulo; U0 < uhi; U0 += UC) {
     const int uc = min(UC, uhi - U0);
-    // S[pl][m][u - U0] = buf[(m0 + m) p + u]: always inside [hist || x].
+    // S[pl][m][u - U0] = buf[start + (m0 + m) p + u]: inside [hist || x]
+    // but for the incomplete windows of phase mode, which read zeros.
     for (int i = tid; i < mt * uc; i += nt) {
       const int m = i / uc, du = i - m * uc;
-      const int64_t j = (int64_t)(m0 + m) * p + U0 + du;
-      float v0, v1 = 0.f;
+      const int64_t j = start + (int64_t)(m0 + m) * p + U0 + du;
+      float v0 = 0.f, v1 = 0.f;
       if (j < hist) {
         v0 = __ldg(h0 + j * A.h_step);
         if (NP == 2) v1 = __ldg(h1 + j * A.h_step);
-      } else {
+      } else if (!PHASE || j < (int64_t)hist + n) {
         v0 = __ldg(x0 + (j - hist) * A.x_step);
         if (NP == 2) v1 = __ldg(x1 + (j - hist) * A.x_step);
       }
@@ -537,8 +564,9 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
   for (int i = tid; i < nr * mt; i += nt) {
     const int m = i / nr, rr = i - m * nr;
     const int64_t at = ((int64_t)(m0 + m) * q + r0 + rr) * A.y_step;
-    const float v0 = red[rr * tm + m];
-    const float v1 = NP == 2 ? red[(QB + rr) * tm + m] : 0.f;
+    const bool done = m0 + m < v;   // phase mode: later windows are zeros
+    const float v0 = done ? red[rr * tm + m] : 0.f;
+    const float v1 = NP == 2 && done ? red[(QB + rr) * tm + m] : 0.f;
     if (pairs) {
       *reinterpret_cast<float2*>(y0 + at) = make_float2(v0, v1);
     } else {
@@ -563,6 +591,7 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
       nh0[i * A.nh_step] = v0;
       if (nh1) nh1[i * A.nh_step] = v1;
     }
+    if (PHASE && tid == 0) phase_out[s] = (phase_in[s] + n) % p;
   }
 }
 
@@ -571,17 +600,19 @@ size_t wide_smem_bytes(int np, int tm, int qb, int uc) {
   return sizeof(float) * ((size_t)np * tm * uc + (size_t)np * qb * tm);
 }
 
-template <int NP>
+template <int NP, bool PHASE>
 int launch_wide(const DecimArgs& a, const int* band, int tm, int qb, int uc,
-                cudaStream_t stream) {
-  const int M = a.n / a.p;
+                const int* phase_in, int* phase_out, cudaStream_t stream) {
+  const int M = PHASE ? (a.n + a.p - 1) / a.p : a.n / a.p;
   if (tm < 1 || qb < 1 || uc < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  if (PHASE && (!phase_in || !phase_out || a.hist < 1))
+    return (int)cudaErrorInvalidValue;
   // Dynamic and static shared memory together within 48 KB (no opt-in).
   const size_t smem = wide_smem_bytes(NP, tm, qb, uc);
   if (smem + kWideStatic > 48 * 1024) return (int)cudaErrorInvalidValue;
   dim3 grid((M + tm - 1) / tm, a.b, (a.q + qb - 1) / qb);
-  decimate_wide_kernel<NP><<<grid, kWideThreads, smem, stream>>>(a, band, tm,
-                                                                 qb, uc);
+  decimate_wide_kernel<NP, PHASE><<<grid, kWideThreads, smem, stream>>>(
+      a, band, tm, qb, uc, phase_in, phase_out);
   return (int)cudaGetLastError();
 }
 
@@ -663,8 +694,26 @@ int rr_decimate_wide(const DecimArgs* args, const int* band, int tm, int qb,
                      int uc, void* stream) {
   const DecimArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
-  if (a.nplanes == 1) return launch_wide<1>(a, band, tm, qb, uc, st);
-  if (a.nplanes == 2) return launch_wide<2>(a, band, tm, qb, uc, st);
+  if (a.nplanes == 1)
+    return launch_wide<1, false>(a, band, tm, qb, uc, nullptr, nullptr, st);
+  if (a.nplanes == 2)
+    return launch_wide<2, false>(a, band, tm, qb, uc, nullptr, nullptr, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Phase mode (see the head of this file) on the wide kernel: args->hist is
+// Kw - 1, args->n the chunk; phase_in [b] int32 the grid phase (row 0
+// places the windows), phase_out [b] int32 the next phase; tm, qb, uc as
+// for rr_decimate_wide with ceil(n / p) windows in place of n / p periods.
+int rr_decimate_phase(const DecimArgs* args, const int* band,
+                      const int* phase_in, int* phase_out, int tm, int qb,
+                      int uc, void* stream) {
+  const DecimArgs& a = *args;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a.nplanes == 1)
+    return launch_wide<1, true>(a, band, tm, qb, uc, phase_in, phase_out, st);
+  if (a.nplanes == 2)
+    return launch_wide<2, true>(a, band, tm, qb, uc, phase_in, phase_out, st);
   return (int)cudaErrorInvalidValue;
 }
 

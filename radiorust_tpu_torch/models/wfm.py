@@ -24,8 +24,9 @@ from ..blocks.resampling import Downsampler
 from ..blocks.transform import FreqShifter, GainControl
 from ..windowing import Rectangular
 
-__all__ = ["wfm_receiver", "WFM_INPUT_RATE", "WFM_INPUT_CHUNK",
-           "WFM_AUDIO_RATE", "WFM_AUDIO_CHUNK"]
+__all__ = ["wfm_receiver", "wfm_receiver_graph", "wfm_transmitter",
+           "WFM_INPUT_RATE", "WFM_INPUT_CHUNK", "WFM_AUDIO_RATE",
+           "WFM_AUDIO_CHUNK"]
 
 WFM_INPUT_RATE = 1024000.0
 WFM_INPUT_CHUNK = 16384
@@ -42,6 +43,35 @@ def _deemphasis_band(bins, freqs):
     keep = (np.abs(bins) >= 1) & (np.abs(freqs) >= 20.0) \
         & (np.abs(freqs) <= 16000.0)
     return np.where(keep, deemphasis_factor(50e-6, freqs), 0.0j)
+
+
+def _preemphasis_band(bins, freqs):
+    # The deemphasis inverted inside the audio band, so that transmit then
+    # receive is flat over 20 Hz - 16 kHz.
+    keep = (np.abs(bins) >= 1) & (np.abs(freqs) >= 20.0) \
+        & (np.abs(freqs) <= 16000.0)
+    return np.where(keep, 1.0 / deemphasis_factor(50e-6, freqs), 0.0j)
+
+
+def wfm_transmitter(deviation: float = 150000.0,
+                    gain: float = 1.0) -> Chain:
+    """The WFM broadcast transmitter, the receive chain's inverse:
+
+        audio 48 kHz [batch, 768]
+          -> Filter rectangular: preemphasis 50 us, 20 Hz - 16 kHz band
+          -> GainControl (modulation depth)
+          -> Upsampler to 1.024 MHz (bw 40 kHz)   [chunk 16384]
+          -> FmMod (deviation 150 kHz)
+
+    Its 1.024 Msps IQ chunks fit :func:`wfm_receiver`."""
+    from ..blocks.modulation import FmMod
+    from ..blocks.resampling import Upsampler
+    return Chain(
+        Filter.new_rectangular(_preemphasis_band),
+        GainControl(gain),
+        Upsampler(WFM_INPUT_RATE, 2.0 * 20000.0),
+        FmMod(deviation),
+    )
 
 
 def wfm_receiver(tune_shift: float = 0.0, volume: float = 1.0,
@@ -85,3 +115,37 @@ def wfm_receiver(tune_shift: float = 0.0, volume: float = 1.0,
         mid = [Filter.new(_lowpass_100k, ir_len=irl), FmDemod(deviation),
                Filter.new_rectangular(_deemphasis_band, ir_len=irl)]
     return Chain(*head, *mid, *tail, GainControl(volume))
+
+
+def wfm_receiver_graph(tune_shift: float = 0.0, volume: float = 1.0,
+                       deviation: float = 150000.0, quality: int = 4):
+    """The WFM receiver with a spectrum tap, as one graph: the tuned,
+    channel-filtered front end feeds both the audio chain and an
+    analysis chain.
+
+        iq -> shift -> decimate 384k -> LPF +-100k
+               |-> demod -> deemphasis -> decimate 48k -> gain  = "audio"
+               '-> Overlapper(q) -> Fourier(Kaiser)             = "spectrum"
+
+    Returns a :class:`~radiorust_tpu_torch.blocks.graph.Graph`; bind it
+    with the usual WFM input signature."""
+    from ..blocks.analysis import Fourier
+    from ..blocks.chunks import Overlapper
+    from ..blocks.graph import Graph
+    from ..windowing import Kaiser
+
+    g = Graph()
+    iq = g.input("iq")
+    tuned = g.chain([FreqShifter.with_shift(tune_shift),
+                     Downsampler(384000.0, 200000.0),
+                     Filter.new(_lowpass_100k)], iq)
+    g.output("audio", g.chain([
+        FmDemod(deviation),
+        Filter.new_rectangular(_deemphasis_band),
+        Downsampler(48000.0, 2.0 * 20000.0),
+        GainControl(volume)], tuned))
+    g.output("spectrum", g.chain([
+        Overlapper(quality),
+        Fourier.with_window(Kaiser.with_null_at_bin(float(quality)))],
+        tuned))
+    return g

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "rr_decimate": [_P, _I, _I, _P],        # DecimArgs*, R, G, stream
     "rr_mix_decimate": [_P, _I, _I, _P],
     "rr_decimate_wide": [_P, _P, _I, _I, _I, _P],   # args, band, tm, qb, uc
+    # args, band, phase in, phase out, tm, qb, uc
+    "rr_decimate_phase": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + _PLAN
                         + [_P] * 6 + [_I, _I, _I] + _COLUMN_SCRATCH + [_P]),
     "rr_demod_filter": ([_P] * 11 + [_I] * 3 + _PLAN + [_P] * 5 + [_I, _I]

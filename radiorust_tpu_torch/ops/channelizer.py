@@ -19,6 +19,9 @@ code there too: the branch DFT is a ``torch.matmul``) and
 On CUDA both launch the kernel of ``csrc/pfb_demod.cu`` and count the
 launch in ``fused_pfb_demod.launches``; on the CPU they run their plain
 versions (:func:`fused_pfb_demod_plain`, :func:`pfb_demod_step_plain`).
+A counter counts where a wrapper is called: under a captured CUDA
+graph (``jit_step``, ``make_scan``) that is at capture, and a replay
+counts nothing.
 """
 
 from __future__ import annotations

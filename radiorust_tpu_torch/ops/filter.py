@@ -37,7 +37,9 @@ of :func:`fft_roots`.
 Each wrapper takes the JAX function's arguments as float32 tensors.  On
 CUDA it launches the kernels of ``csrc/overlap_save.cu`` and counts the
 launch in its ``launches`` attribute; on the CPU it runs the plain
-``torch.fft`` version beside it (``*_plain``).
+``torch.fft`` version beside it (``*_plain``).  A counter counts where a
+wrapper is called: under a captured CUDA graph (``jit_step``, ``make_scan``)
+that is at capture, and a replay counts nothing.
 """
 
 from __future__ import annotations

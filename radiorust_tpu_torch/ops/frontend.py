@@ -16,7 +16,15 @@ is made), and writes complex64 outputs and histories, so no plane is
 split or merged around it.  On CUDA tensors every wrapper launches the
 hand-written kernel of ``csrc/decimate.cu`` and counts the launch in
 ``decimate.launches`` or ``fused_mix_decimate.launches``; on CPU tensors
-it runs the plain PyTorch version beside it (``*_plain``).
+it runs the plain PyTorch version beside it (``*_plain``).  A counter counts
+where a wrapper is called: under a captured CUDA graph (``jit_step``,
+``make_scan``) that is at capture, and a replay counts nothing.
+
+:func:`decimate_phase_complex` runs a phase-mode step (a chunk that is
+not a whole number of periods) on the same kernel's wide form at an
+offset it reads from the grid phase in device memory
+(``rr_decimate_phase``); its plain version is
+:func:`~radiorust_tpu_torch.ops.polyphase.rational_fir_phase`.
 
 The kernel reads the taps re-laid by phase, :func:`relay_taps`, built
 once per taps tensor on its device.  A plan whose phases or staged span
@@ -37,11 +45,12 @@ import weakref
 import torch
 
 from . import _build
-from .polyphase import rational_fir
+from .polyphase import rational_fir, rational_fir_phase
 
 __all__ = ["decimate", "decimate_plain", "fused_mix_decimate",
            "fused_mix_decimate_plain", "decimate_complex",
-           "decimate_complex_plain", "fused_mix_decimate_complex",
+           "decimate_complex_plain", "decimate_phase_complex",
+           "rational_fir_phase", "fused_mix_decimate_complex",
            "fused_mix_decimate_complex_plain", "decimate_supported",
            "relay_taps", "launch_config", "fits_block", "wide_config",
            "tap_bands"]
@@ -165,15 +174,20 @@ _relaid = {}
 
 def _cached(kernel_matrix: torch.Tensor, key, build) -> torch.Tensor:
     """``build(kernel_matrix)``, made once while the same taps tensor comes
-    back (a step loop passes one params tree)."""
+    back unmodified (a step loop passes one params tree; an in-place
+    write moves the tensor's version and rebuilds).  Entries live as long
+    as their taps tensor, so a captured CUDA graph, which holds its params
+    tree, keeps reading what it was captured with."""
     key = (id(kernel_matrix), key)
     hit = _relaid.get(key)
-    if hit is None or hit[0]() is not kernel_matrix:
-        if len(_relaid) >= 64:
-            _relaid.clear()
-        hit = (weakref.ref(kernel_matrix), build(kernel_matrix))
+    if (hit is None or hit[0]() is not kernel_matrix
+            or hit[1] != kernel_matrix._version):
+        for k in [k for k, h in _relaid.items() if h[0]() is None]:
+            del _relaid[k]
+        hit = (weakref.ref(kernel_matrix), kernel_matrix._version,
+               build(kernel_matrix))
         _relaid[key] = hit
-    return hit[1]
+    return hit[2]
 
 
 def _device_taps(kernel_matrix: torch.Tensor, p: int) -> torch.Tensor:
@@ -234,18 +248,19 @@ def _first(ts):
 
 
 def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
-            mix=None):
+            mix=None, phase=None):
     """One launch of ``rr_decimate`` / ``rr_mix_decimate`` on ``nplanes``
     input planes: xs, hs the input and history, outs, nhs the output and
     the new history (each a tuple of float32 planes or a complex64 tensor;
     a real input's outputs may be complex, and the kernel then writes
     their zero imaginary parts); mix = (table A, table B, p0 re, p0 im),
-    the tables complex64."""
+    the tables complex64; phase = (phase in, phase out), int32 [b]: a
+    phase-mode step on the wide form (``rr_decimate_phase``)."""
     x0 = _first(xs)
     b, n = x0.shape
     hist = _first(hs).shape[-1]
     kw = kernel_matrix.shape[-1]
-    wide = not fits_block(p, q, kw, nplanes)
+    wide = phase is not None or not fits_block(p, q, kw, nplanes)
     if wide and mix is not None:
         raise ValueError("mixer decimation geometry too large for one "
                          f"block (p={p}, q={q}, Kw={kw}); the mixer form "
@@ -260,11 +275,19 @@ def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
     if wide:
         a.taps = _build.f32_ptr(kernel_matrix, "kernel_matrix")
         bands = _cached(kernel_matrix, "bands", tap_bands)
-        err = _build.lib().rr_decimate_wide(
-            ctypes.addressof(a), bands.data_ptr(),
-            *wide_config(p, q, kw, n, nplanes),
-            _build.stream_handle(x0.device))
-        _build.check(err, "rr_decimate_wide")
+        stream = _build.stream_handle(x0.device)
+        if phase is None:
+            err = _build.lib().rr_decimate_wide(
+                ctypes.addressof(a), bands.data_ptr(),
+                *wide_config(p, q, kw, n, nplanes), stream)
+            _build.check(err, "rr_decimate_wide")
+            return
+        # ceil(n / p) windows: wide_config takes the periods as n // p.
+        err = _build.lib().rr_decimate_phase(
+            ctypes.addressof(a), bands.data_ptr(), phase[0].data_ptr(),
+            phase[1].data_ptr(), *wide_config(p, q, kw, -(-n // p) * p,
+                                              nplanes), stream)
+        _build.check(err, "rr_decimate_phase")
         return
     a.taps = _device_taps(kernel_matrix, p).data_ptr()
     r, g = launch_config(p, q, kw)
@@ -357,6 +380,46 @@ def decimate_complex(x, hist, kernel_matrix, p: int, q: int,
     _launch("rr_decimate", x, hist, y, nh, kernel_matrix, p, q,
             1 if real_input else 2)
     return y, nh
+
+
+def decimate_phase_complex(x, hist, phase, kernel_matrix, p: int, q: int,
+                           real_input: bool = False):
+    """One phase-mode step of complex64 streams in place: the chunk is not
+    a whole number of periods (see
+    :func:`~radiorust_tpu_torch.ops.polyphase.rational_fir_phase`, its
+    plain version, for what it computes).
+
+    ``x``: [batch, C] complex64; ``hist``: [batch, Kw - 1] complex64;
+    ``phase``: [batch] int32 grid phase, read by the kernel from device
+    memory (row 0 places the windows), so a captured step stays right as
+    the phase walks its schedule.  Returns (y [batch, ceil(C/p) q], new
+    history, new phase): the valid prefix, then exact zeros.  On CUDA
+    tensors one launch of ``rr_decimate_phase`` (the wide form of #1 at an
+    offset), counted on ``decimate.launches`` as every entry of #1 and on
+    ``decimate_phase_complex.launches``."""
+    b, n = x.shape
+    kw = kernel_matrix.shape[-1]
+    if hist.shape[-1] != kw - 1 or kw < 2:
+        raise ValueError(f"phase mode carries Kw - 1 = {kw - 1} history "
+                         f"samples, got {hist.shape[-1]}")
+    if not _build.on_cuda(x, hist, phase, kernel_matrix):
+        return rational_fir_phase(x, hist, phase, kernel_matrix, p, q,
+                                  real_input)
+    if phase.dtype != torch.int32 or not phase.is_contiguous():
+        raise ValueError(f"phase: kernel takes a contiguous int32 [batch] "
+                         f"tensor, got {phase.dtype}")
+    y = torch.empty((b, -(-n // p) * q), dtype=torch.complex64,
+                    device=x.device)
+    nh = torch.empty((b, kw - 1), dtype=torch.complex64, device=x.device)
+    new_phase = torch.empty_like(phase)
+    decimate.launches += 1
+    decimate_phase_complex.launches += 1
+    _launch("rr_decimate_phase", x, hist, y, nh, kernel_matrix, p, q,
+            1 if real_input else 2, phase=(phase, new_phase))
+    return y, nh, new_phase
+
+
+decimate_phase_complex.launches = 0
 
 
 def _mix(xr, xi, ar, ai, br, bi, p0r, p0i):

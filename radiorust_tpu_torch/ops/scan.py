@@ -21,7 +21,9 @@ maps composed by a log-depth associative scan (``ops/assoc_scan.py``).
 On CUDA tensors each wrapper launches its kernel of ``csrc/scan.cu``,
 which takes any B and T, and counts the launch in its ``launches``
 attribute (:func:`agc_step` on ``agc_scan.launches``); on CPU tensors it
-runs the plain version.
+runs the plain version.  A counter counts where a wrapper is called: under a
+captured CUDA graph (``jit_step``, ``make_scan``) that is at capture, and a
+replay counts nothing.
 
 The slew kernel splits each stream's T samples into segments of
 :func:`segment_length` samples, walks each from a guessed carry and

@@ -12,8 +12,10 @@
 (0.5+0j)
 """
 
-from .blocks.base import (Block, BoundBlock, Chain, StreamSig, no_reset,
-                          scan)
+from .blocks.analysis import Fourier
+from .blocks.base import (Block, BoundBlock, Chain, StreamSig, jit_step,
+                          make_scan, no_reset, scan)
+from .blocks.chunks import Overlapper, rechunk
 from .blocks.channelize import Channelizer, ChannelizerDemod
 from .blocks.filters import (Filter, FilterBank, SlewRateLimiter,
                              deemphasis_factor)
@@ -21,24 +23,30 @@ from .blocks.frontend import FilterDemodFilter, FmDemodFilter, MixerDecimator
 from .blocks.graph import BoundGraph, Graph, NodeRef, graph_scan
 from .blocks.modulation import FmDemod, FmMod
 from .blocks.morse import Keyer, Speed, encode
-from .blocks.resampling import Downsampler
+from .blocks.resampling import Downsampler, Upsampler
 from .blocks.transform import (AgcControl, Combine, FreqShifter, GainControl,
                                MapSample, Nop, Squelch)
 from .convert import tree_to_numpy, tree_to_torch
+from .metering import (bandwidth, bandwidth_torch, level, level_torch,
+                       rescale_energy, rescale_energy_torch)
 from .signal import (BufferOverflow, Disconnection, Event, Samples,
                      SamplesLost, Warmup)
 from .windowing import CustomWindow, Kaiser, Rectangular, Window
 
 __all__ = [
     "Block", "BoundBlock", "Chain", "StreamSig", "no_reset", "scan",
+    "jit_step", "make_scan", "Fourier", "Overlapper", "rechunk",
     "Channelizer", "ChannelizerDemod",
     "Filter", "FilterBank", "SlewRateLimiter", "deemphasis_factor",
     "FilterDemodFilter", "FmDemodFilter", "MixerDecimator",
     "Graph", "BoundGraph", "NodeRef", "graph_scan",
     "FmMod", "FmDemod", "Keyer", "Speed", "encode", "Downsampler",
+    "Upsampler",
     "AgcControl", "FreqShifter", "GainControl", "MapSample", "Nop",
     "Combine", "Squelch",
     "tree_to_numpy", "tree_to_torch",
+    "level", "bandwidth", "rescale_energy", "level_torch",
+    "bandwidth_torch", "rescale_energy_torch",
     "Event", "Samples", "Disconnection", "SamplesLost", "BufferOverflow",
     "Warmup",
     "CustomWindow", "Kaiser", "Rectangular", "Window",

@@ -23,7 +23,8 @@ from radiorust_tpu_torch.models.analog import am_receiver
 from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
 from radiorust_tpu_torch.models.wfm import wfm_receiver
 from radiorust_tpu_torch.ops import frontend as tfe
-from radiorust_tpu_torch.ops.polyphase import plan_downsample
+from radiorust_tpu_torch.ops.polyphase import (plan_downsample,
+                                               plan_upsample)
 
 REL = 1e-5          # model vs plain, max |diff| / max |ref| (FIR_BOUND)
 LANES = 32
@@ -435,19 +436,29 @@ def _wide_plan(name):
     return plan_downsample(rate_in, rate_out, bw), n
 
 
-def wide_model(xs_in, hs_in, W, p, q, cfg=None):
+def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None):
     """One launch of ``decimate_wide_kernel``: xs_in [b, NP, n], hs_in
     [b, NP, hist] float32, W [q, Kw]; cfg = (tm, qb, uc) or None for
-    ``wide_config``.  Block by block (tile, stream, phase block): the
-    rows' joint band, the staged windows per chunk of uc taps (NaN where
-    nothing is staged), each row's lanes over its band with fmaf, the
-    shuffle tree, the partial sums, the outputs and the history copy.
-    Returns (y [b, NP, M q], new hist)."""
+    the wrapper's ``wide_config``.  Block by block (tile, stream, phase
+    block): the rows' joint band, the staged windows per chunk of uc taps
+    (NaN where nothing is staged), each row's lanes over its band with
+    fmaf, the shuffle tree, the partial sums, the outputs and the history
+    copy.  ``phase`` [b] int32: phase mode (``rr_decimate_phase``), hist =
+    Kw - 1, M = ceil(n / p) windows from the offset p - 1 - phase[0],
+    zeros read past the chunk, windows from v = (phase[0] + n) // p on
+    written as zeros.  Returns (y [b, NP, M q], new hist), and in phase
+    mode the new phase too."""
     b, NP, n = xs_in.shape
     hist = hs_in.shape[-1]
     kw = W.shape[-1]
-    M = n // p
-    tm, qb, ucap = cfg or tfe.wide_config(p, q, kw, n, NP)
+    if phase is None:
+        M, o0, v = n // p, 0, n // p
+        assert hist == kw - p
+    else:
+        M = -(-n // p)
+        o0, v = p - 1 - int(phase[0]), (int(phase[0]) + n) // p
+        assert hist == kw - 1
+    tm, qb, ucap = cfg or tfe.wide_config(p, q, kw, M * p, NP)
     assert 4 * (NP * tm * ucap + NP * qb * tm) <= tfe._WIDE_SMEM
     band = tfe.tap_bands(torch.from_numpy(W)).numpy()
     lane = np.arange(LANES)
@@ -462,12 +473,13 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None):
         for U0 in range(ulo, uhi, ucap):
             uc = min(ucap, uhi - U0)
             S = np.full((NP, tm, ucap), np.nan, np.float32)
-            j = (m0 + np.arange(mt)[:, None]) * p + U0 + np.arange(uc)
-            assert (j < hist + n).all()
+            j = o0 + (m0 + np.arange(mt)[:, None]) * p + U0 + np.arange(uc)
+            assert phase is not None or (j < hist + n).all()
             from_h = np.where(j < hist, j, 0)
-            from_x = np.where(j < hist, 0, j - hist)
-            S[:, :mt, :uc] = np.where(j < hist, hs_in[s][:, from_h],
-                                      xs_in[s][:, from_x])
+            from_x = np.where((j >= hist) & (j < hist + n), j - hist, 0)
+            S[:, :mt, :uc] = np.where(
+                j < hist, hs_in[s][:, from_h],
+                np.where(j < hist + n, xs_in[s][:, from_x], 0.0))
             for rr in range(nr):
                 r = r0 + rr
                 lo, hi = max(band[r, 0], U0), min(band[r, 1], U0 + uc)
@@ -489,12 +501,16 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None):
                     k = min(WIDE_OUT, mt - mb)
                     red[:, rr, mb:mb + k] += acc[:, 0, :k]
         m = np.arange(mt)
+        done = (m0 + m) < v
         for rr in range(nr):
-            y[s][:, (m0 + m) * q + r0 + rr] = red[:, rr, :mt]
+            y[s][:, (m0 + m) * q + r0 + rr] = np.where(done, red[:, rr, :mt],
+                                                       0.0)
         if tile == tiles - 1 and z == 0:
             buf = np.concatenate([hs_in[s], xs_in[s]], axis=-1)
             nh[s] = buf[:, n:n + hist]
-    return y, nh
+    if phase is None:
+        return y, nh
+    return y, nh, ((phase + n) % p).astype(np.int32)
 
 
 # (plan, planes, (tm, qb, uc) or None for wide_config): the three plans
@@ -549,3 +565,97 @@ def test_wide_configs_and_bands(name):
     zero = np.zeros((2, 5), np.float32)
     zero[1, 2] = 1.0
     assert tfe.tap_bands(torch.from_numpy(zero)).tolist() == [[5, 0], [2, 3]]
+
+
+# (maker of the plan, chunk, steps): every phase-mode plan the port binds
+# on the paths and the JAX tests, chained chunk after chunk.  384 kHz ->
+# 44.1 kHz at 6144 (the 44.1 kHz receiver's tail: p = 1280, q = 147, a
+# schedule of 5 steps, 588 or 735 valid samples), 8:3 at 60, 100 and 7
+# (7 is shorter than a period: the history is longer than the chunk),
+# the upsample 384 -> 1024 at 64, and 1.024 MHz -> 44.1 kHz and 22.05 kHz
+# at 16384 (p = 10240, 20480: at 22.05 kHz some steps have no window).
+PHASE_PLANS = {
+    "384k to 44.1k at 6144": (lambda: plan_downsample(384000.0, 44100.0,
+                                                      36000.0), 6144, 4),
+    "8:3 at 60": (lambda: plan_downsample(1024.0, 384.0, 200.0), 60, 8),
+    "8:3 at 100": (lambda: plan_downsample(1024.0, 384.0, 200.0), 100, 8),
+    "8:3 at 7": (lambda: plan_downsample(1024.0, 384.0, 200.0), 7, 8),
+    "384 to 1024 at 64": (lambda: plan_upsample(384.0, 1024.0, 300.0), 64,
+                          6),
+    "1.024M to 44.1k at 16384": (lambda: plan_downsample(
+        1024000.0, 44100.0, 17640.0), 16384, 3),
+    "1.024M to 22.05k at 16384": (lambda: plan_downsample(
+        1024000.0, 22050.0, 8820.0), 16384, 3),
+}
+
+
+@pytest.mark.parametrize("name", list(PHASE_PLANS))
+def test_phase_model_matches_rational_fir_phase(name):
+    """The phase-mode kernel's index arithmetic (the offset read from the
+    phase, zeros past the chunk, windows masked from v on, the history
+    reaching back into the old one) against ``rational_fir_phase``, step
+    after step with the history and phase handed on, on two planes and
+    on one (a real input); the masked windows exact zeros, the history
+    and phase equal bit for bit."""
+    make, n, steps = PHASE_PLANS[name]
+    plan = make()
+    p, q, W = plan.p, plan.q, plan.kernel
+    kw = W.shape[-1]
+    assert not plan.aligned(n)
+    rng = np.random.default_rng(n + kw)
+    b = 2
+    for NP in (2, 1):
+        xs = rng.standard_normal((steps, b, 2, n)).astype(np.float32)
+        if NP == 1:
+            xs[:, :, 1] = 0.0
+        h = rng.standard_normal((b, 2, kw - 1)).astype(np.float32)
+        if NP == 1:
+            h[:, 1] = 0.0
+        ph = np.zeros(b, np.int32)
+        th, tph = torch.from_numpy(h[:, 0] + 1j * h[:, 1]), torch.zeros(
+            b, dtype=torch.int32)
+        valid = plan.valid_counts(n, 0, steps)
+        for k in range(steps):
+            got, nh, nph = wide_model(xs[k, :, :NP], h[:, :NP], W, p, q,
+                                      phase=ph)
+            x = torch.from_numpy(xs[k, :, 0] + 1j * xs[k, :, 1])
+            y, th, tph = tfe.rational_fir_phase(
+                x, th, tph, torch.from_numpy(W), p, q, real_input=NP == 1)
+            want = np.stack([y.real.numpy(), y.imag.numpy()], 1)[:, :NP]
+            assert got.shape == want.shape == (b, NP, -(-n // p) * q)
+            assert np.all(got[..., valid[k]:] == 0)
+            if valid[k]:
+                assert _rel(got[..., :valid[k]], want[..., :valid[k]]) <= REL
+            want_h = np.stack([th.real.numpy(), th.imag.numpy()], 1)[:, :NP]
+            np.testing.assert_array_equal(nh, want_h)
+            np.testing.assert_array_equal(nph, tph.numpy())
+            h[:, :NP], ph = nh, nph
+        assert int(ph[0]) == (steps * n) % p
+
+
+@pytest.mark.parametrize("name", list(PHASE_PLANS))
+def test_phase_wrapper_on_cpu_is_the_plain_version(name):
+    """``decimate_phase_complex`` on CPU tensors is ``rational_fir_phase``
+    (no launch), and the launch shape it would take fits shared memory."""
+    make, n, _ = PHASE_PLANS[name]
+    plan = make()
+    p, q, W = plan.p, plan.q, torch.from_numpy(plan.kernel)
+    kw = W.shape[-1]
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal((2, n))
+                          + 1j * rng.standard_normal((2, n))).astype(
+                              np.complex64))
+    h = torch.zeros((2, kw - 1), dtype=torch.complex64)
+    ph = torch.tensor([p - 1, p - 1], dtype=torch.int32)
+    before = tfe.decimate_phase_complex.launches
+    got = tfe.decimate_phase_complex(x, h, ph, W, p, q)
+    want = tfe.rational_fir_phase(x, h, ph, W, p, q)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert tfe.decimate_phase_complex.launches == before
+    e = -(-n // p)
+    tm, qb, uc = tfe.wide_config(p, q, kw, e * p, 2)
+    assert tm == min(e, 32) and qb == min(q, 32) and uc >= 1
+    assert 4 * (2 * tm * uc + 2 * qb * tm) <= tfe._WIDE_SMEM
+    with pytest.raises(ValueError):
+        tfe.decimate_phase_complex(x, h[:, 1:], ph, W, p, q)
