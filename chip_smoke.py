@@ -71,7 +71,23 @@
    H. ``wfm_receiver()`` at ``StreamSig(8, 262144, 1.024e6)``, 4 chunks:
       FM tones; its two Filters on #3 at 768 x 256 points;
    I. ``Downsampler(44100, 20000)`` and ``GainControl`` at
-      ``StreamSig(64, 1600, 48000)``: tones; #1's wide form.
+      ``StreamSig(64, 1600, 48000)``: tones; #1's wide form;
+   J-M (see ``PERF.md`` section 4);
+   N. the streaming runtime (``radiorust_tpu_torch.runtime``) on the
+      card: N1 ``ArraySource`` -> ``RuntimeBlock(A's chain)`` ->
+      ``ArraySink`` at ``pipeline_depth`` 0 and 2 (one ``Warmup`` first,
+      16 chunks in the stats), N2 a ``set_shift`` after chunk 8 (its
+      latency to the first retuned output, the recapture inside it), N3
+      a checkpoint after chunk 8 resumed by a fresh actor, N4 C's graph
+      through ``RuntimeGraph`` (both outputs), N5 K's chain (the actor
+      trims the phase-mode tail: gapless over three schedule periods), N6
+      ``NativeGraph`` with two stages on two threads capturing at once
+      (batch 8); each equal to the eager run on the card bit for bit.
+      Then the serving numbers (``{"serving": ...}`` line): A's chain
+      through the actor at depth 0, 1, 2 and 4, one stream of 16384
+      samples a chunk at depth 0 and 2, and ``make_scan`` on the same
+      chunks: Msamples/s, wall and actor host us a chunk, bytes in and
+      out a chunk, and with ``--profile`` the device's busy us a chunk.
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
    repetitions, or one run of a 16-chunk sequence; every kernel also as
@@ -88,13 +104,15 @@ on random input and on E audio's keyer envelopes.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
-second-to-last line is a JSON object of the kernels; the last line is
+JSON lines ``{"graphed": ...}`` and ``{"serving": ...}`` precede the
+second-to-last line, a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -565,6 +583,420 @@ def slew_clocks(dev, randn) -> None:
               f"{int(segs[:, 3].max())}; repair walks {segs[:, 1].sum():.0f} "
               f"cycles over {int(full)} steps walked to a segment's end"
               + (f" ({segs[:, 1].sum() / full:.1f} a step)" if full else ""))
+
+
+class _Feed:
+    """A sending end this script owns: any actor can ``feed_from`` it."""
+
+    def __init__(self, new_sender):
+        self.sender, self.sender_connector = new_sender()
+
+
+def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
+    """Path N: the port's streaming runtime on the card, at full width.
+
+    N1 ``ArraySource`` -> ``RuntimeBlock(path A's chain)`` -> ``ArraySink``
+    at depth 0 and 2; N2 a ``set_shift`` after chunk 8; N3 a checkpoint
+    after chunk 8 resumed by a fresh actor; N4 path C's graph through
+    ``RuntimeGraph`` (both outputs); N5 path K's chain, its phase-mode
+    tail trimmed by the actor; N6 ``NativeGraph`` with two stages on two
+    threads at batch 8, capturing at once.  Each against the eager run on
+    the card, bit for bit, with the launch counters at 0 just before and
+    read just after.  Then the serving numbers; returns them."""
+    import asyncio
+
+    from radiorust_tpu_torch.blocks.base import StreamSig, make_scan, scan
+    from radiorust_tpu_torch.blocks.graph import graph_scan
+    from radiorust_tpu_torch.convert import tree_to_numpy, tree_to_torch
+    from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
+    from radiorust_tpu_torch.models.wfm import wfm_receiver
+    from radiorust_tpu_torch.ops import filter as ofl
+    from radiorust_tpu_torch.ops import frontend as ofe
+    from radiorust_tpu_torch.runtime import (ArraySink, ArraySource,
+                                             Blackhole, RuntimeBlock,
+                                             RuntimeGraph, new_sender,
+                                             wait_until)
+    from radiorust_tpu_torch.runtime.blocks import upload
+    from radiorust_tpu_torch.runtime.native import NativeGraph
+    from radiorust_tpu_torch.signal import Samples
+
+    want_a = [ofe.fused_mix_decimate, ofl.fused_overlap_save,
+              ofl.fused_demod_filter, ofe.decimate]
+    steps_per_capture = 3     # jit_step: two eager warm-up steps + capture
+
+    def zero():
+        torch.cuda.synchronize()
+        for w in wrappers:
+            w.launches = 0
+
+    def counted(label, want):
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers}
+        print(f"path {label} launches (counted at capture and its warm-up "
+              f"steps; replays do not count): {launches}")
+        for w in want:
+            if launches[w.__name__] < 1:
+                raise AssertionError(f"{w.__name__} was not launched on "
+                                     f"path {label}")
+        return launches
+
+    def same(label, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.shape != want.shape:
+            raise AssertionError(f"path {label}: shape {got.shape}, eager "
+                                 f"{want.shape}")
+        diff = float(np.abs(got - want).max()) if got.size else 0.0
+        equal = bool(np.array_equal(got, want))
+        print(f"path {label}: vs eager on the card max|diff|={diff:.3e} over "
+              f"{got.shape}, bit for bit: {equal} {tag}")
+        if not equal:
+            raise AssertionError(f"path {label} differs from the eager run")
+
+    def eager(bound, xs_host, graph=False):
+        params = tree_to_torch(bound.params, dev)
+        state0 = tree_to_torch(bound.init_state(), dev)
+        if graph:
+            _, ys = graph_scan(bound, params, state0,
+                               {"iq": torch.from_numpy(xs_host).to(dev)})
+            return {k: v.cpu().numpy() for k, v in ys.items()}
+        _, ys = scan(bound, params, state0, torch.from_numpy(xs_host).to(dev))
+        return ys.cpu().numpy()
+
+    async def run_array(make_actor, xs_host, rate, outputs=(None,)):
+        """[T, batch, n] chunks from an ArraySource (its rows, ``batch`` a
+        chunk) through ``make_actor()`` into one ArraySink per output;
+        returns (actor, sinks, [(outputs before it, event)] per output)."""
+        t_chunks, batch, n = xs_host.shape
+        actor = make_actor()
+        src = ArraySource(xs_host.reshape(t_chunks * batch, n), batch, rate)
+        actor.feed_from(src)
+        sinks, events, guards = {}, {}, []
+        for name in outputs:
+            sink = sinks[name] = ArraySink()
+            sink.feed_from(actor if name is None else actor.out(name))
+            seen = events[name] = []
+            guards.append(sink.on_event(
+                lambda e, s=sink, seen=seen: seen.append((len(s.chunks), e))))
+        await asyncio.wait_for(asyncio.gather(
+            src._task, actor._task, *[s._task for s in sinks.values()]),
+            600.0)
+        if actor.failure is not None:
+            raise RuntimeError(f"{actor.name} failed") from actor.failure
+        return actor, sinks, events
+
+    def warmup_first(label, events, valid_from):
+        kinds = [(n, type(e).__name__, getattr(e, "steps", None))
+                 for n, e in events]
+        print(f"path {label}: events (outputs before, kind, steps) {kinds}")
+        if kinds != [(0, "Warmup", valid_from)]:
+            raise AssertionError(f"path {label}: want one Warmup("
+                                 f"{valid_from}) before any output")
+
+    # -- N1: A's chain through the actor -----------------------------------
+    sig = StreamSig(BATCH, CHUNK, RATE)
+    bound_a = wfm_receiver(**CHAIN).bind(sig)
+    tones = 400.0 + 190.0 * np.arange(BATCH)
+    xs_a = fm_tones(tones, T, CHUNK, offset=-100e3)
+    want_n1 = eager(bound_a, xs_a)
+    per_chunk = {}
+    for depth in (0, 2):
+        label = f"N1 (depth {depth})"
+        zero()
+        actor, sinks, events = asyncio.run(run_array(
+            lambda: RuntimeBlock(wfm_receiver(**CHAIN), name=f"N1-{depth}",
+                                 pipeline_depth=depth, device=dev),
+            xs_a, RATE))
+        launches = counted(label, want_a)
+        same(label, np.stack(sinks[None].chunks), want_n1)
+        warmup_first(label, events[None], bound_a.valid_from)
+        if actor.stats.chunks != T:
+            raise AssertionError(f"path {label}: stats recorded "
+                                 f"{actor.stats.chunks} chunks")
+        (step,) = [b._jit for b in actor._bindings.values()]
+        per_chunk = {k: v / steps_per_capture for k, v in launches.items()}
+        print(f"path {label}: {actor.stats.chunks} chunks, {step.captures} "
+              f"capture ({step.capture_ms:.1f} ms); wrapper calls in one "
+              f"captured step: {per_chunk}")
+
+    # -- N2: a retune mid-stream -------------------------------------------
+    new_shift = 102e3
+
+    async def retuned():
+        actor = RuntimeBlock(wfm_receiver(**CHAIN), name="N2", device=dev)
+        feed = _Feed(new_sender)
+        sink = ArraySink()
+        actor.feed_from(feed)
+        sink.feed_from(actor)
+        for i in range(T):
+            if i == T // 2:
+                await wait_until(lambda: len(sink.chunks) >= i, actor,
+                                 poll=0.0)
+                t_call = time.perf_counter()
+                actor.set_shift(new_shift)
+                t_set = time.perf_counter()
+            await feed.sender.send(Samples(RATE, xs_a[i]))
+            if i == T // 2:
+                await wait_until(lambda: len(sink.chunks) > i, actor,
+                                 poll=0.0)
+                t_out = time.perf_counter()
+        await wait_until(lambda: len(sink.chunks) >= T, actor)
+        feed.sender.close()
+        await actor._task
+        (step,) = [b._jit for b in actor._bindings.values()]
+        return (sink.chunks, (t_set - t_call) * 1e3,
+                (t_out - t_call) * 1e3, step)
+
+    zero()
+    chunks_n2, set_ms, latency_ms, step_n2 = asyncio.run(retuned())
+    counted("N2", want_a)
+    params = tree_to_torch(bound_a.params, dev)
+    state, ys_a = scan(bound_a, params,
+                       tree_to_torch(bound_a.init_state(), dev),
+                       torch.from_numpy(xs_a[:T // 2]).to(dev))
+    host_p, host_s = list(bound_a.params), list(tree_to_numpy(state))
+    for i, blk in enumerate(bound_a.blocks):
+        if hasattr(blk, "retune"):
+            host_p[i], host_s[i] = blk.retune(host_p[i], host_s[i], new_shift)
+    _, ys_b = scan(bound_a, tree_to_torch(tuple(host_p), dev),
+                   tree_to_torch(tuple(host_s), dev),
+                   torch.from_numpy(xs_a[T // 2:]).to(dev))
+    same("N2", np.stack(chunks_n2), torch.cat([ys_a, ys_b]).cpu().numpy())
+    retune = dict(set_shift_ms=set_ms, to_first_output_ms=latency_ms,
+                  capture_ms=step_n2.capture_ms, captures=step_n2.captures)
+    print(f"path N2: set_shift({new_shift:.0f}) after chunk {T // 2}: "
+          f"{set_ms:.2f} ms in set_shift, {latency_ms:.1f} ms to the first "
+          f"retuned output, of which the recapture {step_n2.capture_ms:.1f} "
+          f"ms ({step_n2.captures} captures) {tag}")
+    if step_n2.captures != 2:
+        raise AssertionError("path N2: a retune must cost one recapture")
+
+    # -- N3: a checkpoint resume -------------------------------------------
+    ckpt = HERE / "build" / "chip_smoke" / "n3.npz"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+
+    async def fed(make_actor, chunks, save=None, load=None):
+        actor = make_actor()
+        if load is not None:
+            actor.load_checkpoint(str(load))
+        feed = _Feed(new_sender)
+        sink = ArraySink()
+        actor.feed_from(feed)
+        sink.feed_from(actor)
+        for x in chunks:
+            await feed.sender.send(Samples(RATE, x))
+        await wait_until(lambda: len(sink.chunks) >= len(chunks), actor)
+        if save is not None:
+            actor.save_checkpoint(str(save))
+        feed.sender.close()
+        await actor._task
+        return sink
+
+    zero()
+    asyncio.run(fed(lambda: RuntimeBlock(wfm_receiver(**CHAIN), device=dev),
+                    xs_a[:T // 2], save=ckpt))
+    resumed = asyncio.run(fed(
+        lambda: RuntimeBlock(wfm_receiver(**CHAIN), device=dev),
+        xs_a[T // 2:], load=ckpt))
+    counted("N3", want_a)
+    same("N3", np.stack(resumed.chunks), want_n1[T // 2:])
+    if resumed.events:
+        raise AssertionError(f"path N3: the resumed actor sent "
+                             f"{resumed.events}")
+
+    # -- N4: C's stereo graph through RuntimeGraph --------------------------
+    bound_c = wfm_stereo_receiver(**STEREO).bind({"iq": sig})
+    xs_c = stereo_fm(T, BATCH, CHUNK, offset=-100e3)
+    want_c = eager(bound_c, xs_c, graph=True)
+    zero()
+    _, sinks, events = asyncio.run(run_array(
+        lambda: RuntimeGraph(wfm_stereo_receiver(**STEREO), name="N4",
+                             device=dev), xs_c, RATE,
+        outputs=("stereo", "pilot")))
+    counted("N4", [ofe.fused_mix_decimate, ofl.fused_overlap_save,
+                   ofl.fused_filter_bank, ofe.decimate])
+    for name in ("stereo", "pilot"):
+        same(f"N4 {name}", np.stack(sinks[name].chunks), want_c[name])
+        warmup_first(f"N4 {name}", events[name], bound_c.valid_from[name])
+
+    # -- N5: K's chain, its phase-mode tail trimmed by the actor ------------
+    bound_k = k_chain().bind(StreamSig(BATCH, 16384, RATE))
+    tail = bound_k.blocks[-1]
+    period = tail.plan.p // math.gcd(tail.plan.p, tail.in_sig.chunk_len)
+    if T < 3 * period:
+        raise AssertionError("path N5: fewer than three schedule periods")
+    xs_k = fm_tones(400.0 + 190.0 * np.arange(BATCH), T, 16384, offset=0.0)
+    ys_k = eager(bound_k, xs_k)
+    valid = bound_k.valid_counts(0, T)
+    zero()
+    _, sinks, events = asyncio.run(run_array(
+        lambda: RuntimeBlock(k_chain(), name="N5", device=dev), xs_k, RATE))
+    counted("N5", [ofe.decimate, ofl.fused_overlap_save,
+                   ofe.decimate_phase_complex])
+    got = sinks[None].chunks
+    kept = [ys_k[k, :, :valid[k]] for k in range(T) if valid[k]]
+    if [g.shape for g in got] != [k.shape for k in kept]:
+        raise AssertionError(f"path N5: chunk shapes "
+                             f"{[g.shape[-1] for g in got]}, schedule "
+                             f"{valid.tolist()}")
+    same("N5", np.concatenate(got, axis=-1), np.concatenate(kept, axis=-1))
+    print(f"path N5: {len(got)} chunks over {T / period:.1f} schedule "
+          f"periods of {period}, valid counts {valid.tolist()}, gapless")
+
+    # -- N6: NativeGraph, two stages on two threads at batch 8 --------------
+    sig8 = StreamSig(8, CHUNK, RATE)
+    unfused = dict(tune_shift=100e3, filter_ir_len=6144)
+    xs_n6 = xs_a[:, :8]
+    want_p = eager(wfm_receiver(**unfused).bind(sig8), xs_n6)
+    want_q = eager(wfm_receiver(**CHAIN).bind(sig8), xs_n6)
+    zero()
+    g = NativeGraph()
+    src = g.source([Samples(RATE, x) for x in xs_n6])
+    stage_p = g.block(wfm_receiver(**unfused), src, name="N6-unfused",
+                      device=dev)
+    stage_q = g.block(wfm_receiver(**CHAIN), src, name="N6-fused",
+                      device=dev)
+    out_p, out_q = g.sink(stage_p), g.sink(stage_q)
+    t_n6 = time.perf_counter()
+    g.run(timeout=600.0)
+    t_n6 = time.perf_counter() - t_n6
+    counted("N6", [ofe.decimate, ofl.fused_overlap_save,
+                   ofe.fused_mix_decimate, ofl.fused_demod_filter])
+    same("N6 unfused stage", np.stack(out_p.chunks), want_p)
+    same("N6 fused stage", np.stack(out_q.chunks), want_q)
+    for stage in (stage_p, stage_q):
+        (b,) = stage.bindings.values()
+        print(f"path N6 {stage.name}: {stage.stats.chunks} chunks on its "
+              f"thread, {b._jit.captures} capture ({b._jit.capture_ms:.1f} "
+              f"ms); the graph ran in {t_n6 * 1e3:.1f} ms")
+
+    # -- serving numbers ------------------------------------------------------
+    serving = {}
+
+    async def serve_case(label, spec, chunks, depth, out_len, warm=6):
+        """Chunks pushed as fast as backpressure lets them through the
+        actor into a Blackhole: after ``warm`` chunks (the bind, the
+        capture, the pinned buffers of the pipeline), two timed windows
+        (wall and the actor's host seconds each), and with --profile a
+        third under torch.profiler (device busy)."""
+        actor = RuntimeBlock(spec, name=f"serve {label}",
+                             pipeline_depth=depth, device=dev)
+        feed = _Feed(new_sender)
+        hole = Blackhole()
+        actor.feed_from(feed)
+        hole.feed_from(actor)
+
+        async def push(xs):
+            target = hole.samples_seen + len(xs) * out_len
+            for x in xs:
+                await feed.sender.send(Samples(RATE, x))
+            await wait_until(lambda: hole.samples_seen >= target, actor,
+                             poll=0.0)
+
+        await push(chunks[:warm])
+        walls, hosts = [], []
+        for _ in range(2):
+            host0 = actor.stats.host_seconds
+            t_wall = time.perf_counter()
+            await push(chunks)
+            walls.append(time.perf_counter() - t_wall)
+            hosts.append(actor.stats.host_seconds - host0)
+        busy = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+            torch.cuda.synchronize()
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                await push(chunks)
+                torch.cuda.synchronize()
+            rows = [(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)),
+                     e.count, e.key) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(r[0] for r in rows) / len(chunks)
+            for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+                print(f"  serve {label}: {dev_us / len(chunks):8.1f} us/chunk "
+                      f"{count / len(chunks):5.2f} launches/chunk "
+                      f"{key[:80]}")
+        feed.sender.close()
+        await actor._task
+        return walls, hosts, busy
+
+    def staging_us(chunks):
+        """Host us a chunk of the actor's staging alone: the cast into
+        pinned memory and the copy's issue (``runtime.blocks.upload``)."""
+        for x in chunks[:2]:
+            upload(x, dev)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        for x in chunks:
+            upload(x, dev)
+        us = (time.perf_counter() - t_host) / len(chunks) * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def serving_row(label, spec, chunks, depth, out_len, out_batch):
+        walls, hosts, busy = asyncio.run(serve_case(label, spec, chunks,
+                                                    depth, out_len))
+        n = len(chunks)
+        shape = np.shape(chunks[0])
+        batch, length = (shape if len(shape) == 2 else (1, shape[0]))
+        wall, host = sum(walls) / len(walls), sum(hosts) / len(hosts)
+        row = dict(depth=depth, chunks=n, batch=batch, chunk_len=length,
+                   msamples_s=n * batch * length / wall / 1e6,
+                   wall_us_per_chunk=wall / n * 1e6,
+                   wall_us_per_chunk_runs=[w / n * 1e6 for w in walls],
+                   host_us_per_chunk=host / n * 1e6,
+                   staging_us_per_chunk=staging_us(chunks),
+                   device_busy_us_per_chunk=busy,
+                   bytes_in_per_chunk=batch * length * 8,
+                   bytes_out_per_chunk=out_batch * out_len * 8)
+        serving[label] = row
+        fmt = "not measured" if busy is None else f"{busy:.1f} us"
+        runs = " / ".join(f"{w:.1f}" for w in row["wall_us_per_chunk_runs"])
+        print(f"serving {label}: {row['msamples_s']:.1f} Msamples/s, wall "
+              f"{row['wall_us_per_chunk']:.1f} us a chunk ({runs}), actor "
+              f"host {row['host_us_per_chunk']:.1f} us a chunk (staging "
+              f"{row['staging_us_per_chunk']:.1f}), device busy {fmt} a "
+              f"chunk, {row['bytes_in_per_chunk']} B in / "
+              f"{row['bytes_out_per_chunk']} B out a chunk {tag}")
+
+    def scan_row(label, bound, xs_host):
+        """make_scan's graphed step over the same chunks, on the card."""
+        run = make_scan(bound)
+        params = tree_to_torch(bound.params, dev)
+        state0 = tree_to_torch(bound.init_state(), dev)
+        xs = torch.from_numpy(xs_host).to(dev)
+        run(params, state0, xs)
+        t_chunks = xs_host.shape[0]
+        step_ms = cuda_ms(lambda: run(params, state0, xs), reps=3) / t_chunks
+        busy = (profile_chain(lambda: run(params, state0, xs), t_chunks,
+                              f"make_scan {label} {tag}")
+                if profile else None)
+        samples = xs_host.shape[1] * xs_host.shape[2]
+        serving[label] = dict(
+            chunks=t_chunks, wall_us_per_chunk=step_ms * 1e3,
+            msamples_s=samples / (step_ms * 1e-3) / 1e6,
+            device_busy_us_per_chunk=busy, inputs="on the card")
+        print(f"serving {label}: {serving[label]['msamples_s']:.1f} "
+              f"Msamples/s, {step_ms * 1e3:.1f} us a chunk (inputs on the "
+              f"card) {tag}")
+        run.free()
+
+    chunks_a = list(xs_a)
+    for depth in (0, 1, 2, 4):
+        serving_row(f"A {BATCH}x{CHUNK} depth {depth}",
+                    wfm_receiver(**CHAIN), chunks_a, depth,
+                    bound_a.out_sig.chunk_len, BATCH)
+    scan_row(f"A {BATCH}x{CHUNK} make_scan", bound_a, xs_a)
+    one = dict(tune_shift=100e3, fuse_frontend=True, filter_ir_len=6144)
+    bound_1 = wfm_receiver(**one).bind(StreamSig(1, 16384, RATE))
+    xs_1 = fm_tones([1000.0], 128, 16384, offset=-100e3)
+    for depth in (0, 2):
+        serving_row(f"1x16384 depth {depth}", wfm_receiver(**one),
+                    list(xs_1[:, 0]), depth, bound_1.out_sig.chunk_len, 1)
+    scan_row("1x16384 make_scan", bound_1, xs_1[:T])
+    return dict(cases=serving, retune=retune,
+                wrapper_calls_per_chunk_a=per_chunk)
 
 
 def main() -> None:
@@ -2072,6 +2504,12 @@ def main() -> None:
             want=want_m)
     t0 = phase("path M", t0)
 
+    # Path N: the streaming runtime (RuntimeBlock, RuntimeGraph,
+    # NativeGraph) serving A's chain, C's graph and K's chain.
+    runtime = runtime_paths(dev, tag, wrappers, k_chain,
+                            "--profile" in sys.argv[1:])
+    t0 = phase("path N", t0)
+
     # Each kernel's launches are those of the path it was checked at.
     path_of = {"decimate": launches_a, "fused_mix_decimate": launches_a,
                "fused_overlap_save": launches_a,
@@ -2105,6 +2543,7 @@ def main() -> None:
                   f"{tag}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"graphed": graphed_rows}))
+    print(json.dumps({"serving": runtime}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,7 @@ eagerly.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Sequence
@@ -315,6 +316,10 @@ class _Capture:
 
 _WARMUP_STEPS = 2
 
+# One capture at a time in the process (torch.cuda.graph's own rule): the
+# actors of the native runtime capture their steps on their own threads.
+_CAPTURE_LOCK = threading.Lock()
+
 
 class _Compiled:
     """The runner behind :func:`jit_step` and :func:`make_scan`.
@@ -322,6 +327,8 @@ class _Compiled:
     On CPU tensors it runs eagerly.  On CUDA tensors it captures a
     ``torch.cuda.CUDAGraph`` per (shapes, dtypes, device, reset given)
     and params tree, and replays it; a capture that fails raises.
+    Captures run one at a time in the process, in ``thread_local`` mode,
+    so other threads may allocate, copy and replay meanwhile.
     ``captures`` counts captures and ``capture_ms`` is the last one's host
     time (warm-up included); :meth:`free` drops every graph.  The kernel
     wrappers' ``launches`` counters count while a step is captured (and
@@ -357,8 +364,13 @@ class _Compiled:
         key = (_spec(state), _spec(x), _spec(reset))
         cap = self._captured.get(key)
         if cap is None or params_changed(cap.held, params):
-            self._captured.pop(key, None)     # free the old graph first
-            cap = self._capture(params, state, x, reset, device)
+            with _CAPTURE_LOCK:
+                if cap is not None:
+                    # Free the old graph first, once no replay of it is
+                    # queued.
+                    torch.cuda.synchronize(device)
+                    del self._captured[key], cap
+                cap = self._capture(params, state, x, reset, device)
             self._captured[key] = cap
         cap.replay(state, x, reset)
         if self._whole:
@@ -396,7 +408,7 @@ class _Compiled:
         s_state = _map(state, torch.clone)
         s_x = _map(x, torch.clone)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             if self._whole:
                 st, ys = s_state, []
                 for xi, ri in self._steps(s_x, static_reset):
