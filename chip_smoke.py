@@ -39,7 +39,7 @@
    the same ``conv1d`` for its FIR part alone) that call is timed beside
    the kernel as a yardstick, with its error against the plain version;
    the port never calls it.
-3. Drives seven paths, 16 chunks each, with every launch counter set to
+3. Drives its paths (A-G 16 chunks each), with every launch counter set to
    0 just before and read just after, and checks that each kernel of the
    path was launched, that the output is finite and right, and that the
    first streams equal the same path run on CPU tensors:
@@ -88,6 +88,17 @@
       samples a chunk at depth 0 and 2, and ``make_scan`` on the same
       chunks: Msamples/s, wall and actor host us a chunk, bytes in and
       out a chunk, and with ``--profile`` the device's busy us a chunk.
+   Before O, a capture while the garbage collector frees earlier CUDA
+      graphs (as it does with finished actors): it must succeed;
+   O. the nine examples of ``radiorust_tpu_torch/examples`` that take a
+      device, in this process through ``main(device="cuda")`` (one stream
+      each through the runtime; ``tuner`` with its scripted retunes and
+      volume change): the checks of their CPU smoke tests, each kernel of
+      ``EXAMPLE_KERNELS`` launched, every actor on CUDA; wall seconds each;
+   P. ``radiorust_tpu_torch.validate`` over its 15 models: each graphed on
+      CUDA against its plain versions on CPU tensors within the model's
+      tolerance (``{"validate": ...}`` line), each kernel of
+      ``VALIDATE_KERNELS`` launched.
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
    repetitions, or one run of a 16-chunk sequence; every kernel also as
@@ -104,8 +115,10 @@ on random input and on E audio's keyer envelopes.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
-JSON lines ``{"graphed": ...}`` and ``{"serving": ...}`` precede the
-second-to-last line, a JSON object of the kernels; the last line is
+JSON lines ``{"graphed": ...}``, ``{"serving": ...}`` and ``{"validate":
+...}`` precede the second-to-last line, a JSON object of the kernels (each
+with the examples and models of paths O and P that launched it); the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -997,6 +1010,180 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
     scan_row("1x16384 make_scan", bound_1, xs_1[:T])
     return dict(cases=serving, retune=retune,
                 wrapper_calls_per_chunk_a=per_chunk)
+
+
+def _zeroed(wrappers) -> None:
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+
+
+def _read(wrappers) -> dict:
+    torch.cuda.synchronize()
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def capture_gc_check(dev, tag) -> None:
+    """A graphed run captured while the garbage collector frees CUDA
+    graphs captured earlier, as it does when it collects the dead cycles
+    of finished actors (each binding holds its step's graph): the
+    collector runs at nearly every allocation, and each collection drops
+    one such graph.  Destroying a graph inside another capture invalidates
+    that capture; ``make_scan`` keeps the collector off while it captures,
+    so the capture must succeed and equal the eager run."""
+    import gc
+
+    from radiorust_tpu_torch.blocks.base import (Chain, StreamSig,
+                                                 make_scan, scan)
+    from radiorust_tpu_torch.blocks.transform import GainControl
+    from radiorust_tpu_torch.convert import tree_to_torch
+
+    one = torch.ones(1, device=dev)
+    litter = []
+    for _ in range(256):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            one.mul_(1.0)
+        litter.append(graph)
+    torch.cuda.synchronize()
+    freed = {"outside": 0, "inside": 0}
+
+    def drop(phase, info):
+        if phase == "stop" and litter:
+            inside = torch.cuda.is_current_stream_capturing()
+            freed["inside" if inside else "outside"] += 1
+            litter.pop()
+
+    bound = Chain(GainControl(0.5)).bind(StreamSig(8, 4096, 48000.0))
+    params = tree_to_torch(bound.params, dev)
+    state = tree_to_torch(bound.init_state(), dev)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    xs = torch.complex(torch.randn(8, 8, 4096, generator=gen),
+                       torch.randn(8, 8, 4096, generator=gen)).to(dev)
+    _, want = scan(bound, params, state, xs)
+    threshold = gc.get_threshold()
+    gc.callbacks.append(drop)
+    gc.set_threshold(1)
+    try:
+        _, got = make_scan(bound)(params, state, xs)
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(drop)
+    litter.clear()
+    print(f"capture beside freed graphs: {freed['outside']} earlier CUDA "
+          f"graphs freed around the capture, {freed['inside']} inside it; "
+          f"graphed equal to eager: {bool(torch.equal(got, want))} {tag}")
+    if not torch.equal(got, want):
+        raise AssertionError("the graphed run differs from the eager run")
+
+
+# The kernel wrappers (by name) each example of path O launches on a card.
+EXAMPLE_KERNELS = {
+    "wfm_receiver": ("decimate", "fused_overlap_save"),
+    "tuner": ("decimate", "fused_overlap_save"),
+    "audio_44k_receiver": ("decimate", "fused_overlap_save",
+                           "decimate_phase_complex"),
+    "bandwidth_meter": ("decimate", "fused_overlap_save"),
+    "spectrum_receiver": ("decimate", "fused_overlap_save"),
+    "stereo_receiver": ("decimate", "fused_overlap_save",
+                        "fused_filter_bank"),
+    "am_ssb_receiver": ("decimate", "fused_overlap_save",
+                        "fused_filter_bank"),
+    "morse": ("slew_scan", "fused_overlap_save"),
+    "morse_rf": ("slew_scan", "fused_overlap_save"),
+}
+
+
+def example_paths(tag, wrappers) -> dict:
+    """Path O: each example of ``radiorust_tpu_torch/examples`` that takes
+    a device, in this process through ``main(device="cuda")`` (``tuner``
+    with its scripted session), with the launch counters at 0 just before
+    and read just after.  Fails unless its output passes the checks of its
+    CPU smoke test, each kernel it runs was launched, and every actor
+    computed on CUDA.  Returns {example: wall seconds, launches}."""
+    import contextlib
+    import importlib
+    import io
+
+    from radiorust_tpu_torch.examples._common import check_output
+    rows = {}
+    for name, want in EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"radiorust_tpu_torch.examples.{name}")
+        kw = {"auto": True} if name == "tuner" else {}
+        out = io.StringIO()
+        _zeroed(wrappers)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            report = mod.main(device="cuda", **kw)
+        launches = _read(wrappers)
+        wall = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            print(f"  {name}: {line}")
+        check_output(name, out.getvalue())
+        missing = [k for k in want if launches[k] < 1]
+        if missing:
+            raise AssertionError(f"example {name}: {missing} not launched")
+        devices = {str(d) for d in report["devices"]}
+        if any(not d.startswith("cuda") for d in devices):
+            raise AssertionError(f"example {name}: actors on {devices}")
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"path O {name}: {wall:.2f} s wall, actors on "
+              f"{sorted(devices)}, launches {ran} {tag}")
+        rows[name] = dict(seconds=wall, launches=ran)
+    return rows
+
+
+# The kernels each validate model launches on a card (by wrapper name).
+# The unfused channelizer's filterbank and demod are PyTorch calls, as
+# they are XLA in the JAX package: no kernel.
+_FUSED_WFM = ("fused_mix_decimate", "fused_overlap_save",
+              "fused_demod_filter", "decimate")
+VALIDATE_KERNELS = {
+    "wfm": ("decimate", "fused_overlap_save"),
+    "wfm_fused": _FUSED_WFM, "wfm_wide": _FUSED_WFM,
+    "stereo": ("decimate", "fused_overlap_save", "fused_filter_bank"),
+    "stereo_wide": ("decimate", "fused_overlap_save", "fused_filter_bank"),
+    "channelizer": (), "channelizer_fused": ("fused_pfb_demod",),
+    "am": ("decimate", "fused_overlap_save"),
+    "ssb": ("decimate", "fused_overlap_save"),
+    "morse": ("slew_scan", "fused_overlap_save"),
+    "morse_rf": ("slew_scan", "fused_overlap_save"),
+    "bw_meter": ("decimate", "fused_overlap_save"),
+    "audiopipe": ("fused_overlap_save", "decimate"),
+    "wfm_tx": ("fused_overlap_save", "decimate"),
+    "isb": ("decimate", "fused_filter_bank"),
+}
+
+
+def validate_path(tag, wrappers) -> dict:
+    """Path P: ``radiorust_tpu_torch.validate`` over its 15 models, each
+    graphed on CUDA against its plain versions on CPU tensors, within the
+    model's tolerance; the counters at 0 before each model and read after
+    it; fails unless each kernel of ``VALIDATE_KERNELS`` was launched.
+    Prints the ``{"validate": ...}`` line; returns {model: rel, seconds,
+    launches}."""
+    from radiorust_tpu_torch import validate
+    rows, results = {}, {}
+    for model in validate.MODELS:
+        _zeroed(wrappers)
+        t0 = time.perf_counter()
+        results.update(validate.validate([model], "cuda"))
+        launches = _read(wrappers)
+        wall = time.perf_counter() - t0
+        ran = {k: v for k, v in launches.items() if v}
+        missing = [k for k in VALIDATE_KERNELS[model] if launches[k] < 1]
+        if missing:
+            raise AssertionError(f"validate {model}: {missing} not "
+                                 f"launched")
+        print(f"path P {model}: {wall:.2f} s wall (CPU side included), "
+              f"launches {ran} {tag}")
+        rows[model] = dict(rel=results[model], seconds=wall, launches=ran)
+    print(json.dumps({"validate": results}))
+    bad = [m for m, r in results.items() if not r < validate.TOL[m]]
+    if bad:
+        raise AssertionError(f"validate: past tolerance on {bad}")
+    return rows
 
 
 def main() -> None:
@@ -2510,6 +2697,13 @@ def main() -> None:
                             "--profile" in sys.argv[1:])
     t0 = phase("path N", t0)
 
+    # Path O: the examples on the card; path P: the 15-model validation.
+    capture_gc_check(dev, tag)
+    examples = example_paths(tag, wrappers)
+    t0 = phase("path O", t0)
+    validated = validate_path(tag, wrappers)
+    t0 = phase("path P", t0)
+
     # Each kernel's launches are those of the path it was checked at.
     path_of = {"decimate": launches_a, "fused_mix_decimate": launches_a,
                "fused_overlap_save": launches_a,
@@ -2533,7 +2727,13 @@ def main() -> None:
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     for k in kernels:
         k["launches"] = path_of[k["name"]][k["name"]]
-        print(f"  {k['name']}: {k['launches']} launches on its path")
+        k["on_paths_o_p"] = {
+            "O": [e for e, r in examples.items() if k["name"] in r["launches"]],
+            "P": [m for m, r in validated.items()
+                  if k["name"] in r["launches"]]}
+        print(f"  {k['name']}: {k['launches']} launches on its path; "
+              f"launched by examples {k['on_paths_o_p']['O']} (O), models "
+              f"{k['on_paths_o_p']['P']} (P)")
         for row in [dict(k, geometry="its path's shapes"), *k["geometries"]]:
             print(f"    {row['geometry']}: kernel {us(row['ms'])} us (device "
                   f"{us(row['device_ms'])}, {us(row['device10_ms'])} at 10 a "

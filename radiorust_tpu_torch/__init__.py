@@ -11,6 +11,7 @@ wrapper runs its plain PyTorch version.
 This package imports torch and numpy, and never jax.
 """
 
-from . import math, numbers, windowing  # noqa: F401
+from . import math, metering, numbers, windowing  # noqa: F401
+from .blocks import morse  # noqa: F401
 
 __version__ = "0.1.0"

@@ -23,6 +23,8 @@ eagerly.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import threading
 import time
 from dataclasses import dataclass
@@ -47,6 +49,9 @@ class StreamSig:
     batch: int
     chunk_len: int
     sample_rate: float
+
+    def with_(self, **kw) -> "StreamSig":
+        return dataclasses.replace(self, **kw)
 
 
 class Block:
@@ -408,18 +413,27 @@ class _Compiled:
         s_state = _map(state, torch.clone)
         s_x = _map(x, torch.clone)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            if self._whole:
-                st, ys = s_state, []
-                for xi, ri in self._steps(s_x, static_reset):
-                    st, y = self._process(params, st, xi, ri)
-                    ys.append(y)
-                out_state, out_y = st, _stack(ys)
-            else:
-                new_state, out_y = self._process(params, s_state, s_x,
-                                                 static_reset)
-                out_state = s_state
-                out_y = _write_back(s_state, new_state, out_y)
+        # No garbage collection inside the capture: a dead cycle freed
+        # there (an old actor's pinned buffers and events) makes CUDA calls
+        # that a capture forbids, and the capture fails.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                if self._whole:
+                    st, ys = s_state, []
+                    for xi, ri in self._steps(s_x, static_reset):
+                        st, y = self._process(params, st, xi, ri)
+                        ys.append(y)
+                    out_state, out_y = st, _stack(ys)
+                else:
+                    new_state, out_y = self._process(params, s_state, s_x,
+                                                     static_reset)
+                    out_state = s_state
+                    out_y = _write_back(s_state, new_state, out_y)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(device)
         self.captures += 1
         self.capture_ms = (time.perf_counter() - t0) * 1e3

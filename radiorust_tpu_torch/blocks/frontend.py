@@ -46,7 +46,7 @@ class _BoundMixerDecimator(BoundBlock):
                                quality)
         self.plan = plan
         self.out_sig = StreamSig(sig.batch, plan.out_len(n), output_rate)
-        if not _ofront.decimate_supported(n, plan, mixer=True):
+        if not self.supported(sig):
             raise ValueError("MixerDecimator kernel constraints unmet; use "
                              "FreqShifter + Downsampler")
         # The decimation taps are bind-time constants (as in the JAX
@@ -54,6 +54,13 @@ class _BoundMixerDecimator(BoundBlock):
         self.params = _shift_param_update(n, self.denom, sig.sample_rate,
                                           shift)
         self._taps = {}
+
+    def supported(self, sig: StreamSig) -> bool:
+        """Whether the fused kernel takes ``sig``'s chunk length with this
+        plan (the port's rule; the JAX package adds a 128-lane oscillator
+        block, a TPU layout rule)."""
+        return _ofront.decimate_supported(sig.chunk_len, self.plan,
+                                          mixer=True)
 
     def _kernel_matrix(self, device) -> torch.Tensor:
         key = str(device)
