@@ -124,6 +124,8 @@ line is
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import pathlib
@@ -637,20 +639,10 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
               ofl.fused_demod_filter, ofe.decimate]
     steps_per_capture = 3     # jit_step: two eager warm-up steps + capture
 
-    def zero():
-        torch.cuda.synchronize()
-        for w in wrappers:
-            w.launches = 0
-
     def counted(label, want):
-        torch.cuda.synchronize()
-        launches = {w.__name__: w.launches for w in wrappers}
+        launches = read_counts(wrappers, f"path {label}", want)
         print(f"path {label} launches (counted at capture and its warm-up "
               f"steps; replays do not count): {launches}")
-        for w in want:
-            if launches[w.__name__] < 1:
-                raise AssertionError(f"{w.__name__} was not launched on "
-                                     f"path {label}")
         return launches
 
     def same(label, got, want):
@@ -714,7 +706,7 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
     per_chunk = {}
     for depth in (0, 2):
         label = f"N1 (depth {depth})"
-        zero()
+        zero_counts(wrappers)
         actor, sinks, events = asyncio.run(run_array(
             lambda: RuntimeBlock(wfm_receiver(**CHAIN), name=f"N1-{depth}",
                                  pipeline_depth=depth, device=dev),
@@ -759,7 +751,7 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
         return (sink.chunks, (t_set - t_call) * 1e3,
                 (t_out - t_call) * 1e3, step)
 
-    zero()
+    zero_counts(wrappers)
     chunks_n2, set_ms, latency_ms, step_n2 = asyncio.run(retuned())
     counted("N2", want_a)
     params = tree_to_torch(bound_a.params, dev)
@@ -804,7 +796,7 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
         await actor._task
         return sink
 
-    zero()
+    zero_counts(wrappers)
     asyncio.run(fed(lambda: RuntimeBlock(wfm_receiver(**CHAIN), device=dev),
                     xs_a[:T // 2], save=ckpt))
     resumed = asyncio.run(fed(
@@ -820,7 +812,7 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
     bound_c = wfm_stereo_receiver(**STEREO).bind({"iq": sig})
     xs_c = stereo_fm(T, BATCH, CHUNK, offset=-100e3)
     want_c = eager(bound_c, xs_c, graph=True)
-    zero()
+    zero_counts(wrappers)
     _, sinks, events = asyncio.run(run_array(
         lambda: RuntimeGraph(wfm_stereo_receiver(**STEREO), name="N4",
                              device=dev), xs_c, RATE,
@@ -840,7 +832,7 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
     xs_k = fm_tones(400.0 + 190.0 * np.arange(BATCH), T, 16384, offset=0.0)
     ys_k = eager(bound_k, xs_k)
     valid = bound_k.valid_counts(0, T)
-    zero()
+    zero_counts(wrappers)
     _, sinks, events = asyncio.run(run_array(
         lambda: RuntimeBlock(k_chain(), name="N5", device=dev), xs_k, RATE))
     counted("N5", [ofe.decimate, ofl.fused_overlap_save,
@@ -861,7 +853,7 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
     xs_n6 = xs_a[:, :8]
     want_p = eager(wfm_receiver(**unfused).bind(sig8), xs_n6)
     want_q = eager(wfm_receiver(**CHAIN).bind(sig8), xs_n6)
-    zero()
+    zero_counts(wrappers)
     g = NativeGraph()
     src = g.source([Samples(RATE, x) for x in xs_n6])
     stage_p = g.block(wfm_receiver(**unfused), src, name="N6-unfused",
@@ -1012,15 +1004,160 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
                 wrapper_calls_per_chunk_a=per_chunk)
 
 
-def _zeroed(wrappers) -> None:
+def zero_counts(wrappers) -> None:
+    """Every launch counter at 0, once the card has finished."""
     torch.cuda.synchronize()
     for w in wrappers:
         w.launches = 0
 
 
-def _read(wrappers) -> dict:
+def read_counts(wrappers, label, want=()) -> dict:
+    """{wrapper name: launches} once the card has finished; fails unless
+    each of ``want`` (wrappers or their names) was launched on ``label``."""
     torch.cuda.synchronize()
-    return {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: w.launches for w in wrappers}
+    names = [w if isinstance(w, str) else w.__name__ for w in want]
+    missing = [n for n in names if launches[n] < 1]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not launched")
+    return launches
+
+
+def _example_taps():
+    """(module, wrapper, kernel, plain version, limit, absolute) of each
+    kernel wrapper the examples of path O call, held as the kernel checks
+    hold it: #1 (also its phase-mode entry), #3 and #4 on max |diff| /
+    max |ref|, #8 bit for bit."""
+    from radiorust_tpu_torch.ops import filter as ofl
+    from radiorust_tpu_torch.ops import frontend as ofe
+    from radiorust_tpu_torch.ops import scan as osc
+    return [
+        (ofe, "decimate_complex", "decimate", ofe.decimate_complex_plain,
+         FIR_BOUND, False),
+        (ofe, "decimate_phase_complex", "decimate", ofe.rational_fir_phase,
+         FIR_BOUND, False),
+        (ofl, "fused_overlap_save", "fused_overlap_save",
+         ofl.fused_overlap_save_plain, FILTER_BOUND, False),
+        (ofl, "fused_filter_bank", "fused_filter_bank",
+         ofl.fused_filter_bank_plain, FILTER_BOUND, False),
+        (osc, "slew_scan", "slew_scan", osc.slew_scan_plain, SLEW_ATOL,
+         True)]
+
+
+def _shapes(obj):
+    """What selects a launch: the tensors' shapes and types, the other
+    arguments' values."""
+    if isinstance(obj, torch.Tensor):
+        return (tuple(obj.shape), str(obj.dtype))
+    if isinstance(obj, (tuple, list)):
+        return tuple(_shapes(o) for o in obj)
+    return obj
+
+
+def _cloned(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_cloned(o) for o in obj)
+    return obj
+
+
+class _Tap:
+    """A kernel wrapper's stand-in under :func:`tapped`: it records the
+    wrapper's eager calls, and its ``launches`` is the wrapper's own
+    counter, which the wrapper counts on through its module's name."""
+
+    def __init__(self, real, record):
+        self.real, self.record = real, record
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.real.launches = value
+
+    def __call__(self, *args, **kw):
+        return self.record(self.real, *args, **kw)
+
+
+@contextlib.contextmanager
+def tapped(per_shape: int = 2):
+    """While open, the eager calls of the wrappers of ``_example_taps``
+    (the warm-up steps before each capture, and eager runs) are recorded,
+    at most ``per_shape`` of a wrapper at one shape: the inputs cloned
+    before the call, the outputs after it.  Calls inside a capture pass
+    through.  Yields the list of records, for :func:`held_to_plain`."""
+    records, seen, saved = [], collections.Counter(), []
+
+    def record_of(name, kernel, plain, limit, absolute):
+        def record(real, *args, **kw):
+            key = (name, _shapes(args), _shapes(sorted(kw.items())))
+            if (torch.cuda.is_current_stream_capturing()
+                    or seen[key] >= per_shape):
+                return real(*args, **kw)
+            seen[key] += 1
+            inputs = _cloned(args)
+            out = real(*args, **kw)
+            records.append(dict(wrapper=name, kernel=kernel, plain=plain,
+                                limit=limit, absolute=absolute, args=inputs,
+                                kw=kw, out=_cloned(out)))
+            return out
+        return record
+
+    for mod, name, *rest in _example_taps():
+        real = getattr(mod, name)
+        saved.append((mod, name, real))
+        setattr(mod, name, _Tap(real, record_of(name, *rest)))
+    try:
+        yield records
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def held_to_plain(records, label, tag) -> list:
+    """Each recorded kernel call's outputs against its plain version on
+    the same inputs (on the card); fails past the kernel's limit.  The
+    limit is on max |diff| over the call's float outputs against the
+    largest |ref| among them: the real and imaginary planes of one signal
+    share its scale (a real signal's imaginary plane is rounding noise in
+    both versions).  Integer outputs (a grid phase) must be equal.
+    Returns one row per call."""
+    torch.cuda.synchronize()
+    rows = []
+    for r in records:
+        want = tensors(r["plain"](*r["args"], **r["kw"]))
+        got = tensors(r["out"])
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: {r['wrapper']} returned "
+                                 f"{len(got)} tensors, its plain version "
+                                 f"{len(want)}")
+        real = [(g, w) for g, w in zip(got, want)
+                if g.is_floating_point() or g.is_complex()]
+        ints = sum(max_abs_diff(g, w) for g, w in zip(got, want)
+                   if not (g.is_floating_point() or g.is_complex()))
+        abs_err = max(max_abs_diff(g, w) for g, w in real)
+        scale = max(float(w.abs().max()) if w.numel() else 0.0
+                    for _, w in real)
+        rel = abs_err / max(scale, 1e-30)
+        err, kind = (abs_err, "max|diff|") if r["absolute"] else (rel, "rel")
+        shapes = [list(t.shape) for t in tensors(r["args"]) if t.dim()]
+        print(f"  {label}: {r['wrapper']} at {shapes} vs its plain version "
+              f"on the same inputs: max|diff|={abs_err:.3e} max|diff|/"
+              f"max|ref|={rel:.3e} (bound {r['limit']:g} on {kind}), "
+              f"integer outputs differing: {ints:g}"
+              f"{', all outputs zero' if scale == 0.0 else ''} {tag}")
+        if not (err <= r["limit"] and ints == 0):
+            raise AssertionError(f"{label}: {r['wrapper']} at {shapes} "
+                                 f"disagrees with its plain version "
+                                 f"({err:.3e}, limit {r['limit']:g}; "
+                                 f"{ints:g} integers differ)")
+        rows.append(dict(kernel=r["kernel"], wrapper=r["wrapper"],
+                         shapes=shapes, max_abs_err=abs_err, rel=rel,
+                         zero=scale == 0.0))
+    return rows
 
 
 def capture_gc_check(dev, tag) -> None:
@@ -1095,13 +1232,27 @@ EXAMPLE_KERNELS = {
 }
 
 
+# Examples whose output is the same on every run (a keyed message), held
+# whole against the same example on CPU tensors, where every wrapper runs
+# its plain version: {example: the output main returns}.  Their first
+# chunk, the one the warm-up steps see, is silent, so the held calls
+# alone would compare zeros.
+EXAMPLE_VS_CPU = {"morse": "audio", "morse_rf": "iq"}
+EXAMPLE_ATOL = 3e-4    # the paths' limit against CPU tensors
+
+
 def example_paths(tag, wrappers) -> dict:
     """Path O: each example of ``radiorust_tpu_torch/examples`` that takes
     a device, in this process through ``main(device="cuda")`` (``tuner``
     with its scripted session), with the launch counters at 0 just before
     and read just after.  Fails unless its output passes the checks of its
-    CPU smoke test, each kernel it runs was launched, and every actor
-    computed on CUDA.  Returns {example: wall seconds, launches}."""
+    CPU smoke test, each kernel it runs was launched, every actor computed
+    on CUDA, and each kernel call recorded by :func:`tapped` (the eager
+    ones, at the example's own shapes and data) agrees with its plain
+    version; each kernel of the example must be held on a call with
+    non-zero outputs or, for ``EXAMPLE_VS_CPU``, through the whole output
+    against the example's run on CPU tensors.  Returns {example: wall
+    seconds, launches, held}."""
     import contextlib
     import importlib
     import io
@@ -1112,25 +1263,46 @@ def example_paths(tag, wrappers) -> dict:
         mod = importlib.import_module(f"radiorust_tpu_torch.examples.{name}")
         kw = {"auto": True} if name == "tuner" else {}
         out = io.StringIO()
-        _zeroed(wrappers)
+        zero_counts(wrappers)
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with tapped() as records, contextlib.redirect_stdout(out):
             report = mod.main(device="cuda", **kw)
-        launches = _read(wrappers)
+        launches = read_counts(wrappers, f"example {name}", want)
         wall = time.perf_counter() - t0
         for line in out.getvalue().splitlines():
             print(f"  {name}: {line}")
         check_output(name, out.getvalue())
-        missing = [k for k in want if launches[k] < 1]
-        if missing:
-            raise AssertionError(f"example {name}: {missing} not launched")
+        agreed = held_to_plain(records, f"path O {name}", tag)
+        held = {h[k] for h in agreed if not h["zero"]
+                for k in ("kernel", "wrapper")}
+        if name in EXAMPLE_VS_CPU:
+            key = EXAMPLE_VS_CPU[name]
+            with contextlib.redirect_stdout(io.StringIO()):
+                on_cpu = mod.main(device="cpu", **kw)[key]
+            got = report[key]
+            if got.shape != on_cpu.shape:
+                raise AssertionError(f"example {name}: {key} {got.shape} "
+                                     f"on CUDA, {on_cpu.shape} on CPU")
+            diff = float(np.abs(got - on_cpu).max())
+            print(f"path O {name}: its {key} on CUDA vs the same example on "
+                  f"CPU tensors (plain versions): {got.size} samples, "
+                  f"max|diff|={diff:.3e} (atol {EXAMPLE_ATOL:g}), max|ref|="
+                  f"{float(np.abs(on_cpu).max()):.3f} {tag}")
+            if not diff <= EXAMPLE_ATOL:
+                raise AssertionError(f"example {name}: CUDA and CPU differ "
+                                     f"({diff:.3e})")
+            held |= set(want)
+        unheld = set(want) - held
+        if unheld:
+            raise AssertionError(f"example {name}: {sorted(unheld)} held on "
+                                 f"no call with non-zero outputs")
         devices = {str(d) for d in report["devices"]}
         if any(not d.startswith("cuda") for d in devices):
             raise AssertionError(f"example {name}: actors on {devices}")
         ran = {k: v for k, v in launches.items() if v}
         print(f"path O {name}: {wall:.2f} s wall, actors on "
               f"{sorted(devices)}, launches {ran} {tag}")
-        rows[name] = dict(seconds=wall, launches=ran)
+        rows[name] = dict(seconds=wall, launches=ran, held=agreed)
     return rows
 
 
@@ -1166,21 +1338,18 @@ def validate_path(tag, wrappers) -> dict:
     from radiorust_tpu_torch import validate
     rows, results = {}, {}
     for model in validate.MODELS:
-        _zeroed(wrappers)
+        zero_counts(wrappers)
         t0 = time.perf_counter()
         results.update(validate.validate([model], "cuda"))
-        launches = _read(wrappers)
+        launches = read_counts(wrappers, f"validate {model}",
+                               VALIDATE_KERNELS[model])
         wall = time.perf_counter() - t0
         ran = {k: v for k, v in launches.items() if v}
-        missing = [k for k in VALIDATE_KERNELS[model] if launches[k] < 1]
-        if missing:
-            raise AssertionError(f"validate {model}: {missing} not "
-                                 f"launched")
         print(f"path P {model}: {wall:.2f} s wall (CPU side included), "
               f"launches {ran} {tag}")
         rows[model] = dict(rel=results[model], seconds=wall, launches=ran)
     print(json.dumps({"validate": results}))
-    bad = [m for m, r in results.items() if not r < validate.TOL[m]]
+    bad = validate.past_tolerance(results)
     if bad:
         raise AssertionError(f"validate: past tolerance on {bad}")
     return rows
@@ -1995,17 +2164,10 @@ def main() -> None:
     def drive(label, run, want, chunks=T):
         """Run a path with every launch counter at 0 just before and read
         just after; fail unless each kernel of ``want`` was launched."""
-        torch.cuda.synchronize()
-        for w in wrappers:
-            w.launches = 0
+        zero_counts(wrappers)
         out = run()
-        torch.cuda.synchronize()
-        launches = {w.__name__: w.launches for w in wrappers}
+        launches = read_counts(wrappers, f"path {label}", want)
         print(f"path {label} launches over {chunks} chunks: {launches}")
-        for w in want:
-            if launches[w.__name__] < 1:
-                raise AssertionError(f"{w.__name__} was not launched on "
-                                     f"path {label}")
         return out, launches
 
     def finite(label, ys):
@@ -2061,25 +2223,18 @@ def main() -> None:
         eager_fn = ((lambda: graph_scan(bound_, params, state0, xs))
                     if isinstance(xs, dict)
                     else (lambda: scan(bound_, params, state0, xs)))
-        torch.cuda.synchronize()
-        for w in wrappers:
-            w.launches = 0
+        zero_counts(wrappers)
         got = run(params, state0, xs)
-        torch.cuda.synchronize()
-        at_capture = {w.__name__: w.launches for w in wrappers}
-        for w in want:
-            if at_capture[w.__name__] < 1:
-                raise AssertionError(f"graphed path {label}: {w.__name__} "
-                                     f"was not captured")
+        at_capture = read_counts(wrappers, f"graphed path {label} (at "
+                                 f"capture)", want)
         pairs = list(zip(tensors(got), tensors(eager)))
         if len(pairs) != len(tensors(eager)) or not pairs:
             raise AssertionError(f"graphed path {label}: other outputs")
         diff = max(max_abs_diff(a, b) for a, b in pairs)
         same = all(torch.equal(a, b) for a, b in pairs)
-        for w in wrappers:
-            w.launches = 0
+        zero_counts(wrappers)
         step_ms = cuda_ms(lambda: run(params, state0, xs), reps=3) / chunks
-        replays = {w.__name__: w.launches for w in wrappers}
+        replays = read_counts(wrappers, f"graphed path {label} (replays)")
         host = host_us(lambda: run(params, state0, xs), chunks)
         eager_host = host_us(eager_fn, chunks)
         n_graphed = device_launches(lambda: run(params, state0, xs)) / chunks
@@ -2731,6 +2886,12 @@ def main() -> None:
             "O": [e for e, r in examples.items() if k["name"] in r["launches"]],
             "P": [m for m, r in validated.items()
                   if k["name"] in r["launches"]]}
+        on_o = [h for r in examples.values() for h in r["held"]
+                if h["kernel"] == k["name"]]
+        k["held_on_path_o"] = dict(
+            calls=len(on_o),
+            max_abs_err=max((h["max_abs_err"] for h in on_o), default=None),
+            rel=max((h["rel"] for h in on_o), default=None))
         print(f"  {k['name']}: {k['launches']} launches on its path; "
               f"launched by examples {k['on_paths_o_p']['O']} (O), models "
               f"{k['on_paths_o_p']['P']} (P)")

@@ -413,9 +413,9 @@ class _Compiled:
         s_state = _map(state, torch.clone)
         s_x = _map(x, torch.clone)
         graph = torch.cuda.CUDAGraph()
-        # No garbage collection inside the capture: a dead cycle freed
-        # there (an old actor's pinned buffers and events) makes CUDA calls
-        # that a capture forbids, and the capture fails.
+        # No garbage collection inside the capture: collecting a dead
+        # binding there destroys its CUDA graph, which a capture forbids
+        # ("function reset"), and the capture fails.
         collecting = gc.isenabled()
         gc.disable()
         try:

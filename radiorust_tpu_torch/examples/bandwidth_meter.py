@@ -43,7 +43,8 @@ async def session(device):
     print(f"analysis rate {sink.sample_rate} Hz; "
           f"max occupied bandwidth {max(values):.0f} Hz "
           f"(expect ~>9 kHz for tones at +5 kHz and -4 kHz)")
-    return {"bandwidth": max(values), "devices": [chain.device]}
+    return {"bandwidth": max(values), "values": values,
+            "devices": [chain.device]}
 
 
 def main(device="cuda"):

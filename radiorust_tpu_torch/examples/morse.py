@@ -18,7 +18,7 @@ from ..blocks.transform import FreqShifter, GainControl
 from ..runtime import KeyerSource, RuntimeBlock
 from ..runtime.io import AudioPlayer, LoopbackAudioDriver
 from ..runtime.blocks import resolve_device
-from ._common import cli
+from ._common import cli, dominant_tone
 
 
 async def session(device):
@@ -42,10 +42,14 @@ async def session(device):
     await asyncio.wait_for(
         playback.wait_for_event(lambda e: isinstance(e, EndOfMessages)),
         60.0)
-    total = sum(len(c) for c in driver.played)
+    audio = np.concatenate(driver.played)
+    total = len(audio)
     print(f"played {total} samples "
           f"({total / 48000.0:.2f}s of keyed audio)")
-    return {"samples": total,
+    tone = dominant_tone(audio, 48000.0)
+    peak = float(np.abs(audio).max())
+    print(f"keyed tone {tone:.0f} Hz, peak {peak:.3f}")
+    return {"samples": total, "audio": audio, "tone": tone, "peak": peak,
             "devices": [b.device for b in (limiter, filt, volume,
                                            audio_mod)]}
 

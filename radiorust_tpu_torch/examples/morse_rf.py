@@ -9,12 +9,26 @@ reference's event-driven TX lifecycle (``morse_rf/main.rs:72-98``).
 
 import asyncio
 
+import numpy as np
+
 from ..blocks.morse import EndOfMessages, Speed
 from ..models.morse_tx import morse_rf_chain
 from ..runtime import KeyerSource, RuntimeBlock
 from ..runtime.io import LoopbackSdrDriver, SdrTx
 from ..runtime.blocks import resolve_device
-from ._common import cli
+from ._common import cli, fm_tone
+
+
+class _SentDriver(LoopbackSdrDriver):
+    """The loopback driver, keeping every chunk transmitted."""
+
+    def __init__(self, sample_rate: float):
+        super().__init__(sample_rate)
+        self.sent = []
+
+    def write(self, chunk) -> None:
+        self.sent.append(np.asarray(chunk, np.complex64).copy())
+        super().write(chunk)
 
 
 async def session(device):
@@ -23,7 +37,8 @@ async def session(device):
                         message="CQ CQ")
     chain = RuntimeBlock(morse_rf_chain(deviation=2500.0), name="morse_rf",
                          device=device)
-    tx = SdrTx(LoopbackSdrDriver(rate))
+    driver = _SentDriver(rate)
+    tx = SdrTx(driver)
     chain.feed_from(keyer)
     tx.feed_from(chain)
 
@@ -32,7 +47,12 @@ async def session(device):
         tx.wait_for_event(lambda e: isinstance(e, EndOfMessages)), 120.0)
     await tx.deactivate()
     print("message transmitted; TX deactivated on EndOfMessages")
-    return {"devices": [chain.device]}
+    iq = np.concatenate(driver.sent)
+    tone, deviation = fm_tone(iq, rate)
+    print(f"transmitted {len(iq)} samples: FM tone {tone:.0f} Hz, peak "
+          f"deviation {deviation:.0f} Hz")
+    return {"iq": iq, "tone": tone, "deviation": deviation,
+            "devices": [chain.device]}
 
 
 def main(device="cuda"):
