@@ -98,7 +98,18 @@
    P. ``radiorust_tpu_torch.validate`` over its 15 models: each graphed on
       CUDA against its plain versions on CPU tensors within the model's
       tolerance (``{"validate": ...}`` line), each kernel of
-      ``VALIDATE_KERNELS`` launched.
+      ``VALIDATE_KERNELS`` launched;
+   Q. the parallel layer (``radiorust_tpu_torch/parallel``) over meshes of
+      four entries of the card (``{"mesh": ...}`` line): A's chain, C's
+      graph, D's fused channelizer, F (AGC) and K's phase-mode tail
+      time-sharded, the unfused channelizer channel-sharded, B's chain and
+      the morse chain pipelined, ``jit_step_sharded`` of A, the runtime's
+      mesh modes (each actor shown to take its sharded executor) and
+      ``fleet_receiver``; each against its sequential run, the kernel
+      calls of one group step (every shard) or one pipeline tick held
+      against their plain versions on the same inputs, all nine kernels
+      among them (``{"parallel": ...}`` line; the kernels line gains
+      ``launches_q`` and ``held_on_path_q``).
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
    repetitions, or one run of a 16-chunk sequence; every kernel also as
@@ -115,9 +126,10 @@ on random input and on E audio's keyer envelopes.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
-JSON lines ``{"graphed": ...}``, ``{"serving": ...}`` and ``{"validate":
-...}`` precede the second-to-last line, a JSON object of the kernels (each
-with the examples and models of paths O and P that launched it); the last
+JSON lines ``{"graphed": ...}``, ``{"serving": ...}``, ``{"validate":
+...}`` and ``{"parallel": ...}`` precede the second-to-last line, a JSON
+object of the kernels (each with the examples and models of paths O and
+P that launched it, and its launches and held calls on path Q); the last
 line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1082,16 +1094,48 @@ class _Tap:
         return self.record(self.real, *args, **kw)
 
 
+def _parallel_taps():
+    """:func:`_example_taps` and the block-level wrappers of the other
+    kernels the parallel layer reaches (#2, #5, #6, #7, #9), each held as
+    its kernel check holds it; a seventh element selects the outputs
+    compared: #7's occupied channels (atan2 of an empty channel is noise
+    in both versions) and #9's output (its carried gain is held by its
+    own checks)."""
+    from radiorust_tpu_torch.ops import channelizer as och
+    from radiorust_tpu_torch.ops import filter as ofl
+    from radiorust_tpu_torch.ops import frontend as ofe
+    from radiorust_tpu_torch.ops import scan as osc
+    occupied = sorted(CH_TONES)
+
+    def pfb_rows(res):
+        y, hist, last = res
+        b = last.shape[0]
+        return [y.reshape(b, 64, -1)[:, occupied], hist, last[:, occupied]]
+
+    return [*_example_taps(), (
+        ofe, "fused_mix_decimate_complex", "fused_mix_decimate",
+        ofe.fused_mix_decimate_complex_plain, FIR_BOUND, False), (
+        ofl, "fused_demod_filter", "fused_demod_filter",
+        ofl.fused_demod_filter_plain, FILTER_BOUND, False), (
+        ofl, "fused_filter_demod_filter", "fused_filter_demod_filter",
+        ofl.fused_filter_demod_filter_plain, FILTER_BOUND, False), (
+        och, "pfb_demod_step", "fused_pfb_demod", och.pfb_demod_step_plain,
+        FILTER_BOUND, False, pfb_rows), (
+        osc, "agc_step", "agc_scan", osc.agc_step_plain, AGC_ATOL, True,
+        lambda res: res[:1])]
+
+
 @contextlib.contextmanager
-def tapped(per_shape: int = 2):
-    """While open, the eager calls of the wrappers of ``_example_taps``
-    (the warm-up steps before each capture, and eager runs) are recorded,
-    at most ``per_shape`` of a wrapper at one shape: the inputs cloned
-    before the call, the outputs after it.  Calls inside a capture pass
-    through.  Yields the list of records, for :func:`held_to_plain`."""
+def tapped(per_shape: int = 2, taps=None):
+    """While open, the eager calls of the wrappers of ``taps`` (by default
+    :func:`_example_taps`; the warm-up steps before each capture, and
+    eager runs) are recorded, at most ``per_shape`` of a wrapper at one
+    shape: the inputs cloned before the call, the outputs after it.
+    Calls inside a capture pass through.  Yields the list of records, for
+    :func:`held_to_plain`."""
     records, seen, saved = [], collections.Counter(), []
 
-    def record_of(name, kernel, plain, limit, absolute):
+    def record_of(name, kernel, plain, limit, absolute, select=None):
         def record(real, *args, **kw):
             key = (name, _shapes(args), _shapes(sorted(kw.items())))
             if (torch.cuda.is_current_stream_capturing()
@@ -1102,11 +1146,11 @@ def tapped(per_shape: int = 2):
             out = real(*args, **kw)
             records.append(dict(wrapper=name, kernel=kernel, plain=plain,
                                 limit=limit, absolute=absolute, args=inputs,
-                                kw=kw, out=_cloned(out)))
+                                kw=kw, out=_cloned(out), select=select))
             return out
         return record
 
-    for mod, name, *rest in _example_taps():
+    for mod, name, *rest in (_example_taps() if taps is None else taps):
         real = getattr(mod, name)
         saved.append((mod, name, real))
         setattr(mod, name, _Tap(real, record_of(name, *rest)))
@@ -1118,8 +1162,9 @@ def tapped(per_shape: int = 2):
 
 
 def held_to_plain(records, label, tag) -> list:
-    """Each recorded kernel call's outputs against its plain version on
-    the same inputs (on the card); fails past the kernel's limit.  The
+    """Each recorded kernel call's outputs (those its tap selects, where
+    it has a selection) against its plain version on the same inputs (on
+    the card); fails past the kernel's limit.  The
     limit is on max |diff| over the call's float outputs against the
     largest |ref| among them: the real and imaginary planes of one signal
     share its scale (a real signal's imaginary plane is rounding noise in
@@ -1128,8 +1173,9 @@ def held_to_plain(records, label, tag) -> list:
     torch.cuda.synchronize()
     rows = []
     for r in records:
-        want = tensors(r["plain"](*r["args"], **r["kw"]))
-        got = tensors(r["out"])
+        select = r.get("select") or (lambda res: res)
+        want = tensors(select(r["plain"](*r["args"], **r["kw"])))
+        got = tensors(select(r["out"]))
         if len(got) != len(want):
             raise AssertionError(f"{label}: {r['wrapper']} returned "
                                  f"{len(got)} tensors, its plain version "
@@ -1353,6 +1399,620 @@ def validate_path(tag, wrappers) -> dict:
     if bad:
         raise AssertionError(f"validate: past tolerance on {bad}")
     return rows
+
+
+# Path Q: the parallel layer on the card, over a mesh of four entries of
+# it.
+Q_SHARDS = 4
+SHARD_ATOL = 5e-4    # a sharded run vs its sequential run, from chunk 2
+                     # on (tests/test_parallel.py's bound, FM chains)
+Q_SKIP = 2           # chunks before the comparison: the FM warm-up
+Q_TAP_GROUP = 2      # the group step whose kernel calls are held
+Q_TAP_TICK = 6       # the pipeline tick whose kernel calls are held
+Q_RETUNE = 99e3      # Q1's set_shift, after the second group step
+Q_ACTOR_BATCH = 8    # the time-sharded actors' streams, and their chunks
+Q_ACTOR_CHUNKS = 64  # (16 group messages)
+Q_KERNELS = ("decimate", "fused_mix_decimate", "fused_overlap_save",
+             "fused_filter_bank", "fused_demod_filter",
+             "fused_filter_demod_filter", "fused_pfb_demod", "slew_scan",
+             "agc_scan")
+
+
+def parallel_paths(dev, tag, wrappers, k_chain) -> dict:
+    """Path Q: the parallel layer (``radiorust_tpu_torch/parallel``) on the
+    card, over meshes of four entries of it, at the paths' full widths.
+
+    Q1 A's chain through ``TimeShardedChain`` (16 chunks in 4 group
+    steps), eager and as the compiled group step, with ``overlap=2``, and
+    with a ``set_shift`` after the second step, and B's chain (its merged
+    kernel run as #3 then #5); Q2 C's stereo graph
+    through ``TimeShardedGraph``; Q3 D's fused channelizer time-sharded
+    (#7) and ``channelized_receiver(fuse=False)`` through
+    ``ChannelShardedChain`` over 4 channel shards (eager and compiled);
+    Q4 F's AM receiver with AGC (#9) and K's chain with its 44.1 kHz
+    phase-mode tail (#1's phase entry) time-sharded; Q5 B's chain (#6)
+    and ``morse_audio_chain()`` (#8) through ``PipelinedChain`` (3 and 2
+    stages, a stream each); Q6 ``jit_step_sharded`` of A over 4 stream
+    shards against ``jit_step``, ``RuntimeBlock`` in each mesh mode and
+    ``RuntimeGraph`` time-sharded against the unsharded actors (each
+    shown to take its sharded executor), and ``fleet_receiver`` on CUDA.
+
+    Each against its sequential run on the card (from chunk 2 at 5e-4;
+    the pipelines, the compiled steps and the stream-sharded ones bit for
+    bit), with the launch counters at 0 just before and read just after;
+    the kernel calls of one group step (every shard) or one pipeline tick
+    held against their plain versions on the same inputs, the halo-built
+    states.  Times each case beside its sequential run.  Returns {"rows",
+    "launches" (by kernel, over Q), "held"}."""
+    import asyncio
+    import io
+
+    from radiorust_tpu_torch.blocks.base import (StreamSig, jit_step,
+                                                 jit_step_sharded,
+                                                 make_scan, scan,
+                                                 shard_map_step)
+    from radiorust_tpu_torch.blocks.graph import graph_scan
+    from radiorust_tpu_torch.convert import tree_to_numpy, tree_to_torch
+    from radiorust_tpu_torch.examples import fleet_receiver
+    from radiorust_tpu_torch.examples._common import check_output
+    from radiorust_tpu_torch.models.analog import am_receiver
+    from radiorust_tpu_torch.models.channelizer import channelized_receiver
+    from radiorust_tpu_torch.models.morse_tx import morse_audio_chain
+    from radiorust_tpu_torch.models.stereo import wfm_stereo_receiver
+    from radiorust_tpu_torch.models.wfm import wfm_receiver
+    from radiorust_tpu_torch.ops import channelizer as och
+    from radiorust_tpu_torch.ops import filter as ofl
+    from radiorust_tpu_torch.ops import frontend as ofe
+    from radiorust_tpu_torch.ops import scan as osc
+    from radiorust_tpu_torch.parallel.channel_shard import \
+        ChannelShardedChain
+    from radiorust_tpu_torch.parallel.mesh import make_mesh
+    from radiorust_tpu_torch.parallel.pipeline import PipelinedChain
+    from radiorust_tpu_torch.parallel.time_shard import (TimeShardedChain,
+                                                         TimeShardedGraph)
+    from radiorust_tpu_torch.runtime import (ArraySink, ArraySource,
+                                             RuntimeBlock, RuntimeGraph)
+
+    d = Q_SHARDS
+    # The kernels compute each stream on its own, so a split of the
+    # streams changes no bit on the card (the plain versions' torch.fft on
+    # the CPU, in a rehearsal, groups streams).
+    exact = dev.type == "cuda"
+    mesh_t = make_mesh((d,), ("t",), dev)
+    mesh_s = make_mesh((d,), ("streams",), dev)
+    mesh_c = make_mesh((d,), ("c",), dev)
+    print(json.dumps({"mesh": {
+        "shape": mesh_t.shape, "devices": [str(x) for x in
+                                           mesh_t.devices.flat],
+        "one_card": mesh_t.single_device}}))
+    rows, held = {}, []
+    launches_q = collections.Counter()
+    occupied = sorted(CH_TONES)
+    sig = StreamSig(BATCH, CHUNK, RATE)
+    want_a = [ofe.fused_mix_decimate, ofl.fused_overlap_save,
+              ofl.fused_demod_filter, ofe.decimate]
+    ms_text = lambda v: "-" if v is None else f"{v:.1f}"  # noqa: E731
+
+    def counted(label, run, want):
+        zero_counts(wrappers)
+        out = run()
+        launches = read_counts(wrappers, f"path {label}", want)
+        launches_q.update(launches)
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"path {label} launches: {ran}")
+        return out, ran
+
+    def on_card(bound):
+        return (tree_to_torch(bound.params, dev),
+                tree_to_torch(bound.init_state(), dev))
+
+    def group(x, s):
+        """Group step s of [T, b, n] chunks: [b, d*n] (by input for a
+        graph)."""
+        if isinstance(x, dict):
+            return {k: group(v, s) for k, v in x.items()}
+        return x[s * d:(s + 1) * d].transpose(0, 1).reshape(x.shape[1], -1)
+
+    def ungroup(ys):
+        """Group outputs [b, d*n] in order: [T, b, n] (by output)."""
+        if isinstance(ys[0], dict):
+            return {k: ungroup([y[k] for y in ys]) for k in ys[0]}
+        return torch.cat([y.reshape(y.shape[0], d, -1).transpose(0, 1)
+                          for y in ys])
+
+    def sharded_run(ts, params, xs, between=None, tap=True):
+        """``ts`` eagerly over the T/d group steps: (state, ys [T, b, n],
+        the records of group step Q_TAP_GROUP's kernel calls, every
+        shard's)."""
+        state = tree_to_torch(ts.init_state(), dev)
+        outs, records = [], []
+        for s in range(T // d):
+            if between is not None:
+                params, state = between(s, params, state)
+            taps = (tapped(d, _parallel_taps()) if tap and s == Q_TAP_GROUP
+                    else contextlib.nullcontext([]))
+            with taps as rec:
+                state, y = ts.process(params, state, group(xs, s))
+            records += rec
+            outs.append(y)
+        return state, ungroup(outs), records
+
+    def vs_seq(label, got, want, rows_=None, skip=Q_SKIP, exact=False):
+        """A sharded run against its sequential one, from chunk ``skip``
+        (on ``rows_`` where given) within SHARD_ATOL, or bit for bit
+        (``exact``); by output for a graph."""
+        if isinstance(got, dict):
+            return max(vs_seq(f"{label} {k}", got[k], want[k], rows_, skip,
+                              exact) for k in got)
+        g, w = got[skip:], want[skip:]
+        if rows_ is not None:
+            g, w = g[:, rows_], w[:, rows_]
+        if got.shape != want.shape:
+            raise AssertionError(f"path {label}: {tuple(got.shape)}, "
+                                 f"sequential {tuple(want.shape)}")
+        diff = max_abs_diff(g, w)
+        equal = bool(torch.equal(got, want))
+        print(f"path {label}: vs its sequential run max|diff|={diff:.3e} "
+              f"from chunk {skip} (atol {SHARD_ATOL:g}"
+              f"{', bit for bit required' if exact else ''}), bit for bit "
+              f"over all {got.shape[0]} chunks: {equal} {tag}")
+        if not (diff <= SHARD_ATOL and (equal or not exact)):
+            raise AssertionError(f"path {label} differs from its "
+                                 f"sequential run")
+        return diff
+
+    def hold(label, records):
+        rows_ = held_to_plain(records, f"path {label}", tag)
+        held.extend(dict(r, case=label) for r in rows_)
+        return len(rows_)
+
+    def us_per_chunk(fn, chunks):
+        return cuda_ms(fn, reps=3, warmup=1) * 1e3 / chunks
+
+    def timed_row(label, sharded_us, seq_us, graphed_us=None,
+                  seq_graphed_us=None, **extra):
+        """µs per chunk, eager (and compiled, where given) beside the
+        sequential run's."""
+        graphed = ("" if graphed_us is None else
+                   f"; compiled {graphed_us:.1f} (sequential "
+                   f"{ms_text(seq_graphed_us)})")
+        print(f"path {label}: eager {sharded_us:.1f} us per chunk "
+              f"(sequential {seq_us:.1f}){graphed} {tag}")
+        rows[label] = dict(us_per_chunk=sharded_us, seq_us_per_chunk=seq_us,
+                           graphed_us_per_chunk=graphed_us,
+                           seq_graphed_us_per_chunk=seq_graphed_us, **extra)
+
+    def time_sharded(label, ts, bound_, params, state0, xs, seq, **extra):
+        """A time-sharded case's µs per chunk: the eager group step and the
+        compiled one (``jit_step``: its first group equal to the eager
+        step's bit for bit), beside the sequential run eager (``scan`` /
+        ``graph_scan`` of d chunks) and compiled (``make_scan`` of T)."""
+        x0 = group(xs, 0)
+        step = ts.jit_step()
+        st, y = step(params, state0, x0)
+        _, want = ts.process(params, state0, x0)
+        if not all(torch.equal(a, b) for a, b in zip(tensors(y),
+                                                     tensors(want))):
+            raise AssertionError(f"path {label}: the compiled group step "
+                                 f"differs from the eager one")
+        if isinstance(xs, dict):
+            seq_eager = lambda: graph_scan(  # noqa: E731
+                bound_, params, state0, {k: v[:d] for k, v in xs.items()})
+        else:
+            seq_eager = lambda: scan(bound_, params, state0,  # noqa: E731
+                                     xs[:d])
+        timed_row(label, us_per_chunk(lambda: ts.process(params, state0, x0),
+                                      d),
+                  us_per_chunk(seq_eager, d),
+                  us_per_chunk(lambda: step(params, st, x0), d),
+                  us_per_chunk(lambda: seq(params, state0, xs), T),
+                  capture_ms=step.capture_ms, seq_capture_ms=seq.capture_ms,
+                  **extra)
+        step.free()
+
+    # -- Q1: A's chain time-sharded ------------------------------------------
+    tones = 400.0 + 190.0 * np.arange(BATCH)
+    xs_host_a = fm_tones(tones, T, CHUNK, offset=-100e3)
+    xs_a = torch.from_numpy(xs_host_a).to(dev)
+    bound_a = wfm_receiver(**CHAIN).bind(sig)
+    params, state0 = on_card(bound_a)
+    seq = make_scan(bound_a)
+    _, ys_seq = seq(params, state0, xs_a)
+    ts = TimeShardedChain(bound_a, mesh_t)
+    (_, ys_ts, recs), ran = counted(
+        "Q1", lambda: sharded_run(ts, params, xs_a), want_a)
+    err = vs_seq("Q1", ys_ts, ys_seq)
+    n_held = hold("Q1", recs)
+    step = ts.jit_step()
+    st, outs = state0, []
+    for s in range(T // d):
+        st, y = step(params, st, group(xs_a, s))
+        outs.append(y)
+    graphed_same = bool(torch.equal(ungroup(outs), ys_ts))
+    print(f"path Q1 compiled group step: capture "
+          f"{ms_text(step.capture_ms)} ms, equal to the eager sharded run "
+          f"bit for bit: {graphed_same} {tag}")
+    if not graphed_same:
+        raise AssertionError("path Q1: the compiled group step differs "
+                             "from the eager sharded run")
+    step.free()
+    time_sharded("Q1", ts, bound_a, params, state0, xs_a, seq,
+                 max_abs_diff=err, launches=ran, held_calls=n_held)
+    seq.free()
+    _, ys_ov, _ = sharded_run(TimeShardedChain(bound_a, mesh_t, overlap=2),
+                              params, xs_a, tap=False)
+    ov_diff = max_abs_diff(ys_ov[Q_SKIP:], ys_ts[Q_SKIP:])
+    print(f"path Q1 overlap=2 (two sub-batches of {BATCH // 2} streams a "
+          f"walk): vs overlap=1 max|diff|={ov_diff:.3e} from chunk {Q_SKIP} "
+          f"(atol 1e-5), bit for bit over all chunks: "
+          f"{bool(torch.equal(ys_ov, ys_ts))} {tag}")
+    if not ov_diff <= 1e-5:
+        raise AssertionError("path Q1: overlap=2 differs from overlap=1")
+    del ys_ov
+    bound_r = wfm_receiver(**CHAIN).bind(sig)
+    ts_r = TimeShardedChain(bound_r, mesh_t)
+
+    def retune(s, params_, state):
+        if s != 2:
+            return params_, state
+        new_state = ts_r.set_shift(tree_to_numpy(state), Q_RETUNE)
+        return (tree_to_torch(ts_r.params, dev),
+                tree_to_torch(new_state, dev))
+
+    _, ys_r, _ = sharded_run(ts_r, params, xs_a, retune, tap=False)
+    bound_s = wfm_receiver(**CHAIN).bind(sig)
+    st_a, ys_1 = scan(bound_s, params, state0, xs_a[:2 * d])
+    ps, ss = list(bound_s.params), list(tree_to_numpy(st_a))
+    for i, blk in enumerate(bound_s.blocks):
+        if hasattr(blk, "retune"):
+            ps[i], ss[i] = blk.retune(ps[i], ss[i], Q_RETUNE)
+    _, ys_2 = scan(bound_s, tree_to_torch(tuple(ps), dev),
+                   tree_to_torch(tuple(ss), dev), xs_a[2 * d:])
+    vs_seq("Q1 set_shift after step 2", ys_r, torch.cat([ys_1, ys_2]))
+    del ys_r, ys_1, ys_2, ys_ts, ys_seq
+
+    # B's chain time-sharded: the merged kernel (#6) runs as the two it
+    # merges, #3 then #5, on the halo-built states.
+    bound_b = wfm_receiver(**MID).bind(sig)
+    params, state0 = on_card(bound_b)
+    seq = make_scan(bound_b)
+    _, ys_seq = seq(params, state0, xs_a)
+    ts = TimeShardedChain(bound_b, mesh_t)
+    label = "Q1 B's chain (#6 as #3 then #5)"
+    (_, ys_ts, recs), ran = counted(
+        label, lambda: sharded_run(ts, params, xs_a),
+        [ofe.fused_mix_decimate, ofl.fused_overlap_save,
+         ofl.fused_demod_filter, ofe.decimate])
+    if "fused_filter_demod_filter" in ran:
+        raise AssertionError(f"path {label}: the merged kernel ran")
+    err = vs_seq(label, ys_ts, ys_seq)
+    time_sharded(label, ts, bound_b, params, state0, xs_a, seq,
+                 max_abs_diff=err, launches=ran,
+                 held_calls=hold(label, recs))
+    seq.free()
+    del ys_ts, ys_seq
+
+    # -- Q2: C's stereo graph time-sharded -----------------------------------
+    bound_c = wfm_stereo_receiver(**STEREO).bind({"iq": sig})
+    xs_c = {"iq": torch.from_numpy(stereo_fm(T, BATCH, CHUNK,
+                                             offset=-100e3)).to(dev)}
+    params, state0 = on_card(bound_c)
+    seq = make_scan(bound_c)
+    _, ys_seq = seq(params, state0, xs_c)
+    tsg = TimeShardedGraph(bound_c, mesh_t)
+    (_, ys_ts, recs), ran = counted(
+        "Q2", lambda: sharded_run(tsg, params, xs_c),
+        [ofe.fused_mix_decimate, ofl.fused_overlap_save,
+         ofl.fused_filter_bank, ofe.decimate])
+    err = vs_seq("Q2", ys_ts, ys_seq,
+                 skip=max(Q_SKIP, *bound_c.valid_from.values()))
+    n_held = hold("Q2", recs)
+    time_sharded("Q2", tsg, bound_c, params, state0, xs_c, seq,
+                 max_abs_diff=err, launches=ran, held_calls=n_held)
+    seq.free()
+    del ys_ts, ys_seq, xs_c
+
+    # -- Q3: D's channelizer, time-sharded fused and channel-sharded ---------
+    ch_sig = StreamSig(CH_BATCH, CH_CHUNK, CH_RATE)
+    ch_rows = [s * 64 + c for s in range(CH_BATCH) for c in occupied]
+    xs_d = torch.from_numpy(channel_fm(T, CH_BATCH, CH_CHUNK)).to(dev)
+    bound_d = channelized_receiver(fuse=True).bind(ch_sig)
+    params, state0 = on_card(bound_d)
+    seq = make_scan(bound_d)
+    _, ys_seq = seq(params, state0, xs_d)
+    ts = TimeShardedChain(bound_d, mesh_t)
+    (_, ys_ts, recs), ran = counted(
+        "Q3 fused", lambda: sharded_run(ts, params, xs_d),
+        [och.fused_pfb_demod])
+    err = vs_seq("Q3 fused", ys_ts, ys_seq, rows_=ch_rows)
+    n_held = hold("Q3 fused", recs)
+    time_sharded("Q3 fused", ts, bound_d, params, state0, xs_d, seq,
+                 max_abs_diff=err, launches=ran, held_calls=n_held)
+    seq.free()
+    bound_u = channelized_receiver(fuse=False).bind(ch_sig)
+    cs = ChannelShardedChain(bound_u, mesh_c, axis="c")
+    params_cs = tree_to_torch(cs.params, dev)
+    state_cs = tree_to_torch(cs.init_state(), dev)
+
+    def run_cs(step_):
+        st_, outs_ = state_cs, []
+        for x in xs_d:
+            st_, y_ = step_(params_cs, st_, x)
+            outs_.append(y_)
+        return torch.stack(outs_)
+
+    ys_cs, ran = counted("Q3 channel-sharded", lambda: run_cs(cs.process),
+                         [])
+    params, state0 = on_card(bound_u)
+    _, ys_seq = scan(bound_u, params, state0, xs_d)
+    err = vs_seq("Q3 channel-sharded", ys_cs, ys_seq, rows_=ch_rows)
+    step = cs.jit_step()
+    graphed_same = bool(torch.equal(run_cs(step), ys_cs))
+    print(f"path Q3 channel-sharded compiled step: capture "
+          f"{ms_text(step.capture_ms)} ms, equal to the eager run bit for "
+          f"bit: {graphed_same} {tag}")
+    if not graphed_same:
+        raise AssertionError("path Q3: the compiled channel-sharded step "
+                             "differs from its eager run")
+    one = jit_step(bound_u)
+    one(params, state0, xs_d[0])
+    timed_row("Q3 channel-sharded",
+              us_per_chunk(lambda: cs.process(params_cs, state_cs, xs_d[0]),
+                           1),
+              us_per_chunk(lambda: bound_u.process(
+                  params, state0, xs_d[0],
+                  torch.zeros(CH_BATCH, dtype=torch.bool, device=dev)), 1),
+              us_per_chunk(lambda: step(params_cs, state_cs, xs_d[0]), 1),
+              us_per_chunk(lambda: one(params, state0, xs_d[0]), 1),
+              capture_ms=step.capture_ms, seq_capture_ms=one.capture_ms,
+              max_abs_diff=err, launches=ran)
+    step.free()
+    one.free()
+    del ys_ts, ys_seq, ys_cs, xs_d
+
+    # -- Q4: F's AM receiver with AGC and K's phase-mode tail, time-sharded --
+    for label, bound_, xs_host, want in (
+            ("Q4 AM with AGC", am_receiver(tune_shift=-AN_OFFSET,
+                                           agc=True).bind(
+                StreamSig(BATCH, AN_CHUNK, AN_RATE)), am_stations(BATCH),
+             [ofe.decimate, ofl.fused_overlap_save, osc.agc_scan]),
+            ("Q4 K's phase-mode tail", k_chain().bind(
+                StreamSig(BATCH, 16384, RATE)),
+             fm_tones(400.0 + 190.0 * np.arange(BATCH), T, 16384, 0.0),
+             [ofe.decimate, ofl.fused_overlap_save,
+              ofe.decimate_phase_complex])):
+        xs = torch.from_numpy(xs_host).to(dev)
+        params, state0 = on_card(bound_)
+        seq = make_scan(bound_)
+        st_seq, ys_seq = seq(params, state0, xs)
+        ts = TimeShardedChain(bound_, mesh_t)
+        (st_ts, ys_ts, recs), ran = counted(
+            label, lambda: sharded_run(ts, params, xs), want)
+        if "agc_scan" in ran and ran["agc_scan"] != T:
+            raise AssertionError(f"path {label}: agc_scan launched "
+                                 f"{ran['agc_scan']} times for {T} chunks")
+        err = vs_seq(label, ys_ts, ys_seq,
+                     skip=max(Q_SKIP, bound_.valid_from))
+        if getattr(bound_, "ragged_output", False) and not torch.equal(
+                st_ts[-1]["phase"], st_seq[-1]["phase"]):
+            raise AssertionError(f"path {label}: grid phase off the "
+                                 f"sequential run's")
+        n_held = hold(label, recs)
+        time_sharded(label, ts, bound_, params, state0, xs, seq,
+                     max_abs_diff=err, launches=ran, held_calls=n_held)
+        seq.free()
+        del ys_ts, ys_seq, xs
+
+    # -- Q5: the pipelines ---------------------------------------------------
+    for label, bound_, xs_host, partition, want in (
+            ("Q5 B's chain", wfm_receiver(**MID).bind(sig), xs_host_a,
+             [1, 1, 2], [ofe.fused_mix_decimate,
+                         ofl.fused_filter_demod_filter, ofe.decimate]),
+            ("Q5 morse audio", morse_audio_chain().bind(
+                StreamSig(BATCH, MORSE_CHUNK, MORSE_RATE)),
+             keyer_input(BATCH, MORSE_RATE), None,
+             [osc.slew_scan, ofl.fused_overlap_save])):
+        xs = torch.from_numpy(xs_host).to(dev)
+        params, state0 = on_card(bound_)
+        _, ys_seq = scan(bound_, params, state0, xs)
+        stages = len(partition) if partition else 2
+        pl = PipelinedChain(bound_, devices=[dev] * stages,
+                            partition=partition)
+
+        def run_pl(pl_=pl, xs_=xs):
+            outs, records = [], []
+            for t in range(T + pl_.depth - 1):
+                taps = (tapped(1, _parallel_taps()) if t == Q_TAP_TICK
+                        else contextlib.nullcontext([]))
+                with taps as rec:
+                    y = pl_.push(xs_[t] if t < T else None)
+                records += rec
+                if y is not None:
+                    outs.append(y)
+            return torch.stack(outs), records
+
+        (ys_pl, recs), ran = counted(label, run_pl, want)
+        err = vs_seq(label, ys_pl, ys_seq, exact=True)
+        n_held = hold(label, recs)
+        timed_row(label, us_per_chunk(lambda: pl.run(xs), T),
+                  us_per_chunk(lambda: scan(bound_, params, state0, xs), T),
+                  stages=[len(getattr(s.bound, "blocks", [s.bound]))
+                          for s in pl.stages],
+                  max_abs_diff=err, launches=ran, held_calls=n_held)
+        del ys_pl, ys_seq, xs, pl
+
+    # -- Q6: the sharded steps and the runtime's mesh modes ------------------
+    params, state0 = on_card(bound_a)
+
+    def loop(step_):
+        st_, ys_ = state0, []
+        for x in xs_a:
+            st_, y_ = step_(params, st_, x)
+            ys_.append(y_)
+        return _cloned(tensors(st_)), torch.stack(ys_)
+
+    no_reset = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+    one = jit_step(bound_a)
+    (st_1, ys_1), _ = counted("Q6 jit_step", lambda: loop(one), want_a)
+    many = jit_step_sharded(bound_a, mesh_s, "streams")
+    (st_m, ys_m), ran = counted("Q6 jit_step_sharded", lambda: loop(many),
+                                want_a)
+    same = (torch.equal(ys_m, ys_1)
+            and all(torch.equal(a, b) for a, b in zip(st_m, st_1)))
+    print(f"path Q6 jit_step_sharded ({d} stream shards of {BATCH // d}): "
+          f"vs jit_step max|diff|={max_abs_diff(ys_m, ys_1):.3e}, outputs "
+          f"and state bit for bit: {same}; capture "
+          f"{ms_text(many.capture_ms)} ms (jit_step "
+          f"{ms_text(one.capture_ms)}) {tag}")
+    vs_seq("Q6 jit_step_sharded", ys_m, ys_1, exact=exact)
+    timed_row("Q6 jit_step_sharded",
+              us_per_chunk(lambda: shard_map_step(
+                  bound_a.process, mesh_s, "streams")(
+                      params, state0, xs_a[0], no_reset), 1),
+              us_per_chunk(lambda: bound_a.process(params, state0, xs_a[0],
+                                                   no_reset), 1),
+              us_per_chunk(lambda: many(params, state0, xs_a[0]), 1),
+              us_per_chunk(lambda: one(params, state0, xs_a[0]), 1),
+              capture_ms=many.capture_ms, seq_capture_ms=one.capture_ms,
+              launches=ran)
+    one.free()
+    many.free()
+    del ys_1, ys_m
+
+    async def actor_run(make_actor, chunks, rate, outputs=(None,)):
+        """[T', b, n] host chunks, b rows a message, through
+        ``make_actor()`` into one ArraySink per output: (actor, {output:
+        [T', b', n'] numpy}, seconds from the first output to the last:
+        T' - 1 messages past the one that captures)."""
+        t_chunks, b, n = chunks.shape
+        actor = make_actor()
+        src = ArraySource(chunks.reshape(t_chunks * b, n), b, rate)
+        actor.feed_from(src)
+        sinks = {}
+        for name in outputs:
+            sinks[name] = ArraySink()
+            sinks[name].feed_from(actor if name is None else actor.out(name))
+        first = []
+
+        async def first_output():
+            sink = next(iter(sinks.values()))
+            while not sink.chunks:
+                await asyncio.sleep(1e-4)
+            first.append(time.perf_counter())
+
+        watch = asyncio.ensure_future(first_output())
+        await asyncio.wait_for(asyncio.gather(
+            src._task, actor._task, *[s._task for s in sinks.values()]),
+            600.0)
+        end = time.perf_counter()
+        await watch
+        if actor.failure is not None:
+            raise RuntimeError(f"{actor.name} failed") from actor.failure
+        return (actor, {k: np.stack(s.chunks) for k, s in sinks.items()},
+                end - first[0])
+
+    def host_groups(x):
+        """[T, b, n] host chunks -> [T/d, b, d*n] group chunks."""
+        t_, b, n = x.shape
+        return np.ascontiguousarray(x.reshape(t_ // d, d, b, n)
+                                    .transpose(0, 2, 1, 3)
+                                    .reshape(t_ // d, b, d * n))
+
+    def host_ungroup(y):
+        """[T/d, b, d*n'] -> [T, b, n']."""
+        g, b, dn = y.shape
+        return y.reshape(g, b, d, dn // d).transpose(0, 2, 1, 3).reshape(
+            g * d, b, dn // d)
+
+    def actor_case(label, make_sharded, make_plain, chunks, plain_chunks,
+                   rate, executor, want, outputs=(None,), grouped=False,
+                   rows_=None, skip=Q_SKIP, exact=False):
+        (actor, got, wall), ran = counted(
+            label, lambda: asyncio.run(actor_run(make_sharded, chunks, rate,
+                                                 outputs)), want)
+        if actor.executor != executor:
+            raise AssertionError(f"path {label}: took the {actor.executor} "
+                                 f"executor, not {executor}")
+        _, ref, wall_1 = asyncio.run(actor_run(make_plain, plain_chunks,
+                                               rate, outputs))
+        err = 0.0
+        for k in got:
+            g = host_ungroup(got[k]) if grouped else got[k]
+            err = max(err, vs_seq(f"{label}{'' if k is None else ' ' + k}",
+                                  torch.from_numpy(g),
+                                  torch.from_numpy(ref[k]), rows_, skip,
+                                  exact))
+        # Past the first message (its capture): T' - 1 messages in wall.
+        msps = chunks[1:].size / wall / 1e6
+        msps_1 = plain_chunks[1:].size / wall_1 / 1e6
+        print(f"path {label}: the {executor} executor, {msps:.1f} Msamples/s "
+              f"({wall * 1e3:.1f} ms for the {chunks.shape[0] - 1} messages "
+              f"after the first), unsharded actor {msps_1:.1f} Msamples/s "
+              f"({plain_chunks.shape[0] - 1} messages) {tag}")
+        rows[label] = dict(executor=executor, msamples_s=msps,
+                           unsharded_msamples_s=msps_1, wall_s=wall,
+                           unsharded_wall_s=wall_1, max_abs_diff=err,
+                           launches=ran)
+
+    actor_case("Q6 RuntimeBlock streams",
+               lambda: RuntimeBlock(wfm_receiver(**CHAIN), mesh=mesh_s),
+               lambda: RuntimeBlock(wfm_receiver(**CHAIN), device=dev),
+               xs_host_a, xs_host_a, RATE, "streams", want_a, exact=exact)
+    xs_host_d = channel_fm(T, CH_BATCH, CH_CHUNK)
+    actor_case("Q6 RuntimeBlock channels",
+               lambda: RuntimeBlock(channelized_receiver(fuse=False),
+                                    mesh=mesh_c, shard="channels"),
+               lambda: RuntimeBlock(channelized_receiver(fuse=False),
+                                    device=dev),
+               xs_host_d, xs_host_d, CH_RATE, "channels", [],
+               rows_=ch_rows)
+    small = fm_tones(tones[:Q_ACTOR_BATCH], Q_ACTOR_CHUNKS, CHUNK,
+                     offset=-100e3)
+    actor_case("Q6 RuntimeBlock time",
+               lambda: RuntimeBlock(wfm_receiver(**CHAIN), mesh=mesh_t,
+                                    shard="time"),
+               lambda: RuntimeBlock(wfm_receiver(**CHAIN), device=dev),
+               host_groups(small), small, RATE, "time", want_a,
+               grouped=True)
+    small_c = stereo_fm(Q_ACTOR_CHUNKS, Q_ACTOR_BATCH, CHUNK, offset=-100e3)
+    vf_c = max(bound_c.valid_from.values())
+    actor_case("Q6 RuntimeGraph time",
+               lambda: RuntimeGraph(wfm_stereo_receiver(**STEREO),
+                                    mesh=mesh_t, shard="time"),
+               lambda: RuntimeGraph(wfm_stereo_receiver(**STEREO),
+                                    device=dev),
+               host_groups(small_c), small_c, RATE, "time",
+               [ofe.fused_mix_decimate, ofl.fused_overlap_save,
+                ofl.fused_filter_bank, ofe.decimate],
+               outputs=tuple(bound_c.out_sigs), grouped=True,
+               skip=max(Q_SKIP, vf_c))
+
+    out = io.StringIO()
+    t_wall = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        (report, ran) = counted("Q6 fleet_receiver",
+                                lambda: fleet_receiver.main(device="cuda"),
+                                [ofe.decimate, ofl.fused_overlap_save])
+    wall = time.perf_counter() - t_wall
+    for line in out.getvalue().splitlines():
+        print(f"  fleet_receiver: {line}")
+    check_output("fleet_receiver", out.getvalue())
+    executors = (report["fleet"]["executor"], report["single"]["executor"])
+    devices = {str(x) for x in report["devices"]}
+    print(f"path Q6 fleet_receiver: {wall:.2f} s wall, executors "
+          f"{executors}, actors on {sorted(devices)}, launches {ran} {tag}")
+    if executors != ("streams", "time") or any(
+            not x.startswith(dev.type) for x in devices):
+        raise AssertionError(f"path Q6 fleet_receiver: executors "
+                             f"{executors} on {devices}")
+    rows["Q6 fleet_receiver"] = dict(seconds=wall, launches=ran,
+                                     executors=executors)
+
+    unheld = set(Q_KERNELS) - {h["kernel"] for h in held if not h["zero"]}
+    if unheld:
+        raise AssertionError(f"path Q: {sorted(unheld)} held on no call "
+                             f"with non-zero outputs")
+    return dict(rows=rows, launches=dict(launches_q), held=held)
 
 
 def main() -> None:
@@ -2859,6 +3519,11 @@ def main() -> None:
     validated = validate_path(tag, wrappers)
     t0 = phase("path P", t0)
 
+    # Path Q: the parallel layer (time sharding, channel sharding, the
+    # pipeline, the sharded steps, the runtime's mesh modes).
+    parallel = parallel_paths(dev, tag, wrappers, k_chain)
+    t0 = phase("path Q", t0)
+
     # Each kernel's launches are those of the path it was checked at.
     path_of = {"decimate": launches_a, "fused_mix_decimate": launches_a,
                "fused_overlap_save": launches_a,
@@ -2892,8 +3557,15 @@ def main() -> None:
             calls=len(on_o),
             max_abs_err=max((h["max_abs_err"] for h in on_o), default=None),
             rel=max((h["rel"] for h in on_o), default=None))
-        print(f"  {k['name']}: {k['launches']} launches on its path; "
-              f"launched by examples {k['on_paths_o_p']['O']} (O), models "
+        on_q = [h for h in parallel["held"] if h["kernel"] == k["name"]]
+        k["launches_q"] = parallel["launches"].get(k["name"], 0)
+        k["held_on_path_q"] = dict(
+            calls=len(on_q),
+            max_abs_err=max((h["max_abs_err"] for h in on_q), default=None),
+            rel=max((h["rel"] for h in on_q), default=None))
+        print(f"  {k['name']}: {k['launches']} launches on its path, "
+              f"{k['launches_q']} on path Q ({len(on_q)} held); launched by "
+              f"examples {k['on_paths_o_p']['O']} (O), models "
               f"{k['on_paths_o_p']['P']} (P)")
         for row in [dict(k, geometry="its path's shapes"), *k["geometries"]]:
             print(f"    {row['geometry']}: kernel {us(row['ms'])} us (device "
@@ -2905,6 +3577,7 @@ def main() -> None:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"graphed": graphed_rows}))
     print(json.dumps({"serving": runtime}))
+    print(json.dumps({"parallel": parallel["rows"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,8 @@ from ..convert import tree_to_torch
 
 __all__ = ["StreamSig", "Block", "BoundBlock", "Chain", "scan",
            "expand_reset", "no_reset", "jit_step", "make_scan",
-           "params_changed", "foreign_leaves"]
+           "jit_step_sharded", "shard_map_step", "params_changed",
+           "foreign_leaves"]
 
 
 @dataclass(frozen=True)
@@ -88,6 +89,14 @@ class BoundBlock:
         """(params, state, x[batch, chunk_len], reset[batch]) ->
         (state', y[batch, out_chunk_len])."""
         raise NotImplementedError
+
+    def shard_batch_ok(self, ndev: int) -> bool:
+        """Whether this block's math holds on a per-device stream batch of
+        ``in_sig.batch // ndev`` (data-parallel stream sharding,
+        :func:`jit_step_sharded`).  Blocks with per-shard constraints
+        beyond divisibility (the pair-packed fused kernels want an even
+        local batch) override it; composites ask their members."""
+        return self.in_sig.batch % ndev == 0
 
     def __call__(self, x, *, state=None, reset=None, params=None):
         """Eager single-step helper (mainly for tests): the bound params
@@ -154,6 +163,10 @@ class _BoundChain(BoundBlock):
                                               self.in_sig.batch))
             new_state.append(s)
         return tuple(new_state), x
+
+    def shard_batch_ok(self, ndev: int) -> bool:
+        return (self.in_sig.batch % ndev == 0
+                and all(b.shard_batch_ok(ndev) for b in self.blocks))
 
     # Realness propagates through a nested chain (see the JAX package).
     @property
@@ -337,11 +350,18 @@ class _Compiled:
     ``captures`` counts captures and ``capture_ms`` is the last one's host
     time (warm-up included); :meth:`free` drops every graph.  The kernel
     wrappers' ``launches`` counters count while a step is captured (and
-    in the eager warm-up before it), not on a replay."""
+    in the eager warm-up before it), not on a replay.
 
-    def __init__(self, bound, whole_run: bool):
+    ``process`` (default: the bound's own) is the step to run, a sharded
+    one for the parallel layer; ``capturable=False`` keeps CUDA tensors
+    eager too (a step across distinct devices cannot be one graph)."""
+
+    def __init__(self, bound, whole_run: bool, process=None,
+                 capturable: bool = True):
         self.bound = bound
         self._whole = whole_run
+        self._fn = bound.process if process is None else process
+        self.capturable = capturable
         self._captured = {}
         self.captures = 0
         self.capture_ms = None
@@ -350,12 +370,12 @@ class _Compiled:
         self._captured.clear()
 
     def _process(self, params, state, x, reset):
-        return self.bound.process(params, state, x, reset)
+        return self._fn(params, state, x, reset)
 
     def _eager(self, params, state, x, reset):
         if not self._whole:
-            if reset is None and not _is_graph(self.bound):
-                reset = no_reset(self.bound.in_sig.batch, x.device)
+            if reset is None:
+                reset = _default_reset(self.bound, (), _leaves(x)[0].device)
             return self._process(params, state, x, reset)
         if _is_graph(self.bound):
             from .graph import graph_scan
@@ -364,7 +384,7 @@ class _Compiled:
 
     def __call__(self, params, state, x, reset=None):
         device = _leaves(x)[0].device
-        if device.type != "cuda":
+        if device.type != "cuda" or not self.capturable:
             return self._eager(params, state, x, reset)
         key = (_spec(state), _spec(x), _spec(reset))
         cap = self._captured.get(key)
@@ -501,3 +521,56 @@ def make_scan(bound) -> _Compiled:
     the inputs are copied into the graph's buffers, and the state and ys
     it returns are copies that a later call does not change."""
     return _Compiled(bound, whole_run=True)
+
+
+def shard_map_step(fn, mesh, axis: str):
+    """A step over the mesh's ``axis``, data-parallel over streams:
+    ``fn(params, state, x, reset) -> (state', y)`` runs once per shard,
+    params replicated (copied once to each distinct device), and the
+    state, chunks and reset masks cut along their leading stream axis,
+    shard i taking the i-th equal part on the i-th device of ``axis``
+    (the other axes at index 0).  The results are concatenated back on
+    the first of those devices.  Dict-valued chunks and resets (a
+    :class:`~radiorust_tpu_torch.blocks.graph.BoundGraph`) cut the same
+    way.  No values cross between shards: streams never couple."""
+    from ..parallel.mesh import Replicas, concat, split_batch
+    devices = mesh.line(axis)
+    replicas = Replicas()
+
+    def step(params, state, x, reset):
+        d = len(devices)
+        batch = _leaves(x)[0].shape[0]
+        ps = replicas(params, devices)
+        outs = [fn(p, s, xi, ri) for p, s, xi, ri in zip(
+            ps, split_batch(state, d, batch, devices),
+            split_batch(x, d, batch, devices),
+            split_batch(reset, d, batch, devices))]
+        return (concat([o[0] for o in outs], devices[0]),
+                concat([o[1] for o in outs], devices[0]))
+
+    return step
+
+
+def jit_step_sharded(bound, mesh, axis: str) -> _Compiled:
+    """:func:`jit_step` data-parallel over a mesh axis: the stream batch
+    splits over ``mesh.shape[axis]`` shards (:func:`shard_map_step`),
+    params replicate, and no collectives are needed.  Same calling
+    convention as :func:`jit_step`; where every device of the mesh is one
+    card the step is one CUDA graph holding every shard's launches, and
+    across distinct devices it runs eagerly.
+
+    Requires ``bound.shard_batch_ok(mesh.shape[axis])``: the batch must
+    split evenly and each block's per-shard constraints hold on the local
+    batch (the pair-packed fused kernels need it even)."""
+    ndev = mesh.shape[axis]
+    if not bound.shard_batch_ok(ndev):
+        batch = (bound.in_sig.batch if isinstance(bound, BoundBlock)
+                 else {k: s.batch for k, s in bound.in_sigs.items()})
+        raise ValueError(
+            f"batch {batch} cannot shard over mesh axis {axis!r} ({ndev} "
+            f"devices): the local batch must divide evenly and satisfy "
+            f"every block's per-shard constraint (pair-packed fused "
+            f"kernels need an even local batch)")
+    return _Compiled(bound, whole_run=False,
+                     process=shard_map_step(bound.process, mesh, axis),
+                     capturable=mesh.single_device)

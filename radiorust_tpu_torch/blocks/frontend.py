@@ -121,6 +121,12 @@ class _BoundFmDemodFilter(BoundBlock):
     def output_is_real(self):
         return True
 
+    def shard_batch_ok(self, ndev: int) -> bool:
+        # Stream pairs share a transform: the *local* batch must stay even
+        # under stream sharding.
+        b = self.in_sig.batch
+        return b % ndev == 0 and (b // ndev) % 2 == 0
+
     def __init__(self, sig: StreamSig, deviation: float, freq_resp, window,
                  ir_len=None):
         self.in_sig = self.out_sig = sig
@@ -192,6 +198,11 @@ class _BoundFilterDemodFilter(BoundBlock):
     @property
     def output_is_real(self):
         return True
+
+    def shard_batch_ok(self, ndev: int) -> bool:
+        # Stream pairs share a transform (see _BoundFmDemodFilter).
+        b = self.in_sig.batch
+        return b % ndev == 0 and (b // ndev) % 2 == 0
 
     def __init__(self, sig: StreamSig, freq_resp, window, deviation: float,
                  deemph_resp, deemph_window, ir_len=None):

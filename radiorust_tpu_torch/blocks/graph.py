@@ -266,6 +266,14 @@ class BoundGraph:
         return tuple(new_state), {n: vals[i]
                                   for n, i in self._outputs.items()}
 
+    def shard_batch_ok(self, ndev: int) -> bool:
+        """Whether data-parallel stream sharding holds: every input batch
+        splits over the mesh axis and every node's per-shard constraints
+        hold on its local batch (``BoundBlock.shard_batch_ok``)."""
+        return (all(sig.batch % ndev == 0 for sig in self.in_sigs.values())
+                and all(b.shard_batch_ok(ndev) for b in self.bound
+                        if b is not None))
+
 
 def linear_bound_graph(bound_chain) -> BoundGraph:
     """A bound chain in the ``BoundGraph`` shape: input node "in", the

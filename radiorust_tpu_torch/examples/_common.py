@@ -117,6 +117,8 @@ _CHECKS = {
                  _near(r"FM tone (\d+) Hz", 700.0, 5),
                  _near(r"peak deviation (\d+) Hz", 1250.0, 0.1, rel=True)],
     "audiopipe": [_has("piped", "real audio", any_of=True)],
+    "fleet_receiver": [_has("fleet: 16/16", "wideband: 3/3",
+                            "Hz recovered (ok")],
 }
 
 def check_output(name: str, out: str) -> None:

@@ -57,7 +57,8 @@ __all__ = ["kernel_factors", "strip_cols", "supported", "bank_supported",
            "fft_roots", "response_grid", "fused_overlap_save",
            "fused_overlap_save_plain", "fused_filter_bank",
            "fused_filter_bank_plain", "fused_demod_filter",
-           "fused_demod_filter_plain", "fused_filter_demod_filter",
+           "fused_demod_filter_plain", "fm_demod_planes",
+           "fused_filter_demod_filter",
            "fused_filter_demod_filter_plain"]
 
 N2 = 128          # the row length wherever it divides the transform
@@ -319,19 +320,32 @@ def _factor_vector(factor, b: int, device) -> torch.Tensor:
                            device=device).expand(b).contiguous()
 
 
-def fused_demod_filter_plain(curr, curi, prev_last_r, prev_last_i, prevd,
-                             last_out, have_prev, resp_gr, resp_gi, factor):
-    """Plain PyTorch version of :func:`fused_demod_filter`
-    (``torch.atan2`` and ``torch.fft``)."""
-    b, n = curr.shape
-    m = prevd.shape[1]
+def fm_demod_planes(curr, curi, prev_last_r, prev_last_i, last_out,
+                    have_prev, factor):
+    """The demod prologue of :func:`fused_demod_filter` in plain PyTorch:
+    ``atan2(Im, Re of x * conj(x[-1])) * factor`` over [batch, n] planes,
+    x[-1] of sample 0 the carried ``prev_last``, sample 0 replaced by
+    ``last_out`` where ``have_prev`` < 0.5.  Also the replica a time
+    shard builds of its neighbour's demodulated tail
+    (``parallel/time_shard.py``)."""
+    b = curr.shape[0]
     sr = torch.cat([prev_last_r[:, None], curr[:, :-1]], dim=1)
     si = torch.cat([prev_last_i[:, None], curi[:, :-1]], dim=1)
     pre = curr * sr + curi * si
     pim = curi * sr - curr * si
     d = torch.atan2(pim, pre) * _factor_vector(factor, b, curr.device)[:, None]
     d0 = torch.where(have_prev < 0.5, last_out, d[:, 0])
-    d = torch.cat([d0[:, None], d[:, 1:]], dim=1)
+    return torch.cat([d0[:, None], d[:, 1:]], dim=1)
+
+
+def fused_demod_filter_plain(curr, curi, prev_last_r, prev_last_i, prevd,
+                             last_out, have_prev, resp_gr, resp_gi, factor):
+    """Plain PyTorch version of :func:`fused_demod_filter`
+    (:func:`fm_demod_planes` and ``torch.fft``)."""
+    b, n = curr.shape
+    m = prevd.shape[1]
+    d = fm_demod_planes(curr, curi, prev_last_r, prev_last_i, last_out,
+                        have_prev, factor)
     z = torch.cat([prevd, d], dim=-1)                  # [b, m + n]
     yr, yi = fused_overlap_save_plain(z[0::2, :m], z[1::2, :m],
                                       z[0::2, m:], z[1::2, m:],

@@ -51,7 +51,8 @@ __all__ = ["decimate", "decimate_plain", "fused_mix_decimate",
            "fused_mix_decimate_plain", "decimate_complex",
            "decimate_complex_plain", "decimate_phase_complex",
            "rational_fir_phase", "fused_mix_decimate_complex",
-           "fused_mix_decimate_complex_plain", "decimate_supported",
+           "fused_mix_decimate_complex_plain", "mix_tail",
+           "decimate_supported",
            "relay_taps", "launch_config", "fits_block", "wide_config",
            "tap_bands"]
 
@@ -436,6 +437,27 @@ def _mix(xr, xi, ar, ai, br, bi, p0r, p0i):
     pi = p0i[:, None, None]
     return ((mr0 * pr - mi0 * pi).reshape(b, n),
             (mr0 * pi + mi0 * pr).reshape(b, n))
+
+
+def mix_tail(x_tail, table_a, table_b, p0r, p0i):
+    """The mixed-domain planes (re, im) of the last ``h`` samples of a
+    chunk, ``x_tail`` [batch, h] complex64 against the chunk's factored
+    tables (complex64 [outer], [inner]) and start phasor: the history
+    ``rr_mix_decimate`` writes when h is at most the chunk, in its order
+    of operations (every product and sum rounded on its own), so that it
+    is bit for bit the kernel's.  A time shard rebuilds its left
+    neighbour's history with it (``parallel/time_shard.py``)."""
+    h = x_tail.shape[-1]
+    ar, ai = table_a.real, table_a.imag
+    br, bi = table_b.real, table_b.imag
+    oscr = (ar[:, None] * br[None, :] - ai[:, None] * bi[None, :])
+    osci = (ar[:, None] * bi[None, :] + ai[:, None] * br[None, :])
+    oscr, osci = oscr.reshape(-1)[-h:], osci.reshape(-1)[-h:]
+    xr, xi = x_tail.real, x_tail.imag
+    mr0 = xr * oscr[None] - xi * osci[None]
+    mi0 = xr * osci[None] + xi * oscr[None]
+    pr, pi = p0r[:, None], p0i[:, None]
+    return mr0 * pr - mi0 * pi, mr0 * pi + mi0 * pr
 
 
 def fused_mix_decimate_plain(xr, xi, ar, ai, br, bi, p0r, p0i, hr, hi,

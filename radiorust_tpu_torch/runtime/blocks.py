@@ -79,10 +79,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_serving(mesh, mesh_axis, shard: str, allowed) -> None:
-    """The JAX package's mesh arguments, validated as it does; a mesh
-    raises :class:`NotImplementedError` (mesh serving is the port's slice
-    8, ROADMAP.md), so nothing runs on one device unannounced."""
+def check_serving(mesh, mesh_axis, shard: str, allowed) -> Optional[str]:
+    """Validate the mesh arguments where the actor is made (a typo'd axis
+    raises here, not inside the actor's task) and return the serving
+    axis: ``mesh_axis``, by default the mesh's first axis; None without a
+    mesh."""
+    from ..parallel.mesh import Mesh
     if shard not in allowed:
         raise ValueError(f"shard must be one of {allowed}, got {shard!r}")
     if shard != "streams" and mesh is None:
@@ -90,10 +92,22 @@ def check_serving(mesh, mesh_axis, shard: str, allowed) -> None:
     if mesh is None:
         if mesh_axis is not None:
             raise ValueError("mesh_axis given without a mesh")
-        return
-    raise NotImplementedError(
-        "mesh serving (mesh, mesh_axis, shard, overlap) is not ported yet: "
-        "it waits for slice 8 (parallel) of the port, ROADMAP.md")
+        return None
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a radiorust_tpu_torch.parallel.mesh."
+                        f"Mesh, got {type(mesh).__name__}")
+    if mesh_axis is None:
+        return mesh.axis_names[0]
+    if mesh_axis not in mesh.axis_names:
+        raise ValueError(f"mesh_axis {mesh_axis!r} not an axis of the mesh "
+                         f"(axes: {mesh.axis_names})")
+    return mesh_axis
+
+
+def _fallback(name: str, kind: str, err: Exception) -> None:
+    logging.getLogger(__name__).warning(
+        "%s: cannot %s (%s); using the single-device program", name, kind,
+        err)
 
 
 def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -195,9 +209,29 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
     dtype.
 
     ``device`` is CUDA unless given (``device="cpu"`` runs the plain
-    versions of the kernels); without a card it raises.  ``mesh``,
-    ``mesh_axis``, ``shard`` and ``overlap`` keep the JAX package's
-    signature: a mesh raises :class:`NotImplementedError`.
+    versions of the kernels); without a card it raises.
+
+    Mesh serving (``mesh``, a :class:`~radiorust_tpu_torch.parallel.mesh.
+    Mesh`, whose entries may repeat one card; ``mesh_axis``, by default
+    its first axis), three modes:
+
+    - ``shard="streams"``: batched ``[streams, n]`` chunks split their
+      stream axis over the mesh axis
+      (:func:`~radiorust_tpu_torch.blocks.base.jit_step_sharded`);
+    - ``shard="channels"``: a channelizer-led chain splits its M channels
+      over the axis (:class:`~radiorust_tpu_torch.parallel.channel_shard.
+      ChannelShardedChain`);
+    - ``shard="time"``: each chunk of D*chunk_len samples runs as D
+      consecutive chunks with halo exchange
+      (:class:`~radiorust_tpu_torch.parallel.time_shard.
+      TimeShardedChain`); ``overlap=S`` splits the batch into S
+      sub-batches.
+
+    A binding that cannot shard (a batch that does not split, a chain
+    that is not channelizer-led, a block that cannot time-shard) logs a
+    warning and runs the single-device step, as the JAX package's
+    actor does; :attr:`executor` says which one the current binding
+    took.  Without a ``device`` the actor's device is the mesh's first.
     """
 
     def __init__(self, spec: Block, name: Optional[str] = None,
@@ -205,8 +239,11 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
                  mesh_axis: Optional[str] = None, shard: str = "streams",
                  overlap: int = 1, device=None):
         from ..utils.profiling import GLOBAL_STATS
-        check_serving(mesh, mesh_axis, shard, ("streams", "channels", "time"))
-        self.device = resolve_device(device)
+        self.mesh_axis = check_serving(mesh, mesh_axis, shard,
+                                       ("streams", "channels", "time"))
+        self.mesh, self.shard, self.overlap = mesh, shard, overlap
+        self.device = resolve_device(device if mesh is None or device
+                                     else mesh.home)
         self.spec = spec
         self.name = name or type(spec).__name__
         self.stats = GLOBAL_STATS.unique(self.name)
@@ -246,14 +283,72 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
         self._typed_values: Dict[str, float] = {}
         self.chunks_processed = 0
 
+    @property
+    def executor(self) -> Optional[str]:
+        """The step the current binding runs: "streams", "channels" or
+        "time" (sharded over the mesh), "single" (one device: no mesh, or
+        a fallback), or None before the first chunk."""
+        return getattr(self._bound, "executor", None)
+
     def _get_bound(self, chunk_len: int, sample_rate: float,
                    batch: int = 1):
         key = (batch, chunk_len, sample_rate)
         bound = self._bindings.get(key)
         if bound is None:
             bound = self.spec.bind(StreamSig(batch, chunk_len, sample_rate))
-            bound._jit = jit_step(bound)
+            if (self.mesh is not None and self.shard in ("channels", "time")
+                    and getattr(bound, "ragged_output", False)):
+                # The channel and time executors would emit the padded
+                # chunks untrimmed (their group steps bypass the schedule
+                # mirror).  Stream sharding is fine.
+                raise ValueError(
+                    "phase-mode (arbitrary-ratio) resampler tails are not "
+                    "supported under channel/time mesh serving; serve "
+                    "single-device or data-parallel, or re-chunk to a "
+                    "multiple of the resampling period")
+            bound = self._sharded(bound, chunk_len, sample_rate, batch)
             self._bindings[key] = bound
+        return bound
+
+    def _sharded(self, bound, chunk_len: int, sample_rate: float,
+                 batch: int):
+        """The binding's executor with its compiled step (``_jit``): the
+        mesh mode's, or the single-device step where it cannot shard."""
+        from ..blocks.base import jit_step_sharded
+        mesh, axis = self.mesh, self.mesh_axis
+        if mesh is not None and self.shard == "channels":
+            from ..parallel.channel_shard import ChannelShardedChain
+            try:
+                cs = ChannelShardedChain(bound, mesh, axis=axis)
+            except ValueError as e:
+                _fallback(self.name, "channel-shard", e)
+            else:
+                cs._jit, cs.executor = cs.jit_step(), "channels"
+                return cs
+        elif mesh is not None and self.shard == "time":
+            from ..parallel.time_shard import TimeShardedChain
+            d = mesh.shape[axis]
+            try:
+                if chunk_len % d:
+                    raise ValueError(f"chunk {chunk_len} not divisible by "
+                                     f"the time axis ({d} devices)")
+                inner = self.spec.bind(
+                    StreamSig(batch, chunk_len // d, sample_rate))
+                ts = TimeShardedChain(inner, mesh, t_axis=axis,
+                                      overlap=self.overlap)
+                ts.check(batch)
+            except (ValueError, NotImplementedError) as e:
+                _fallback(self.name, "time-shard", e)
+            else:
+                ts._jit, ts.executor = ts.jit_step(), "time"
+                # The actor consumes and produces GROUP chunks.
+                ts.in_sig, ts.out_sig = ts.group_sigs()
+                return ts
+        elif mesh is not None and bound.shard_batch_ok(mesh.shape[axis]):
+            bound._jit = jit_step_sharded(bound, mesh, axis)
+            bound.executor = "streams"
+            return bound
+        bound._jit, bound.executor = jit_step(bound), "single"
         return bound
 
     def update_params(self, fn: Callable[[Any, Any], Any],
@@ -330,15 +425,19 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
         bound = self._bound
         if bound is None:
             return None, None
-        if isinstance(bound, BoundGraph):
-            pairs = [(b, p) for b, p in zip(bound.bound, bound.params)
+        inner = getattr(bound, "bound", bound)   # the sharded executors
+        if isinstance(inner, (list, tuple)):
+            # BoundGraph.bound is its node list: the graph is the binding.
+            inner = bound
+        if isinstance(inner, BoundGraph):
+            pairs = [(b, p) for b, p in zip(inner.bound, inner.params)
                      if b is not None]
             return (tuple(b for b, _ in pairs),
                     tuple(p for _, p in pairs))
-        blocks = getattr(bound, "blocks", None)
+        blocks = getattr(inner, "blocks", None)
         if blocks is None:
-            return (bound,), (bound.params,)
-        return blocks, bound.params
+            return (inner,), (inner.params,)
+        return blocks, inner.params
 
     def gain(self) -> float:
         """``GainControl::get`` analog (src/blocks/transform.rs:85-87):
@@ -447,6 +546,10 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
             bound = self._bound
             blocks = getattr(bound, "blocks", None)
             if blocks is not None:
+                # A chain or a sharded executor (a time-sharded graph's
+                # nodes, None for its inputs); the phase fold is
+                # elementwise, so it takes the channel executor's
+                # [batch, M] leaves too.
                 params = list(bound.params)
                 state = list(self._state)
                 for i, blk in enumerate(blocks):
@@ -808,7 +911,9 @@ class RuntimeGraph(RuntimeBlock):
     Everything else (rebind on shape/rate change, interrupt resets,
     per-output Warmup, 1-D/2-D batched chunks, ``pipeline_depth``, typed
     setters applied per node, checkpoints, ``device``) is inherited from
-    :class:`RuntimeBlock`.
+    :class:`RuntimeBlock`.  A mesh serves a graph over its streams
+    (``shard="streams"``) or time-sharded (``shard="time"``:
+    :class:`~radiorust_tpu_torch.parallel.time_shard.TimeShardedGraph`).
     """
 
     def __init__(self, graph_spec, name: Optional[str] = None,
@@ -820,8 +925,11 @@ class RuntimeGraph(RuntimeBlock):
             raise ValueError("RuntimeGraph wraps single-input graphs; "
                              "multi-input graphs are a compiled-path "
                              "feature (bind + graph_scan)")
-        check_serving(mesh, mesh_axis, shard, ("streams", "time"))
-        self.device = resolve_device(device)
+        self.mesh_axis = check_serving(mesh, mesh_axis, shard,
+                                       ("streams", "time"))
+        self.mesh, self.shard, self.overlap = mesh, shard, overlap
+        self.device = resolve_device(device if mesh is None or device
+                                     else mesh.home)
         self.spec = graph_spec
         self.name = name or "RuntimeGraph"
         self.stats = GLOBAL_STATS.unique(self.name)
@@ -851,6 +959,40 @@ class RuntimeGraph(RuntimeBlock):
         name = next(iter(bound.in_sigs))
         return bound._jit(self._dparams, self._dstate, {name: x},
                           {name: reset})
+
+    def _sharded(self, bound, chunk_len: int, sample_rate: float,
+                 batch: int):
+        if self.mesh is not None and self.shard == "time":
+            tsg = self._bind_time_sharded(chunk_len, sample_rate, batch)
+            if tsg is not None:
+                return tsg
+            bound._jit, bound.executor = jit_step(bound), "single"
+            return bound
+        return super()._sharded(bound, chunk_len, sample_rate, batch)
+
+    def _bind_time_sharded(self, chunk_len: int, sample_rate: float,
+                           batch: int):
+        """The ``shard="time"`` binding: the DAG time-sharded over the
+        mesh, D chunks a group step; None (with a logged warning) where
+        the chunk does not divide or a node cannot time-shard."""
+        from ..parallel.time_shard import TimeShardedGraph
+        d = self.mesh.shape[self.mesh_axis]
+        try:
+            if chunk_len % d:
+                raise ValueError(f"chunk {chunk_len} not divisible by the "
+                                 f"time axis ({d} devices)")
+            inner = self.spec.bind(
+                StreamSig(batch, chunk_len // d, sample_rate))
+            tsg = TimeShardedGraph(inner, self.mesh, t_axis=self.mesh_axis,
+                                   overlap=self.overlap)
+            tsg.check(batch)
+        except (ValueError, NotImplementedError) as e:
+            _fallback(self.name, "time-shard", e)
+            return None
+        # The actor consumes and produces GROUP chunks.
+        tsg.in_sigs, tsg.out_sigs = tsg.group_sigs()
+        tsg._jit, tsg.executor = tsg.jit_step(), "time"
+        return tsg
 
     # -- multi-output hooks -------------------------------------------------
 

@@ -14,7 +14,9 @@ tensors (``device="cpu"``).
    samples within 3e-4 from ``valid_from`` — the WFM bound that
    ``tests/test_torch_compiled.py`` uses for the same chains — on A's
    chain, a retune mid-stream, C's graph and K's tail.
-4. A mesh argument raises ``NotImplementedError``; without a card and
+4. A mesh argument that is not the port's ``Mesh``, and a mesh mode or
+   axis without a mesh, raise where the actor is made (the mesh modes
+   themselves: ``test_torch_parallel_runtime.py``); without a card and
    without ``device="cpu"`` the actors raise.
 """
 
@@ -1269,14 +1271,14 @@ def test_actor_matches_jax_on_phase_mode_tail(interpret_pallas_highest):
 
 def test_mesh_arguments_raise():
     async def main():
-        with pytest.raises(NotImplementedError, match="slice 8"):
+        with pytest.raises(TypeError, match="Mesh"):
             RuntimeBlock(GainControl(1.0), mesh=object(), device=CPU)
-        with pytest.raises(NotImplementedError, match="slice 8"):
+        with pytest.raises(TypeError, match="Mesh"):
             RuntimeBlock(GainControl(1.0), mesh=object(), shard="time",
                          device=CPU)
         g = Graph()
         g.output("o", g.add(GainControl(1.0), g.input("x")))
-        with pytest.raises(NotImplementedError, match="slice 8"):
+        with pytest.raises(TypeError, match="Mesh"):
             RuntimeGraph(g, mesh=object(), device=CPU)
         with pytest.raises(ValueError):
             RuntimeBlock(GainControl(1.0), shard="time", device=CPU)
