@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import numbers as _nums
 from ..numbers import TAU
 from ..ops import channelizer as _ochan
 from .base import Block, BoundBlock, StreamSig
@@ -40,11 +41,12 @@ class _BoundChannelizer(BoundBlock):
         self.out_sig = StreamSig(sig.batch * m, sig.chunk_len // m,
                                  sig.sample_rate / m)
         proto = _ochan.design_prototype(m, k)
-        self.params = {"taps": proto.reshape(k, m).astype(np.float32)}
+        self.params = {"taps": proto.reshape(k, m).astype(
+            _nums.stream_real())}
 
     def init_state(self):
         return {"hist": np.zeros((self.in_sig.batch, self.hist_len),
-                                 np.complex64)}
+                                 _nums.stream_complex())}
 
     def process(self, params, state, x, reset):
         hist = torch.where(reset[:, None], torch.zeros_like(state["hist"]),
@@ -97,13 +99,14 @@ class _BoundChannelizerDemod(BoundBlock):
         ch_rate = sig.sample_rate / m
         self.out_sig = StreamSig(sig.batch * m, sig.chunk_len // m, ch_rate)
         proto = _ochan.design_prototype(m, k)
-        self.params = {"taps": proto.reshape(k, m).astype(np.float32),
-                       "factor": np.float32(ch_rate / deviation / TAU)}
+        rdt = _nums.stream_real()
+        self.params = {"taps": proto.reshape(k, m).astype(rdt),
+                       "factor": rdt(ch_rate / deviation / TAU)}
 
     def init_state(self):
         b, m = self.in_sig.batch, self.m
-        return {"hist": np.zeros((b, self.hist_len), np.complex64),
-                "last_out": np.zeros((b, m), np.float32),
+        return {"hist": np.zeros((b, self.hist_len), _nums.stream_complex()),
+                "last_out": np.zeros((b, m), _nums.stream_real()),
                 "have_prev": np.zeros((b,), bool)}
 
     def process(self, params, state, x, reset):

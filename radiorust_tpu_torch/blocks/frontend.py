@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import numbers as _nums
 from ..math import round_half_away
 from ..numbers import TAU
 from ..ops import filter as _ofilter
@@ -58,9 +59,12 @@ class _BoundMixerDecimator(BoundBlock):
     def supported(self, sig: StreamSig) -> bool:
         """Whether the fused kernel takes ``sig``'s chunk length with this
         plan (the port's rule; the JAX package adds a 128-lane oscillator
-        block, a TPU layout rule)."""
-        return _ofront.decimate_supported(sig.chunk_len, self.plan,
-                                          mixer=True)
+        block, a TPU layout rule).  False under the c128 stream mode, as
+        in the JAX package: the kernel is float32 and has no plain form
+        in float64."""
+        return (_nums.stream_mode() == "c64"
+                and _ofront.decimate_supported(sig.chunk_len, self.plan,
+                                               mixer=True))
 
     def _kernel_matrix(self, device) -> torch.Tensor:
         key = str(device)
@@ -146,17 +150,18 @@ class _BoundFmDemodFilter(BoundBlock):
             raise ValueError("FmDemodFilter requires a real impulse "
                              "response (conjugate-symmetric gains)")
         self.params = {
-            "response": extend_response(ir, pad=n).astype(np.complex64),
-            "factor": np.float32(sig.sample_rate / deviation / TAU),
+            "response": extend_response(ir, pad=n).astype(
+                _nums.stream_complex()),
+            "factor": _nums.stream_real()(sig.sample_rate / deviation / TAU),
         }
 
     def init_state(self):
-        b = self.in_sig.batch
-        return {"plr": np.zeros((b,), np.float32),
-                "pli": np.zeros((b,), np.float32),
-                "prevd": np.zeros((b, self.ir_len), np.float32),
-                "last_out": np.zeros((b,), np.float32),
-                "have_prev": np.zeros((b,), np.float32)}
+        b, rdt = self.in_sig.batch, _nums.stream_real()
+        return {"plr": np.zeros((b,), rdt),
+                "pli": np.zeros((b,), rdt),
+                "prevd": np.zeros((b, self.ir_len), rdt),
+                "last_out": np.zeros((b,), rdt),
+                "have_prev": np.zeros((b,), rdt)}
 
     def process(self, params, state, x, reset):
         n = self.in_sig.chunk_len
@@ -228,20 +233,21 @@ class _BoundFilterDemodFilter(BoundBlock):
             raise ValueError("FilterDemodFilter requires a real deemphasis "
                              "impulse response (conjugate-symmetric gains)")
         ir1 = design_impulse_response(freq_resp, window, m, sig.sample_rate)
+        cdt = _nums.stream_complex()
         self.params = {
-            "response1": extend_response(ir1, pad=n).astype(np.complex64),
-            "response2": extend_response(ir2, pad=n).astype(np.complex64),
-            "factor": np.float32(sig.sample_rate / deviation / TAU),
+            "response1": extend_response(ir1, pad=n).astype(cdt),
+            "response2": extend_response(ir2, pad=n).astype(cdt),
+            "factor": _nums.stream_real()(sig.sample_rate / deviation / TAU),
         }
 
     def init_state(self):
-        b, m = self.in_sig.batch, self.ir_len
-        return {"prev": np.zeros((b, m), np.complex64),
-                "plr": np.zeros((b,), np.float32),
-                "pli": np.zeros((b,), np.float32),
-                "prevd": np.zeros((b, m), np.float32),
-                "last_out": np.zeros((b,), np.float32),
-                "have_prev": np.zeros((b,), np.float32)}
+        b, m, rdt = self.in_sig.batch, self.ir_len, _nums.stream_real()
+        return {"prev": np.zeros((b, m), _nums.stream_complex()),
+                "plr": np.zeros((b,), rdt),
+                "pli": np.zeros((b,), rdt),
+                "prevd": np.zeros((b, m), rdt),
+                "last_out": np.zeros((b,), rdt),
+                "have_prev": np.zeros((b,), rdt)}
 
     def process(self, params, state, x, reset):
         n, m = self.in_sig.chunk_len, self.ir_len
@@ -273,7 +279,7 @@ class _BoundFilterDemodFilter(BoundBlock):
         ir = design_impulse_response(freq_resp, w, self.ir_len,
                                      self.in_sig.sample_rate)
         r = extend_response(ir, pad=self.in_sig.chunk_len)
-        return {**self.params, "response1": r.astype(np.complex64)}
+        return {**self.params, "response1": r.astype(_nums.stream_complex())}
 
 
 class FilterDemodFilter(Block):

@@ -312,10 +312,11 @@ def fold_phase_state(state, denom: int):
 
 
 def start_phasor(state, denom: int):
-    """(cos, sin) of each stream's chunk-start phase, in float32."""
+    """(cos, sin) of each stream's chunk-start phase, in the dtype of
+    ``start_phase`` (float32; float64 under the c128 stream mode)."""
+    rdt = state["start_phase"].dtype
     theta0 = (state["start_phase"]
-              + state["k0"].to(torch.float32)
-              * torch.tensor(TAU / denom, dtype=torch.float32))
+              + state["k0"].to(rdt) * torch.tensor(TAU / denom, dtype=rdt))
     return torch.cos(theta0), torch.sin(theta0)
 
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .numbers import check_device
+
 __all__ = ["tree_to_torch", "tree_to_numpy"]
 
 
@@ -26,7 +28,11 @@ def _map(tree, leaf):
 
 def tree_to_torch(tree, device):
     """Every array-like leaf (numpy array, numpy scalar, or any object
-    ``np.asarray`` accepts) becomes a tensor on ``device``."""
+    ``np.asarray`` accepts) becomes a tensor on ``device``.  Every params
+    and state tree reaches a device here, so this is where the c128
+    stream mode refuses CUDA (``numbers.check_device``)."""
+    check_device(device)
+
     def leaf(x):
         if isinstance(x, torch.Tensor):
             return x.to(device)

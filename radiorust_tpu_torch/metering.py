@@ -144,11 +144,11 @@ def bandwidth_torch(double_percentile: float, sample_rate: float,
 def rescale_energy_torch(resolution: int,
                          bins: torch.Tensor) -> torch.Tensor:
     """Resample bin energies: [..., n] complex -> [..., resolution] real,
-    through the dense overlap matrix (float32)."""
-    e = (torch.abs(bins) ** 2).to(torch.float32)
+    through the dense overlap matrix (in the bins' real dtype)."""
+    e = torch.abs(bins) ** 2
     n = bins.shape[-1]
-    o = torch.arange(resolution, dtype=torch.float32, device=bins.device)
-    i = torch.arange(n, dtype=torch.float32, device=bins.device)
+    o = torch.arange(resolution, dtype=e.dtype, device=bins.device)
+    i = torch.arange(n, dtype=e.dtype, device=bins.device)
     left = o[:, None] * n / resolution
     right = (o[:, None] + 1.0) * n / resolution
     lo = torch.maximum(left, i[None, :])

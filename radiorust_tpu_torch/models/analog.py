@@ -37,12 +37,12 @@ ANALOG_AUDIO_CHUNK = 1024
 
 
 def _envelope(x):
-    mag = torch.abs(x).to(torch.float32)
+    mag = torch.abs(x)
     return torch.complex(mag, torch.zeros_like(mag))
 
 
 def _real_part(x):
-    re = x.real.to(torch.float32)
+    re = x.real
     return torch.complex(re, torch.zeros_like(re))
 
 

@@ -63,20 +63,22 @@ def design_prototype(num_channels: int, taps_per_branch: int,
 
 
 @functools.lru_cache(maxsize=16)
-def _dft_planes(m: int):
+def _dft_planes(m: int, dtype=np.float32):
     w = np.exp(-2j * np.pi * np.outer(np.arange(m), np.arange(m)) / m)
-    return (w.real.astype(np.float32), w.imag.astype(np.float32))
+    return (w.real.astype(dtype), w.imag.astype(dtype))
 
 
 _device_dft = {}
 
 
-def _dft_tensors(m: int, device):
-    """The DFT planes on ``device``, uploaded once."""
-    key = (m, str(device))
+def _dft_tensors(m: int, device, dtype=torch.float32):
+    """The DFT planes on ``device`` in ``dtype`` (float64 under the c128
+    stream mode), uploaded once."""
+    key = (m, str(device), dtype)
     if key not in _device_dft:
+        npdt = np.float64 if dtype == torch.float64 else np.float32
         _device_dft[key] = tuple(torch.from_numpy(p).to(device)
-                                 for p in _dft_planes(m))
+                                 for p in _dft_planes(m, npdt))
     return _device_dft[key]
 
 
@@ -87,10 +89,10 @@ def branch_fir(fr: torch.Tensor, fi: torch.Tensor, taps: torch.Tensor,
     [b, t_out, M]."""
     k = taps.shape[0]
     b, _, m = fr.shape
-    vr = torch.zeros((b, t_out, m), dtype=torch.float32, device=fr.device)
+    vr = torch.zeros((b, t_out, m), dtype=fr.dtype, device=fr.device)
     vi = torch.zeros_like(vr)
     for j in range(k):
-        tj = taps[j][None, None, :].to(torch.float32)
+        tj = taps[j][None, None, :].to(fr.dtype)
         vr = vr + fr[:, j: j + t_out, :] * tj
         vi = vi + fi[:, j: j + t_out, :] * tj
     return vr, vi
@@ -117,7 +119,7 @@ def pfb_channelize(xp: torch.Tensor, taps: torch.Tensor,
     t_out = total // m - (k - 1)
     frames = xp.reshape(b, total // m, m)
     vr, vi = branch_fir(frames.real, frames.imag, taps, t_out)
-    dr, di = _dft_tensors(m, xp.device)
+    dr, di = _dft_tensors(m, xp.device, vr.dtype)
     y = dft_channels(vr, vi, dr, di)                 # [b, T, M]
     return y.transpose(1, 2).contiguous()
 
@@ -176,12 +178,12 @@ def fused_pfb_demod_plain(xr, xi, factor, taps):
     frames = total // m - (k - 1)
     vr, vi = branch_fir(xr.reshape(b, total // m, m),
                         xi.reshape(b, total // m, m), taps, frames)
-    dr, di = _dft_tensors(m, xr.device)
+    dr, di = _dft_tensors(m, xr.device, vr.dtype)
     y = dft_channels(vr, vi, dr, di)                 # [b, T, M]
     prev = torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], dim=1)
     pre = y.real * prev.real + y.imag * prev.imag
     pim = y.imag * prev.real - y.real * prev.imag
-    fac = _factor_vector(factor, b, xr.device)
+    fac = _factor_vector(factor, b, xr.device, xr.dtype)
     d = torch.atan2(pim, pre) * fac[:, None, None]
     return d.reshape(b, frames * m)
 

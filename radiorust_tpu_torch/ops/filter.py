@@ -315,8 +315,9 @@ def fused_filter_bank(prevr, previ, curr, curi, resp_gr, resp_gi):
 fused_filter_bank.launches = 0
 
 
-def _factor_vector(factor, b: int, device) -> torch.Tensor:
-    return torch.as_tensor(factor, dtype=torch.float32,
+def _factor_vector(factor, b: int, device,
+                   dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(factor, dtype=dtype,
                            device=device).expand(b).contiguous()
 
 
@@ -333,7 +334,8 @@ def fm_demod_planes(curr, curi, prev_last_r, prev_last_i, last_out,
     si = torch.cat([prev_last_i[:, None], curi[:, :-1]], dim=1)
     pre = curr * sr + curi * si
     pim = curi * sr - curr * si
-    d = torch.atan2(pim, pre) * _factor_vector(factor, b, curr.device)[:, None]
+    d = torch.atan2(pim, pre) * _factor_vector(factor, b, curr.device,
+                                               curr.dtype)[:, None]
     d0 = torch.where(have_prev < 0.5, last_out, d[:, 0])
     return torch.cat([d0[:, None], d[:, 1:]], dim=1)
 

@@ -192,7 +192,7 @@ def rational_fir(xp: torch.Tensor, kernel: torch.Tensor, p: int, q: int,
     [batch, out_len] complex64.  Re and im ride the batch axis of one
     strided ``conv1d`` (real_input: the real plane only)."""
     b = xp.shape[0]
-    w = torch.as_tensor(kernel, dtype=torch.float32,
+    w = torch.as_tensor(kernel, dtype=xp.real.dtype,
                         device=xp.device)[:, None, :]
     planes = xp.real if real_input else torch.cat([xp.real, xp.imag], dim=0)
     out = torch.nn.functional.conv1d(planes[:, None, s0:].contiguous(), w,
@@ -229,7 +229,7 @@ def rational_fir_phase(x: torch.Tensor, hist: torch.Tensor,
     idx = ((p - 1) - ph + w[:, None] * p
            + torch.arange(Kw, device=x.device)).reshape(-1)
     win = planes[:, idx].reshape(-1, E, Kw)               # [nb, E, Kw]
-    taps = torch.as_tensor(kernel, dtype=torch.float32, device=x.device)
+    taps = torch.as_tensor(kernel, dtype=x.real.dtype, device=x.device)
     out = torch.matmul(win, taps.t())                     # [nb, E, q]
     # A mirror of RationalPlan.advance: v whole windows complete.
     v = (ph + C) // p

@@ -75,8 +75,8 @@ def agc_geometry(t: int, threads: int = _AGC_THREADS) -> tuple[int, int]:
     return lanes, min(-(-t // lanes), _AGC_TILE // lanes)
 
 
-def _scalar(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
+def _scalar(v, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=dtype, device=device).reshape(())
 
 
 def _check_planes(xr, xi, *carries):
@@ -92,10 +92,11 @@ def _check_planes(xr, xi, *carries):
 
 
 def slew_scan_plain(xr, xi, prev_r, prev_i, max_diff, rsqrt: bool = False):
-    """Plain PyTorch version of :func:`slew_scan`: one step per sample."""
-    md = _scalar(max_diff, xr.device)
+    """Plain PyTorch version of :func:`slew_scan`: one step per sample,
+    in the planes' dtype."""
+    md = _scalar(max_diff, xr.device, xr.dtype)
     md2 = md * md
-    one = torch.ones((), dtype=torch.float32, device=xr.device)
+    one = torch.ones((), dtype=xr.dtype, device=xr.device)
     pr, pi = prev_r, prev_i
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     for t in range(xr.shape[1]):
@@ -146,11 +147,12 @@ slew_scan.launches = 0
 
 
 def agc_scan_plain(xr, xi, gain, rate, reference, max_gain):
-    """Plain PyTorch version of :func:`agc_scan`: one step per sample."""
+    """Plain PyTorch version of :func:`agc_scan`: one step per sample,
+    in the planes' dtype."""
     dev = xr.device
-    rate, ref, max_gain = (_scalar(v, dev) for v in (rate, reference,
-                                                     max_gain))
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    rate, ref, max_gain = (_scalar(v, dev, xr.dtype)
+                           for v in (rate, reference, max_gain))
+    zero = torch.zeros((), dtype=xr.dtype, device=dev)
     g = gain
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     for t in range(xr.shape[1]):
@@ -250,10 +252,10 @@ def _check_step(x, gain):
 def agc_step_plain(x, gain, rate, reference, max_gain):
     """Plain PyTorch version of :func:`agc_step`: the loop's per-sample
     clamped-affine maps composed by a log-depth associative scan, as the
-    JAX package's ``AgcControl`` runs them."""
+    JAX package's ``AgcControl`` runs them, in the rows' real dtype."""
     dev = x.device
-    rate, ref, max_gain = (_scalar(v, dev) for v in (rate, reference,
-                                                     max_gain))
+    rate, ref, max_gain = (_scalar(v, dev, x.real.dtype)
+                           for v in (rate, reference, max_gain))
     pa, pb, plo, phi = associative_scan(_agc_compose,
                                         _agc_elems(rate, ref, max_gain, x))
     g_inc = torch.clamp(pa * gain[:, None] + pb, plo, phi)

@@ -172,7 +172,7 @@ class ChannelShardedChain:
             # [D, b, T, mg] -> [b, T, M]: shard order is branch order.
             vr = vrs[c].permute(1, 2, 0, 3).reshape(bl, -1, m)
             vi = vis[c].permute(1, 2, 0, 3).reshape(bl, -1, m)
-            dr, di = _dft_tensors(m, dev)
+            dr, di = _dft_tensors(m, dev, vr.dtype)
             y = dft_channels(vr, vi, dr[:, c * mg:(c + 1) * mg],
                              di[:, c * mg:(c + 1) * mg])     # [b, T, mg]
             y = y.transpose(1, 2).reshape(bl * mg, -1)

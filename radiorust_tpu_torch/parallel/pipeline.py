@@ -30,6 +30,7 @@ import torch
 
 from ..blocks.base import BoundBlock, _BoundChain
 from ..convert import tree_to_numpy, tree_to_torch
+from ..numbers import stream_complex
 from .mesh import move
 
 __all__ = ["PipelinedChain", "balance_partition"]
@@ -197,8 +198,9 @@ class PipelinedChain:
         if len(outs) != t_total:
             raise RuntimeError(f"{len(outs)} outputs for {t_total} inputs")
         if not outs:
-            return torch.zeros((0, self.out_sig.batch,
-                                self.out_sig.chunk_len), dtype=torch.complex64)
+            return torch.from_numpy(np.zeros(
+                (0, self.out_sig.batch, self.out_sig.chunk_len),
+                stream_complex()))
         return torch.stack(outs)
 
     def save_checkpoint(self, path: str) -> None:

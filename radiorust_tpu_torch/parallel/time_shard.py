@@ -202,9 +202,9 @@ def _sharded_squelch(block, params, state, xs, devices):
     b_loc = []
     for x, p in zip(xs, params):
         alpha = p["alpha"]
-        powers = alpha ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
-                                       device=x.device)
         pw = (x * torch.conj(x)).real
+        powers = alpha ** torch.arange(n - 1, -1, -1, dtype=pw.dtype,
+                                       device=x.device)
         b_loc.append((1.0 - alpha) * torch.sum(pw * powers[None, :], dim=-1))
     gathered = all_gather(b_loc, devices)
     states = []

@@ -110,6 +110,12 @@ def _fallback(name: str, kind: str, err: Exception) -> None:
         err)
 
 
+def _knob(old, value: float):
+    """A retuned knob in the dtype of the param it replaces (float32;
+    float64 in a binding made under the c128 stream mode)."""
+    return np.asarray(value, np.asarray(old).dtype)[()]
+
+
 def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host chunk as a tensor of the stream dtype on ``device``, never
     sharing the message's storage (a pooled buffer may be recycled once
@@ -119,7 +125,8 @@ def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     dt = stream_complex()
     if device.type != "cuda":
         return torch.from_numpy(np.array(x, dtype=dt))
-    pinned = torch.empty(x.shape, dtype=torch.complex64, pin_memory=True)
+    pinned = torch.empty(x.shape, pin_memory=True,
+                         dtype=torch.from_numpy(np.empty(0, dt)).dtype)
     np.copyto(pinned.numpy(), x, casting="same_kind")
     return pinned.to(device, non_blocking=True)
 
@@ -416,7 +423,7 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
         """``GainControl::set`` analog (src/blocks/transform.rs:89-91)."""
         from ..blocks.transform import _BoundGain
         self._typed_values["set_gain"] = float(gain)
-        self._apply_typed(lambda blk, p: np.float32(gain)
+        self._apply_typed(lambda blk, p: _knob(p, gain)
                           if isinstance(blk, _BoundGain) else None,
                           slot="set_gain")
 
@@ -507,11 +514,11 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
                 return None
             new = dict(p)
             if reference is not None:
-                new["reference"] = np.float32(reference)
+                new["reference"] = _knob(p["reference"], reference)
             if rate is not None:
-                new["rate"] = np.float32(rate)
+                new["rate"] = _knob(p["rate"], rate)
             if max_gain is not None:
-                new["max_gain"] = np.float32(max_gain)
+                new["max_gain"] = _knob(p["max_gain"], max_gain)
             return new
         self._apply_typed(upd, slot="set_agc")
 
@@ -525,9 +532,9 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
                 return None
             new = dict(p)
             if threshold is not None:
-                new["threshold"] = np.float32(threshold)
+                new["threshold"] = _knob(p["threshold"], threshold)
             if alpha is not None:
-                new["alpha"] = np.float32(alpha)
+                new["alpha"] = _knob(p["alpha"], alpha)
             return new
         self._apply_typed(upd, slot="set_squelch")
 
@@ -640,16 +647,16 @@ class RuntimeBlock(_ProducerMixin, _ConsumerMixin, EventHandling):
 
         def fn(blk, p):
             if isinstance(blk, _BoundFmMod):
-                return np.float32(deviation / blk.in_sig.sample_rate * _TAU)
+                return _knob(p, deviation / blk.in_sig.sample_rate * _TAU)
             if isinstance(blk, _BoundFmDemod):
-                return np.float32(blk.in_sig.sample_rate / deviation / _TAU)
+                return _knob(p, blk.in_sig.sample_rate / deviation / _TAU)
             if isinstance(blk, (_BoundFmDemodFilter,
                                 _BoundFilterDemodFilter)):
-                return {**p, "factor": np.float32(
-                    blk.in_sig.sample_rate / deviation / _TAU)}
+                return {**p, "factor": _knob(
+                    p["factor"], blk.in_sig.sample_rate / deviation / _TAU)}
             if isinstance(blk, _BoundChannelizerDemod):
-                return {**p, "factor": np.float32(
-                    blk.out_sig.sample_rate / deviation / _TAU)}
+                return {**p, "factor": _knob(
+                    p["factor"], blk.out_sig.sample_rate / deviation / _TAU)}
             return None
 
         self._apply_typed(fn, slot="set_deviation")
@@ -1053,7 +1060,7 @@ class Silence(_ProducerMixin):
     async def _run(self):
         try:
             while True:
-                chunk = np.zeros(self.chunk_size, np.complex64)
+                chunk = np.zeros(self.chunk_size, stream_complex())
                 await self.sender.send(Samples(self.sample_rate, chunk))
         except ChannelClosed:
             return
@@ -1322,10 +1329,11 @@ class Rechunker(_ProducerMixin, _ConsumerMixin, EventHandling):
 
     @property
     def pool(self) -> ChunkBufPool:
-        """The stream-dtype pool (complex64 unless the stream differs)."""
+        """The stream-dtype pool (the stream mode's complex dtype unless
+        the stream differs)."""
         if len(self._pools) == 1:
             return next(iter(self._pools.values()))
-        return self._pool(np.complex64)
+        return self._pool(stream_complex())
 
     def set_output_chunk_len(self, n: int):
         if n <= 0:
@@ -1434,7 +1442,7 @@ class ArraySource(_ProducerMixin):
 
     def __init__(self, data, chunk_len: int, sample_rate: float,
                  repeat: bool = False):
-        self.data = np.asarray(data, np.complex64)
+        self.data = np.asarray(data, stream_complex())
         self.chunk_len = chunk_len
         self.sample_rate = sample_rate
         self.repeat = repeat
@@ -1443,7 +1451,7 @@ class ArraySource(_ProducerMixin):
 
     async def _run(self):
         try:
-            carry = np.zeros((0,) + self.data.shape[1:], np.complex64)
+            carry = np.zeros((0,) + self.data.shape[1:], self.data.dtype)
             while True:
                 # Chunks are zero-copy views split off one backing array
                 # (the reference's separate_beginning pattern,
@@ -1497,7 +1505,7 @@ class ArraySink(_ConsumerMixin, EventHandling):
     def samples(self) -> np.ndarray:
         # axis=-1: time axis for both 1-D chunks and batched [streams, n].
         return (np.concatenate(self.chunks, axis=-1) if self.chunks
-                else np.zeros(0, np.complex64))
+                else np.zeros(0, stream_complex()))
 
     async def _run(self, receiver):
         try:

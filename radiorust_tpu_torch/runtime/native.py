@@ -43,6 +43,7 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 
 from ..blocks.base import Block, StreamSig, jit_step
+from ..numbers import stream_complex
 from ..signal import Event, Samples, Warmup
 
 __all__ = ["NativeChannel", "NativeGraph", "load_library"]
@@ -215,7 +216,7 @@ class _SinkNode(_Node):
     def samples(self) -> np.ndarray:
         # axis=-1: time axis for both 1-D chunks and batched [streams, n].
         return (np.concatenate(self.chunks, axis=-1) if self.chunks
-                else np.zeros(0, np.complex64))
+                else np.zeros(0, stream_complex()))
 
 
 class NativeGraph:

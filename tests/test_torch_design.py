@@ -98,9 +98,19 @@ def test_bound_slice_params_and_state_equal(kw, sig):
 
 
 def test_c128_stream_mode_not_ported(monkeypatch):
+    # Ported since slice 6f (tests/test_torch_f64_mode.py holds it against
+    # the JAX package): under c128 a binding carries complex128 state, a
+    # fused front end refuses as in the JAX package, an unknown mode raises.
     assert tnumbers.stream_complex() is np.complex64
     monkeypatch.setenv("RRTPU_STREAM_DTYPE", "c128")
-    with pytest.raises(NotImplementedError):
+    assert tnumbers.stream_complex() is np.complex128
+    state = twfm.wfm_receiver().bind(TSig(1, 16384, 1024000.0)).init_state()
+    kinds = {np.asarray(v).dtype for blk in state
+             for v in (blk.values() if isinstance(blk, dict) else ())}
+    assert np.dtype(np.complex128) in kinds
+    assert np.dtype(np.complex64) not in kinds
+    with pytest.raises(ValueError, match="FreqShifter"):
+        twfm.wfm_receiver(fuse_frontend=True).bind(TSig(1, 16384, 1024000.0))
+    monkeypatch.setenv("RRTPU_STREAM_DTYPE", "c32")
+    with pytest.raises(ValueError, match="RRTPU_STREAM_DTYPE"):
         tnumbers.stream_complex()
-    with pytest.raises(NotImplementedError):
-        twfm.wfm_receiver().bind(TSig(1, 16384, 1024000.0))
