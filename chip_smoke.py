@@ -125,7 +125,23 @@
       A's unfused chain binds in float64, and a step of it on a CUDA
       tensor, ``jit_step``, ``make_scan`` and a ``RuntimeBlock`` each
       raise the mode's error; back at the default, one step of A equals
-      the step taken before the check bit for bit.
+      the step taken before the check bit for bit;
+   T. the parallel layer across processes
+      (``radiorust_tpu_torch/tools/fake_cluster.py --width full``): 4
+      worker processes (this script, ``--process-id ...``), 2 mesh
+      entries each, all on ``cuda:0``, one gloo process group: T1 A's
+      chain time-sharded over t = 8 with a ``set_shift`` before the third
+      group step, T2 A on ch = 4 x t = 2, T3 D's unfused channelizer
+      channel-sharded over c = 8 and its fused one (#7) time-sharded over
+      t = 8, T4 ``save_sharded`` / ``load_sharded`` and the continuation
+      bit for bit, then the elastic drill (SIGKILL, resume on 3 workers),
+      T5 B's chain as 4 pipeline stages (one a worker) and A's as 2
+      groups x 2 stages, T6 D's unfused channelizer on s = 4 x c = 2,
+      and the kill drill; each worker holds its pieces against its own
+      sequential run and one group step's (or its stage's third chunk's)
+      kernel calls against their plain versions, and reports its launches
+      (``{"processes": ...}`` line; the kernels line gains
+      ``launches_t`` and ``held_on_path_t``).
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
    repetitions, or one run of a 16-chunk sequence; every kernel also as
@@ -143,7 +159,8 @@ on random input and on E audio's keyer envelopes.
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
 JSON lines ``{"graphed": ...}``, ``{"serving": ...}``, ``{"validate":
-...}``, ``{"parallel": ...}`` and ``{"tools": ...}`` precede the
+...}``, ``{"parallel": ...}``, ``{"tools": ...}`` and ``{"processes":
+...}`` precede the
 second-to-last line, a JSON object of the kernels (each with the examples
 and models of paths O and P that launched it, and its launches and held
 calls on paths Q and R); the last line is
@@ -2252,6 +2269,152 @@ def c128_check(dev, tag, x_a, want_a) -> None:
         raise AssertionError("check S: A's step changed across the check")
 
 
+T_KERNELS = {   # the kernels each case of path T must launch (any worker)
+    "wfm_time_sharded_t8_with_retune": Q_KERNELS[:3] + ("fused_demod_filter",),
+    "wfm_ch_across_hosts_x_t_within": Q_KERNELS[:3] + ("fused_demod_filter",),
+    "channelizer_c8_cross_process_all_gather": ("fused_pfb_demod",),
+    "sharded_checkpoint_resume": Q_KERNELS[:3] + ("fused_demod_filter",),
+    "pipeline_one_stage_per_process": ("decimate", "fused_mix_decimate",
+                                       "fused_filter_demod_filter"),
+    "streams_across_hosts_x_channels_within": (),
+    "pipeline_2groups_x_2stages": Q_KERNELS[:3] + ("fused_demod_filter",),
+}
+T_Q_ROWS = {   # path Q's one-process row beside each case
+    "wfm_time_sharded_t8_with_retune": "Q1",
+    "wfm_ch_across_hosts_x_t_within": "Q1",
+    "channelizer_c8_cross_process_all_gather": "Q3 channel-sharded",
+    "channelizer_c8_cross_process_all_gather_fused": "Q3 fused",
+    "sharded_checkpoint_resume": "Q1",
+    "pipeline_one_stage_per_process": "Q5 B's chain",
+    "streams_across_hosts_x_channels_within": "Q3 channel-sharded",
+    "pipeline_2groups_x_2stages": "Q1",
+}
+T_WORKER_ARGS = ("--device", "cuda", "--width", "full")
+
+
+class _ChipHold:
+    """A path T worker's kernel checks: :func:`tapped` with
+    :func:`_parallel_taps` around one group step (or a pipeline stage's
+    run, one call a shape), and :func:`held_to_plain` on its records."""
+
+    def __init__(self, tag):
+        self.tag = tag
+
+    def tap(self, per_shape):
+        return tapped(per_shape, _parallel_taps())
+
+    def check(self, records, label):
+        return held_to_plain(records, f"path T {label}", self.tag)
+
+
+def cluster_worker() -> None:
+    """A path T worker process (``--process-id`` on the command line):
+    ``fake_cluster``'s worker with :class:`_ChipHold`; exits with its
+    code."""
+    sys.path.insert(0, str(HERE))
+    from radiorust_tpu_torch.tools import fake_cluster
+    tag = f"[{card()}]" if torch.cuda.is_available() else "[no card]"
+    fake_cluster.run_worker(sys.argv[1:], _ChipHold(tag))
+
+
+def cluster_paths(tag, q_rows, script=None) -> dict:
+    """Path T: the fake cluster on the card, 4 workers of this script,
+    its cases at full width, then the kill and elastic drills.  Fails on
+    any worker's nonzero exit, a case without its kernels' launches, or a
+    drill's verdict.  Returns {"rows", "launches" (by kernel, over T),
+    "held"}."""
+    from radiorust_tpu_torch.tools import fake_cluster as fc
+    script = script or str(HERE / "chip_smoke.py")
+    t0 = time.perf_counter()
+    ok, records, codes, outputs = fc.run_cases(script, 4, 2, T_WORKER_ARGS,
+                                               timeout=600.0)
+    wall = time.perf_counter() - t0
+    for i, out in enumerate(outputs):
+        keep = [ln for ln in out.splitlines()
+                if not ln.startswith('{"worker"') and "hostname" not in ln]
+        print(f"--- path T worker {i} (exit {codes[i]}) ---")
+        print("\n".join(keep[-60:]))
+    if not ok:
+        raise AssertionError(f"path T: the cases failed (exit codes "
+                             f"{codes})")
+    launches = collections.Counter()
+    held, rows = [], {}
+
+    def cases_of(rec):
+        for name, res in rec["cases"].items():
+            if name == fc.CASES[2]:
+                yield name, res["channel"]
+                yield name + "_fused", res["fused"]
+            else:
+                yield name, res
+
+    by_case: dict = collections.defaultdict(list)
+    for rec in records:
+        for name, res in cases_of(rec):
+            by_case[name].append(res)
+            launches.update(res.get("launches", {}))
+            held += res.get("held", [])
+    for name, results in by_case.items():
+        ran = collections.Counter()
+        for r in results:
+            ran.update(r.get("launches", {}))
+        want = T_KERNELS.get(name, ())
+        if name == fc.CASES[2]:
+            want = ()
+        missing = [k for k in want if ran[k] < 1]
+        if missing:
+            raise AssertionError(f"path T {name}: {missing} not launched")
+        hops = collections.Counter()
+        for r in results:
+            hops.update(r["hops"])
+        per = "us_per_tick" if "us_per_tick" in results[0] else "us_per_step"
+        us = [r[per] for r in results if per in r]
+        q = q_rows.get(T_Q_ROWS.get(name, ""), {})
+        row = dict(launches=dict(ran), held_calls=sum(
+            len(r.get("held", [])) for r in results),
+            max_abs_err=max((e for r in results
+                             for e in r.get("errors", {}).values()),
+                            default=None),
+            hop_us=(1e6 * hops["seconds"] / hops["exchanges"]
+                    if hops["exchanges"] else None),
+            hop_bytes=(hops["bytes"] / hops["exchanges"]
+                       if hops["exchanges"] else None),
+            hops=hops["exchanges"], q_row=T_Q_ROWS.get(name),
+            q_us_per_chunk=q.get("us_per_chunk"))
+        if us:
+            row[per] = max(us)
+            row["us_per_chunk"] = max(us) / results[0]["chunks"]
+            samples = [u for r in results for u in r.get("us_samples", [])]
+            if samples:
+                # Each worker's timed steps; the row's figure is the
+                # slowest worker's mean.
+                row["timed_steps"] = len(results[0]["us_samples"])
+                row["us_step_range"] = [min(samples), max(samples)]
+        for key in ("save_ms", "load_ms", "bytes"):
+            if key in results[0]:
+                row["checkpoint_" + key] = max(r[key] for r in results)
+        rows[name] = row
+        print(f"path T {name}: {json.dumps(row)} {tag}")
+    t1 = time.perf_counter()
+    drill, out = fc.run_kill_drill(script, 4, 2, T_WORKER_ARGS,
+                                   timeout=300.0)
+    print(f"path T kill drill: {json.dumps(drill)} {tag}")
+    if not drill["ok"]:
+        print("\n".join(out))
+        raise AssertionError("path T: the kill drill failed")
+    t2 = time.perf_counter()
+    elastic, out = fc.run_elastic_drill(script, 4, 2, T_WORKER_ARGS,
+                                        timeout=300.0)
+    print(f"path T elastic drill: {json.dumps(elastic)} {tag}")
+    if not elastic["ok"]:
+        print("\n".join(out))
+        raise AssertionError("path T: the elastic drill failed")
+    rows["kill_drill"] = dict(drill, seconds=t2 - t1)
+    rows["elastic_drill"] = dict(elastic, seconds=time.perf_counter() - t2)
+    rows["cases_seconds"] = wall
+    return dict(rows=rows, launches=dict(launches), held=held)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; there is no CPU run")
@@ -3771,6 +3934,10 @@ def main() -> None:
     c128_check(dev, tag, x_s, want_s)
     t0 = phase("check S", t0)
 
+    # Path T: the parallel layer across processes (the fake cluster).
+    processes = cluster_paths(tag, parallel["rows"])
+    t0 = phase("path T", t0)
+
     # Each kernel's launches are those of the path it was checked at.
     path_of = {"decimate": launches_a, "fused_mix_decimate": launches_a,
                "fused_overlap_save": launches_a,
@@ -3810,6 +3977,14 @@ def main() -> None:
             calls=len(on_q),
             max_abs_err=max((h["max_abs_err"] for h in on_q), default=None),
             rel=max((h["rel"] for h in on_q), default=None))
+        on_t = [h for h in processes["held"] if h["kernel"] == k["name"]]
+        k["launches_t"] = processes["launches"].get(k["name"], 0)
+        k["held_on_path_t"] = dict(
+            calls=len(on_t),
+            max_abs_err=max((h["max_abs_err"] for h in on_t), default=None),
+            rel=max((h["rel"] for h in on_t), default=None))
+        print(f"  {k['name']}: {k['launches_t']} launches on path T "
+              f"({len(on_t)} held)")
         on_r = [h for h in tools["held"] if h["kernel"] == k["name"]]
         k["launched_on_r"] = dict(
             launches=tools["launches"].get(k["name"], 0),
@@ -3836,6 +4011,8 @@ def main() -> None:
     print(json.dumps({"serving": runtime}))
     print(json.dumps({"parallel": parallel["rows"]}))
     print(json.dumps({"tools": {"card": tag[1:-1], **tools["rows"]}}))
+    print(json.dumps({"processes": {"card": tag[1:-1],
+                                    **processes["rows"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3843,4 +4020,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if "--process-id" in sys.argv[1:]:
+        cluster_worker()
     main()

@@ -532,8 +532,15 @@ def shard_map_step(fn, mesh, axis: str):
     (the other axes at index 0).  The results are concatenated back on
     the first of those devices.  Dict-valued chunks and resets (a
     :class:`~radiorust_tpu_torch.blocks.graph.BoundGraph`) cut the same
-    way.  No values cross between shards: streams never couple."""
+    way.  No values cross between shards: streams never couple.
+    On a mesh that spans processes it raises ``NotImplementedError``:
+    there each process steps its own streams with the executors'
+    ``process``."""
     from ..parallel.mesh import Replicas, concat, split_batch
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            "shard_map_step on a mesh that spans processes: each process "
+            "steps its own streams eagerly (the executors' process)")
     devices = mesh.line(axis)
     replicas = Replicas()
 
@@ -561,7 +568,15 @@ def jit_step_sharded(bound, mesh, axis: str) -> _Compiled:
 
     Requires ``bound.shard_batch_ok(mesh.shape[axis])``: the batch must
     split evenly and each block's per-shard constraints hold on the local
-    batch (the pair-packed fused kernels need it even)."""
+    batch (the pair-packed fused kernels need it even).
+
+    On a mesh that spans processes it raises ``NotImplementedError``: a
+    CUDA graph cannot capture a gloo exchange, and such a step runs
+    eagerly through the executors' ``process``."""
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            "jit_step_sharded on a mesh that spans processes: step each "
+            "process's shards eagerly (the executors' process)")
     ndev = mesh.shape[axis]
     if not bound.shard_batch_ok(ndev):
         batch = (bound.in_sig.batch if isinstance(bound, BoundBlock)

@@ -34,7 +34,8 @@ from ..blocks.base import _Compiled
 from ..blocks.channelize import _BoundChannelizer
 from ..convert import _map
 from ..ops.channelizer import _dft_tensors, branch_fir, dft_channels
-from .mesh import Mesh, Replicas, all_gather, concat, move
+from .mesh import (Mesh, Replicas, Shards, all_gather, concat,
+                   local_indices, move)
 
 __all__ = ["ChannelShardedChain"]
 
@@ -49,6 +50,12 @@ def _local_channelize(chan, taps, xp, c: int, ndev: int):
     frames = xp.reshape(b, total // m, m)[..., c * mg:(c + 1) * mg]
     return branch_fir(frames.real, frames.imag,
                       taps[:, c * mg:(c + 1) * mg], t_out)
+
+
+def _part(leaf, index):
+    """``leaf[index]``, or the part of this process's pieces of a
+    :class:`~radiorust_tpu_torch.parallel.mesh.Shards` at ``index``."""
+    return leaf.get(index) if isinstance(leaf, Shards) else leaf[index]
 
 
 class ChannelShardedChain:
@@ -147,28 +154,36 @@ class ChannelShardedChain:
                 a, (-1,) + a.shape[2:])))
         return tuple(out)
 
-    def _row(self, params, state, x, reset, devices):
-        """One stream group's step over its channel shards: (state, y
-        [b * M, t]) on ``devices[0]``."""
+    def _row(self, params, state, x, reset, devices, cut):
+        """One stream group's step over this process's channel shards:
+        (new raw history, {c: downstream state tree [b, M/D, ...]}, {c: y
+        [b, M/D, t]}).  ``state`` is the whole executor's, ``cut`` the
+        group's streams."""
         chan, ndev = self.chan, self.ndev
         m, mg = chan.m, chan.m // ndev
         bl = x.shape[0]
+        mine = local_indices(devices)
         ps = self._replicas(params, devices)
         # The history and chunk are replicated: joined once per device.
         xps = {}
-        for dev in devices:
+        for c in mine:
+            dev = devices[c]
             if str(dev) not in xps:
-                h = move(state[0]["hist"], dev)
+                h = move(_part(state[0]["hist"], (cut,)), dev)
                 r = move(reset, dev)
                 h = torch.where(r[:, None], torch.zeros_like(h), h)
                 xps[str(dev)] = torch.cat([h, move(x, dev)], dim=-1)
-        branches = [_local_channelize(chan, ps[c][0]["taps"],
-                                      xps[str(dev)], c, ndev)
-                    for c, dev in enumerate(devices)]
-        vrs = all_gather([v[0] for v in branches], devices)
-        vis = all_gather([v[1] for v in branches], devices)
-        tiles, news = [], []
-        for c, dev in enumerate(devices):
+        branches: list = [None] * ndev
+        for c in mine:
+            branches[c] = _local_channelize(chan, ps[c][0]["taps"],
+                                            xps[str(devices[c])], c, ndev)
+        vrs = all_gather([None if v is None else v[0] for v in branches],
+                         devices)
+        vis = all_gather([None if v is None else v[1] for v in branches],
+                         devices)
+        tiles, news = {}, {}
+        for c in mine:
+            dev = devices[c]
             # [D, b, T, mg] -> [b, T, M]: shard order is branch order.
             vr = vrs[c].permute(1, 2, 0, 3).reshape(bl, -1, m)
             vi = vis[c].permute(1, 2, 0, 3).reshape(bl, -1, m)
@@ -179,47 +194,93 @@ class ChannelShardedChain:
             # The local folded batch repeats each stream's flag mg times.
             r_loc = move(reset, dev)[:, None].expand(-1, mg).reshape(-1)
             new = []
+            group = (cut, slice(c * mg, (c + 1) * mg))
             for j, blk in enumerate(self.rest, start=1):
                 s = _map(state[j], lambda a: move(
-                    a[:, c * mg:(c + 1) * mg], dev).reshape(
-                        (bl * mg,) + a.shape[2:]))
+                    _part(a, group), dev).reshape((bl * mg,) + a.shape[2:]))
                 s, y = blk.process(ps[c][j], s, y, r_loc)
                 new.append(_map(s, lambda a: a.reshape(
                     (bl, mg) + a.shape[1:])))
-            tiles.append(y.reshape(bl, mg, -1))
-            news.append(new)
-        home = devices[0]
-        xp = xps[str(home)]
+            tiles[c] = y.reshape(bl, mg, -1)
+            news[c] = new
+        xp = xps[str(devices[mine[0]])]
         hist_len = chan.hist_len
-        new_state = [{"hist": xp[:, -hist_len:] if hist_len
-                      else state[0]["hist"]}]
-        for j in range(len(self.rest)):
-            new_state.append(concat([n[j] for n in news], home, dim=1))
-        y = torch.cat([move(t, home) for t in tiles], dim=1)
-        return tuple(new_state), y.reshape(bl * m, -1)
+        hist = (xp[:, -hist_len:] if hist_len
+                else _part(state[0]["hist"], (cut,)))
+        return hist, news, tiles
 
     def process(self, params, state, x, reset=None):
+        """One step.  On a mesh that spans processes each process steps
+        only its own (stream group, channel group) tiles: the output is a
+        :class:`~radiorust_tpu_torch.parallel.mesh.Shards` of the folded
+        ``[batch * M, t]`` rows of those tiles, and the state's leaves are
+        :class:`~radiorust_tpu_torch.parallel.mesh.Shards` of its rows and
+        channel groups wherever this process does not hold them all."""
+        from ..blocks.base import _leaves
         if reset is None:
             reset = torch.zeros((x.shape[0],), dtype=torch.bool,
                                 device=x.device)
-        if self.sdev == 1:
-            return self._row(params, state, x, reset, self._tiles[0])
-        bs = x.shape[0] // self.sdev
-        rows = []
+        m, mg = self.chan.m, self.chan.m // self.ndev
+        batch = x.shape[0]
+        bs = batch // self.sdev
+        hists, downs, pieces = [], {}, []
         for s, devices in enumerate(self._tiles):
+            mine = local_indices(devices)
+            if not mine:
+                continue
             cut = slice(s * bs, (s + 1) * bs)
-            rows.append(self._row(
-                params, _map(state, lambda a: a[cut]), x[cut], reset[cut],
-                devices))
-        home = self.mesh.home
-        return (concat([r[0] for r in rows], home),
-                torch.cat([move(r[1], home) for r in rows], dim=0))
+            hist, news, tiles = self._row(params, state, x[cut], reset[cut],
+                                          devices, cut)
+            hists.append(((cut,), hist))
+            for c in mine:
+                downs[(s, c)] = news[c]
+            first = devices[mine[0]]
+            t = torch.cat([move(tiles[c], first) for c in mine], dim=1)
+            if len(mine) == self.ndev:
+                rows = slice(s * bs * m, (s + 1) * bs * m)
+            else:
+                rows = np.concatenate([
+                    b * m + np.arange(c * mg, (c + 1) * mg)
+                    for b in range(s * bs, (s + 1) * bs) for c in mine])
+                if np.array_equal(rows, np.arange(rows[0], rows[-1] + 1)):
+                    rows = slice(int(rows[0]), int(rows[-1]) + 1)
+            pieces.append(((rows, slice(None)), t.reshape(-1, t.shape[-1])))
+        y = Shards((batch * m, pieces[0][1].shape[-1]), pieces)
+        if len(downs) == self.sdev * self.ndev:
+            home = self.mesh.home
+            new_state = [{"hist": torch.cat([move(h, home)
+                                             for _, h in hists])}]
+            for j in range(len(self.rest)):
+                new_state.append(concat(
+                    [concat([downs[(s, c)][j] for c in range(self.ndev)],
+                            home, dim=1) for s in range(self.sdev)], home))
+            if not self.mesh.spans_processes:
+                y = y.join(home)
+            return tuple(new_state), y
+        h = hists[0][1]
+        new_state = [{"hist": Shards((batch,) + tuple(h.shape[1:]), hists)}]
+        keys = sorted(downs)
+        for j in range(len(self.rest)):
+            cols = zip(*(_leaves(downs[k][j]) for k in keys))
+            it = iter([Shards(
+                (batch, m) + tuple(col[0].shape[2:]),
+                [((slice(s * bs, (s + 1) * bs),
+                   slice(c * mg, (c + 1) * mg)), t)
+                 for (s, c), t in zip(keys, col)]) for col in cols])
+            new_state.append(_map(downs[keys[0]][j], lambda _: next(it)))
+        return tuple(new_state), y
 
     def jit_step(self) -> _Compiled:
         """The compiled step for live serving (``RuntimeBlock(...,
         shard="channels")``): ``step(params, state, x, reset=None)`` as
         :func:`~radiorust_tpu_torch.blocks.base.jit_step`, one CUDA graph
         of every shard's work where the mesh is one card, eager
-        otherwise."""
+        otherwise.  On a mesh that spans processes it raises: a CUDA graph
+        cannot capture a gloo exchange, and such a step runs eagerly
+        through :meth:`process`."""
+        if self.mesh.spans_processes:
+            raise NotImplementedError(
+                "ChannelShardedChain.jit_step on a mesh that spans "
+                "processes: step eagerly with process()")
         return _Compiled(self.bound, whole_run=False, process=self.process,
                          capturable=self.mesh.single_device)

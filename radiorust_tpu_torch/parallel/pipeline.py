@@ -17,8 +17,10 @@ block's state to be halo-expressible; the pipeline scales *any* chain
 (the slew limiter's sequential clamp included), its throughput set by the
 slowest stage after a warm-up of ``stages - 1`` chunks.
 
-``CrossProcessPipeline`` (a stage per process) waits for the port's
-process-group slice.
+:class:`CrossProcessPipeline` runs a stage per process instead: each
+process binds the whole chain (design math only) and runs its own stage;
+a chunk hops to the next stage's process point to point through the
+process group.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ import torch
 from ..blocks.base import BoundBlock, _BoundChain
 from ..convert import tree_to_numpy, tree_to_torch
 from ..numbers import stream_complex
-from .mesh import move
+from .mesh import _exchange, _land, _staged, move
 
-__all__ = ["PipelinedChain", "balance_partition"]
+__all__ = ["PipelinedChain", "CrossProcessPipeline", "balance_partition"]
 
 
 def balance_partition(n_blocks: int, n_stages: int) -> List[int]:
@@ -235,3 +237,124 @@ class PipelinedChain:
             (tree_to_torch(b[0], st.device),
              torch.from_numpy(np.asarray(b[1], bool)).to(st.device), None)
             for b, st in zip(data["bufs"], self.stages)]
+
+
+class CrossProcessPipeline:
+    """Pipeline parallelism across processes: stage *i* of a bound chain
+    runs in process *i* of its group; no process runs another's stage.
+
+    :class:`PipelinedChain` moves chunks between devices of one process.
+    Here each tick every process runs its own stage on what it holds, then
+    the stage's output travels point to point (``isend`` / ``irecv``
+    through the process group, a CUDA tensor staged through pinned host
+    memory) to the next stage's process, which runs it the next tick.
+    Every process binds the whole chain structurally, so each knows the
+    shape of every handoff; the JAX package pads wire-packed rows to one
+    length for its ``ppermute``, which a point-to-point message does not
+    need.  Per-stage state never leaves its process.
+
+    Warm-up bubble: stage *i* idles for the first *i* ticks (its state
+    untouched while no chunk has reached it); ``run`` drives ``T + S - 1``
+    ticks and each group's LAST stage returns the ``T`` outputs (``None``
+    elsewhere).  No mid-stream resets (the one-process pipeline has them).
+
+    ``groups=G``: the P processes form a (G groups x S stages) grid of
+    independent replicas, each serving its own slice of the stream batch;
+    ``bound_chain`` is the per-group chain (its batch the streams of one
+    group).  ``device``: where this process's stage runs (by default the
+    first CUDA device)."""
+
+    def __init__(self, bound_chain: _BoundChain,
+                 partition: Optional[Sequence[int]] = None,
+                 groups: int = 1, device=None):
+        from .multiprocess import process_count, process_index
+        self.pid = process_index()
+        nproc = process_count()
+        if nproc < 2:
+            raise ValueError("CrossProcessPipeline needs a job of several "
+                             "processes (multiprocess.initialize)")
+        if groups < 1 or nproc % groups:
+            raise ValueError(f"groups={groups} must divide the process "
+                             f"count ({nproc})")
+        self.groups = groups
+        stages = nproc // groups
+        if stages < 2:
+            raise ValueError("each pipeline group needs >= 2 stages")
+        self.stages = stages
+        self.gid, self.sid = divmod(self.pid, stages)
+        blocks = list(bound_chain.blocks)
+        if partition is None:
+            partition = balance_partition(len(blocks), stages)
+        if len(partition) != stages:
+            raise ValueError(f"partition {partition} must have one stage "
+                             f"per group process ({stages})")
+        if sum(partition) != len(blocks) or min(partition) < 1:
+            raise ValueError(f"partition {partition} does not cover "
+                             f"{len(blocks)} blocks with >=1 per stage")
+        self.bound = bound_chain
+        self.in_sig = bound_chain.in_sig
+        self.out_sig = bound_chain.out_sig
+        self.depth = stages
+        if device is None:
+            from ..runtime.blocks import resolve_device
+            device = resolve_device(None)
+        # Every stage's output shape (structural binding only); this
+        # process builds its own stage alone.
+        self._out_shapes, i = [], 0
+        subs = []
+        for cnt in partition:
+            subs.append(blocks[i:i + cnt])
+            i += cnt
+            sig = subs[-1][-1].out_sig
+            self._out_shapes.append((sig.batch, sig.chunk_len))
+        self.stage = _Stage(subs[self.sid], device)
+        self._dtype = torch.from_numpy(np.zeros(0, stream_complex())).dtype
+
+    def run(self, xs):
+        """Feed ``xs`` ([T, groups*batch, chunk_len] complex, the same on
+        every process: group g's stage 0 takes rows ``g*batch:
+        (g+1)*batch``), run ``T + S - 1`` ticks, and return the ``T``
+        output chunks stacked on each group's LAST stage process (``None``
+        elsewhere).  Every process calls it with the same T."""
+        t_total = len(xs)
+        sid, stages, dev = self.sid, self.stages, self.stage.device
+        bs = self.in_sig.batch
+        if xs[0].shape[0] != self.groups * bs:
+            raise ValueError(f"xs batch {xs[0].shape[0]} != groups*batch "
+                             f"({self.groups}x{bs})")
+        st = self.stage
+        no_reset = torch.zeros((st.bound.in_sig.batch,), dtype=torch.bool,
+                               device=dev)
+        held, outs = None, []
+        for t in range(t_total + stages - 1):
+            sends, recvs = [], []
+            if sid <= t < t_total + sid:
+                if sid == 0:
+                    xin = move(torch.as_tensor(
+                        xs[t][self.gid * bs:(self.gid + 1) * bs]), dev)
+                else:
+                    xin = _land(held, dev)
+                st.state, y = st.bound.process(st.params, st.state,
+                                               xin.contiguous(), no_reset)
+                if sid == stages - 1:
+                    outs.append(y)
+                else:
+                    if (y.dtype, tuple(y.shape)) != (
+                            self._dtype, self._out_shapes[sid]):
+                        raise TypeError(f"stage {sid} gave {y.dtype} "
+                                        f"{tuple(y.shape)}, its binding "
+                                        f"{self._out_shapes[sid]}")
+                    sends.append((_staged(y), self.pid + 1, 0))
+            # What the previous stage sent this tick is next tick's input.
+            if sid > 0 and sid - 1 <= t < t_total + sid - 1:
+                held = torch.empty(self._out_shapes[sid - 1],
+                                   dtype=self._dtype,
+                                   pin_memory=dev.type == "cuda")
+                recvs.append((held, self.pid - 1, 0))
+            _exchange(sends, recvs)
+        if sid == stages - 1:
+            if len(outs) != t_total:
+                raise RuntimeError(f"{len(outs)} outputs for {t_total} "
+                                   f"inputs")
+            return torch.stack(outs)
+        return None

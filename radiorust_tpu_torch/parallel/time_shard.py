@@ -50,8 +50,8 @@ from ..blocks import transform as _transform
 from ..blocks.base import BoundBlock, StreamSig, _Compiled
 from ..convert import _map, tree_to_torch
 from ..ops.assoc_scan import associative_scan
-from .mesh import (Mesh, Replicas, all_gather, concat, move, ring_left,
-                   split_batch)
+from .mesh import (Mesh, Replicas, Shards, all_gather, concat,
+                   local_indices, move, ring_left, share)
 
 __all__ = ["TimeShardedChain", "TimeShardedGraph"]
 
@@ -67,13 +67,14 @@ def _halo_tail(xs, carry, hist: int, devices) -> List[torch.Tensor]:
     arrive by ``ring_left`` (several hops when ``hist`` spans several
     chunks); positions before the group's start come from ``carry``, the
     previous step's tail."""
-    n = xs[0].shape[-1]
+    mine = local_indices(devices)
+    n = xs[mine[0]].shape[-1]
     if hist == 0:
-        return [x[:, :0] for x in xs]
+        return _lmap(lambda x: x[:, :0], xs)
     k = -(-hist // n)                      # chunks of halo needed
     if k == 1:
         # Only the tail crosses, not the whole chunk.
-        prev = ring_left([x[:, -hist:] for x in xs], devices)
+        prev = ring_left(_lmap(lambda x: x[:, -hist:], xs), devices)
     else:
         parts, cur = [], xs
         for _ in range(k):
@@ -81,16 +82,30 @@ def _halo_tail(xs, carry, hist: int, devices) -> List[torch.Tensor]:
             parts.append(cur)
         # parts[j-1][d] = x_{d-j}: [x_{d-k} .. x_{d-1}], then its tail.
         prev = [torch.cat([p[d] for p in parts[::-1]], dim=-1)[:, -hist:]
-                for d in range(len(xs))]
-    out = []
-    for d, dev in enumerate(devices):
+                if d in mine else None for d in range(len(xs))]
+    out: list = [None] * len(xs)
+    for d in mine:
         own = d * n                        # samples the neighbours give
         if own >= hist:
-            out.append(prev[d].contiguous())
+            out[d] = prev[d].contiguous()
         else:
-            c = move(carry, dev)
-            out.append(torch.cat([c[:, own:hist], prev[d][:, hist - own:]],
-                                 dim=-1))
+            c = move(carry, devices[d])
+            out[d] = torch.cat([c[:, own:hist], prev[d][:, hist - own:]],
+                               dim=-1)
+    return out
+
+
+def _lmap(fn, vals):
+    """``fn`` over this process's shards, ``None`` kept elsewhere."""
+    return [None if v is None else fn(v) for v in vals]
+
+
+def _per_shard(devices, fn):
+    """``[fn(d, device)]`` over this process's shards, ``None`` at the
+    entries other processes own."""
+    out: list = [None] * len(devices)
+    for d in local_indices(devices):
+        out[d] = fn(d, devices[d])
     return out
 
 
@@ -104,10 +119,12 @@ def _halo_tail(xs, carry, hist: int, devices) -> List[torch.Tensor]:
 
 def _each(block, params, states, xs):
     """The block's ``process`` once per shard on its rebuilt state."""
-    outs = [block.process(p, s, x, _no_reset(x[0] if isinstance(x, tuple)
-                                             else x))
+    outs = [None if x is None else
+            block.process(p, s, x, _no_reset(x[0] if isinstance(x, tuple)
+                                              else x))
             for p, s, x in zip(params, states, xs)]
-    return [o[0] for o in outs], [o[1] for o in outs]
+    return ([None if o is None else o[0] for o in outs],
+            [None if o is None else o[1] for o in outs])
 
 
 def _sharded_stateless(block, params, state, xs, devices):
@@ -120,11 +137,11 @@ def _sharded_filter(block, params, state, xs, devices):
     input samples (the whole previous chunk at m = chunk), rebuilt from
     the neighbour's tail."""
     prev = _halo_tail(xs, state["prev"], state["prev"].shape[-1], devices)
-    return _each(block, params, [{"prev": p} for p in prev], xs)
+    return _each(block, params, _lmap(lambda p: {"prev": p}, prev), xs)
 
 
 def _sharded_select(block, params, state, xs, devices):
-    return [()] * len(xs), [x[block.index] for x in xs]
+    return [()] * len(xs), _lmap(lambda x: x[block.index], xs)
 
 
 def _sharded_resampler(block, params, state, xs, devices):
@@ -132,14 +149,14 @@ def _sharded_resampler(block, params, state, xs, devices):
         # The grid phase advances by C mod p a chunk, whatever the data:
         # shard d's phase in closed form, int32 as the JAX package's.
         p = block.plan.p
-        c = xs[0].shape[-1]
+        c = xs[local_indices(devices)[0]].shape[-1]
         hist = _halo_tail(xs, state["hist"], block.plan.phase_hist, devices)
-        states = [{"hist": h,
-                   "phase": (move(state["phase"], dev) + d * (c % p)) % p}
-                  for d, (h, dev) in enumerate(zip(hist, devices))]
+        states = _per_shard(devices, lambda d, dev: {
+            "hist": hist[d],
+            "phase": (move(state["phase"], dev) + d * (c % p)) % p})
         return _each(block, params, states, xs)
     hist = _halo_tail(xs, state["hist"], block.plan.hist, devices)
-    return _each(block, params, [{"hist": h} for h in hist], xs)
+    return _each(block, params, _lmap(lambda h: {"hist": h}, hist), xs)
 
 
 def _carried(leaf, dev):
@@ -155,20 +172,20 @@ def _first_or(state_leaf, d: int, dev, other):
 
 def _sharded_fm_demod(block, params, state, xs, devices):
     prev = _halo_tail(xs, state["prev"][:, None], 1, devices)
-    states = [{"prev": p[:, 0],
-               "have_prev": _first_or(state["have_prev"], d, dev,
-                                      torch.ones_like(state["have_prev"],
-                                                      device=dev)),
-               "last_out": move(state["last_out"], dev)}
-              for d, (p, dev) in enumerate(zip(prev, devices))]
+    states = _per_shard(devices, lambda d, dev: {
+        "prev": prev[d][:, 0],
+        "have_prev": _first_or(state["have_prev"], d, dev,
+                               torch.ones_like(state["have_prev"],
+                                               device=dev)),
+        "last_out": move(state["last_out"], dev)})
     return _each(block, params, states, xs)
 
 
 def _sharded_freq_shifter(block, params, state, xs, devices):
     # Closed-form phase index: shard d is d chunks ahead of the carry.
-    states = [{"k0": (move(state["k0"], dev) + d * p["adv"]) % block.denom,
-               "start_phase": move(state["start_phase"], dev)}
-              for d, (p, dev) in enumerate(zip(params, devices))]
+    states = _per_shard(devices, lambda d, dev: {
+        "k0": (move(state["k0"], dev) + d * params[d]["adv"]) % block.denom,
+        "start_phase": move(state["start_phase"], dev)})
     return _each(block, params, states, xs)
 
 
@@ -184,10 +201,11 @@ def _exclusive_sum(gathered, d: int):
 def _sharded_fm_mod(block, params, state, xs, devices):
     """Shard d's phase offset is the sum of every earlier shard's
     increment sum: an exclusive prefix over the shards."""
-    sums = [torch.sum(x.real * p, dim=-1) for x, p in zip(xs, params)]
+    sums = _per_shard(devices, lambda d, dev: torch.sum(
+        xs[d].real * params[d], dim=-1))
     gathered = all_gather(sums, devices)
-    states = [{"phase": move(state["phase"], dev) + _exclusive_sum(g, d)}
-              for d, (g, dev) in enumerate(zip(gathered, devices))]
+    states = _per_shard(devices, lambda d, dev: {
+        "phase": move(state["phase"], dev) + _exclusive_sum(gathered[d], d)})
     return _each(block, params, states, xs)
 
 
@@ -198,25 +216,27 @@ def _sharded_squelch(block, params, state, xs, devices):
     envelope.  Exact in real arithmetic; the float32 sums run in another
     order than the sequential scan's, so an envelope within an ulp of the
     threshold can gate the other way."""
-    n = xs[0].shape[-1]
-    b_loc = []
-    for x, p in zip(xs, params):
-        alpha = p["alpha"]
+    n = xs[local_indices(devices)[0]].shape[-1]
+
+    def reduce(d, dev):
+        x, alpha = xs[d], params[d]["alpha"]
         pw = (x * torch.conj(x)).real
         powers = alpha ** torch.arange(n - 1, -1, -1, dtype=pw.dtype,
                                        device=x.device)
-        b_loc.append((1.0 - alpha) * torch.sum(pw * powers[None, :], dim=-1))
-    gathered = all_gather(b_loc, devices)
-    states = []
-    for d, (g, p, dev) in enumerate(zip(gathered, params, devices)):
-        a_n = p["alpha"] ** float(n)
+        return (1.0 - alpha) * torch.sum(pw * powers[None, :], dim=-1)
+
+    gathered = all_gather(_per_shard(devices, reduce), devices)
+
+    def seed(d, dev):
+        g = gathered[d]
+        a_n = params[d]["alpha"] ** float(n)
         k = torch.arange(g.shape[0], device=dev)
         w = torch.where(k < d, a_n ** torch.clamp(d - 1 - k, min=0),
                         torch.zeros_like(a_n))
         env = move(state["env"], dev)
-        states.append({"env": (a_n ** d) * env
-                       + torch.sum(w[:, None] * g, dim=0)})
-    return _each(block, params, states, xs)
+        return {"env": (a_n ** d) * env + torch.sum(w[:, None] * g, dim=0)}
+
+    return _each(block, params, _per_shard(devices, seed), xs)
 
 
 def _sharded_agc(block, params, state, xs, devices):
@@ -227,43 +247,45 @@ def _sharded_agc(block, params, state, xs, devices):
     shard's gain; then the block's ``process`` (on CUDA the AGC kernel)
     runs unchanged.  Exact in real arithmetic."""
     from ..ops.scan import _agc_compose, _agc_elems
-    local = []
-    for x, p in zip(xs, params):
-        elems = _agc_elems(p["rate"], p["reference"], p["max_gain"], x)
-        local.append(tuple(t[:, -1] for t in
-                           associative_scan(_agc_compose, elems)))
-    gathered = [all_gather([m[j] for m in local], devices)
+
+    def reduce(d, dev):
+        p = params[d]
+        elems = _agc_elems(p["rate"], p["reference"], p["max_gain"], xs[d])
+        return tuple(t[:, -1] for t in associative_scan(_agc_compose, elems))
+
+    local = _per_shard(devices, reduce)
+    gathered = [all_gather(_lmap(lambda m: m[j], local), devices)
                 for j in range(4)]                    # 4 x D x [D, b]
-    states = []
-    for d, dev in enumerate(devices):
+
+    def seed(d, dev):
         g0 = _carried(state["gain"], dev)
         if d == 0:                    # the identity map: no predecessor
-            states.append({"gain": g0})
-            continue
+            return {"gain": g0}
         # [b, D] rows: the scan runs along the shards.
         pre = associative_scan(_agc_compose, tuple(
             gathered[j][d].transpose(0, 1) for j in range(4)))
         a, b, lo, hi = (t[:, d - 1] for t in pre)
-        states.append({"gain": torch.clamp(a * g0 + b, lo, hi)})
-    return _each(block, params, states, xs)
+        return {"gain": torch.clamp(a * g0 + b, lo, hi)}
+
+    return _each(block, params, _per_shard(devices, seed), xs)
 
 
 def _sharded_overlapper(block, params, state, xs, devices):
     """The analysis window's history is a (k-1)-chunk halo, fetched with
     the multi-hop ``ring_left`` chain."""
     k = block.chunk_count
-    b, n = xs[0].shape
+    b, n = xs[local_indices(devices)[0]].shape
     if k == 1:
         return _each(block, params, [state] * len(xs), xs)
     hist = (k - 1) * n
     h = _halo_tail(xs, state["hist"].reshape(b, hist), hist, devices)
-    return _each(block, params, [{"hist": t.reshape(b, k - 1, n)}
-                                 for t in h], xs)
+    return _each(block, params, _lmap(
+        lambda t: {"hist": t.reshape(b, k - 1, n)}, h), xs)
 
 
 def _sharded_channelizer(block, params, state, xs, devices):
     hist = _halo_tail(xs, state["hist"], block.hist_len, devices)
-    return _each(block, params, [{"hist": h} for h in hist], xs)
+    return _each(block, params, _lmap(lambda h: {"hist": h}, hist), xs)
 
 
 def _sharded_channelizer_demod(block, params, state, xs, devices):
@@ -271,12 +293,12 @@ def _sharded_channelizer_demod(block, params, state, xs, devices):
     the raw history, so the only halo is the raw-input tail;
     ``have_prev``/``last_out`` matter on shard 0 only."""
     hist = _halo_tail(xs, state["hist"], block.hist_len, devices)
-    states = [{"hist": h,
-               "have_prev": _first_or(state["have_prev"], d, dev,
-                                      torch.ones_like(state["have_prev"],
-                                                      device=dev)),
-               "last_out": _carried(state["last_out"], dev)}
-              for d, (h, dev) in enumerate(zip(hist, devices))]
+    states = _per_shard(devices, lambda d, dev: {
+        "hist": hist[d],
+        "have_prev": _first_or(state["have_prev"], d, dev,
+                               torch.ones_like(state["have_prev"],
+                                               device=dev)),
+        "last_out": _carried(state["last_out"], dev)})
     return _each(block, params, states, xs)
 
 
@@ -294,11 +316,13 @@ def _sharded_mixer_decimator(block, params, state, xs, devices):
     neighbour's kernel writes, bit for bit."""
     from ..blocks.transform import start_phasor
     from ..ops.frontend import mix_tail
-    _check_mixer_decimator(block, xs[0].shape[-1])
+    _check_mixer_decimator(block, xs[local_indices(devices)[0]].shape[-1])
     hist, denom = block.plan.hist, block.denom
-    tails = ring_left([x[:, -hist:] for x in xs], devices) if hist else None
-    states = []
-    for d, (p, dev) in enumerate(zip(params, devices)):
+    tails = (ring_left(_lmap(lambda x: x[:, -hist:], xs), devices)
+             if hist else None)
+    states: list = [None] * len(xs)
+    for d in local_indices(devices):
+        p, dev = params[d], devices[d]
         k0 = move(state["k0"], dev)
         sp = move(state["start_phase"], dev)
         st = {"k0": (k0 + d * p["adv"]) % denom, "start_phase": sp,
@@ -310,7 +334,7 @@ def _sharded_mixer_decimator(block, params, state, xs, devices):
             st["histr"], st["histi"] = mix_tail(
                 tails[d], p["table_a"], p["table_b"],
                 *start_phasor(prev, denom))
-        states.append(st)
+        states[d] = st
     return _each(block, params, states, xs)
 
 
@@ -322,25 +346,26 @@ def _demod_halos(fr, fi, state, devices, params, m: int):
     fm_demod_planes`, the plain arithmetic of #5's demod prologue)."""
     from ..ops.filter import fm_demod_planes
     big = len(fr)
-    lr = ring_left([t[:, -1].contiguous() for t in fr], devices)
-    li = ring_left([t[:, -1].contiguous() for t in fi], devices)
-    plr = [_first_or(state["plr"], d, dev, lr[d])
-           for d, dev in enumerate(devices)]
-    pli = [_first_or(state["pli"], d, dev, li[d])
-           for d, dev in enumerate(devices)]
-    have = [_first_or(state["have_prev"], d, dev,
-                      torch.ones_like(state["have_prev"], device=dev))
-            for d, dev in enumerate(devices)]
+    lr = ring_left(_lmap(lambda t: t[:, -1].contiguous(), fr), devices)
+    li = ring_left(_lmap(lambda t: t[:, -1].contiguous(), fi), devices)
+    plr = _per_shard(devices, lambda d, dev: _first_or(state["plr"], d, dev,
+                                                       lr[d]))
+    pli = _per_shard(devices, lambda d, dev: _first_or(state["pli"], d, dev,
+                                                       li[d]))
+    have = _per_shard(devices, lambda d, dev: _first_or(
+        state["have_prev"], d, dev,
+        torch.ones_like(state["have_prev"], device=dev)))
     # Shard d's replica is shard d+1's history (ring_left without its
     # wrap: shard 0 takes the carry, so the last shard needs none).
-    n = fr[0].shape[-1]
-    tails = [fm_demod_planes(fr[d], fi[d], plr[d], pli[d],
-                             _carried(state["last_out"], devices[d]),
-                             have[d],
-                             params[d]["factor"])[:, n - m:].contiguous()
-             for d in range(big - 1)]
-    prevd = [move(state["prevd"], devices[0])] + [
-        move(tails[d - 1], devices[d]) for d in range(1, big)]
+    n = fr[local_indices(devices)[0]].shape[-1]
+    tails = _per_shard(devices, lambda d, dev: None if d == big - 1 else
+                       fm_demod_planes(fr[d], fi[d], plr[d], pli[d],
+                                       _carried(state["last_out"], dev),
+                                       have[d], params[d]["factor"])
+                       [:, n - m:].contiguous())
+    prevd = ring_left(tails, devices, wrap=False, like=state["prevd"])
+    if 0 in local_indices(devices):
+        prevd[0] = move(state["prevd"], devices[0])
     return plr, pli, have, prevd
 
 
@@ -352,13 +377,12 @@ def _sharded_fm_demod_filter(block, params, state, xs, devices):
     into fused multiply-adds, so the rebuilt tail, the filter's history,
     can differ from it by float32 rounding."""
     m = state["prevd"].shape[-1]
-    fr = [x.real.contiguous() for x in xs]
-    fi = [x.imag.contiguous() for x in xs]
+    fr = _lmap(lambda x: x.real.contiguous(), xs)
+    fi = _lmap(lambda x: x.imag.contiguous(), xs)
     plr, pli, have, prevd = _demod_halos(fr, fi, state, devices, params, m)
-    states = [{"plr": plr[d], "pli": pli[d], "prevd": prevd[d],
-               "last_out": _carried(state["last_out"], dev),
-               "have_prev": have[d]}
-              for d, dev in enumerate(devices)]
+    states = _per_shard(devices, lambda d, dev: {
+        "plr": plr[d], "pli": pli[d], "prevd": prevd[d],
+        "last_out": _carried(state["last_out"], dev), "have_prev": have[d]})
     return _each(block, params, states, xs)
 
 
@@ -371,32 +395,33 @@ def _sharded_filter_demod_filter(block, params, state, xs, devices):
     :func:`_sharded_fm_demod_filter` builds them.  The same math, one more
     launch a shard, in sharded mode only."""
     from ..ops.filter import fused_demod_filter, fused_overlap_save
-    n = xs[0].shape[-1]
+    mine = local_indices(devices)
+    n = xs[mine[0]].shape[-1]
     m = block.ir_len
     prev = _halo_tail(xs, state["prev"], m, devices)
-    fr, fi = [], []
-    for x, h, p in zip(xs, prev, params):
-        g1 = block._grids[0].planes(p["response1"])
-        r, i = fused_overlap_save(h.real.contiguous(), h.imag.contiguous(),
-                                  x.real.contiguous(), x.imag.contiguous(),
-                                  *g1)
-        fr.append(r)
-        fi.append(i)
+    fr, fi = [None] * len(xs), [None] * len(xs)
+    for d in mine:
+        x, h = xs[d], prev[d]
+        g1 = block._grids[0].planes(params[d]["response1"])
+        fr[d], fi[d] = fused_overlap_save(
+            h.real.contiguous(), h.imag.contiguous(), x.real.contiguous(),
+            x.imag.contiguous(), *g1)
     plr, pli, have, prevd = _demod_halos(fr, fi, state, devices, params, m)
-    pieces, ys = [], []
-    for d, (x, p, dev) in enumerate(zip(xs, params, devices)):
+    pieces, ys = [None] * len(xs), [None] * len(xs)
+    for d in mine:
+        x, p, dev = xs[d], params[d], devices[d]
         last_out = _carried(state["last_out"], dev)
         y, dout = fused_demod_filter(
             fr[d], fi[d], plr[d], pli[d], prevd[d], last_out, have[d],
             *block._grids[1].planes(p["response2"]), p["factor"])
         # The carry is read by the kernels: contiguous, as the block's.
-        pieces.append({"prev": x[:, n - m:],
-                       "plr": fr[d][:, -1].contiguous(),
-                       "pli": fi[d][:, -1].contiguous(),
-                       "prevd": dout[:, n - m:].contiguous(),
-                       "last_out": dout[:, -1].contiguous(),
-                       "have_prev": torch.ones_like(have[d])})
-        ys.append(torch.complex(y, torch.zeros_like(y)))
+        pieces[d] = {"prev": x[:, n - m:],
+                     "plr": fr[d][:, -1].contiguous(),
+                     "pli": fi[d][:, -1].contiguous(),
+                     "prevd": dout[:, n - m:].contiguous(),
+                     "last_out": dout[:, -1].contiguous(),
+                     "have_prev": torch.ones_like(have[d])}
+        ys[d] = torch.complex(y, torch.zeros_like(y))
     return pieces, ys
 
 
@@ -482,6 +507,35 @@ def _zip_map(a, b, fn):
     if isinstance(a, (list, tuple)):
         return type(a)(_zip_map(x, y, fn) for x, y in zip(a, b))
     return fn(a, b)
+
+
+def _rows_of(t, cut: slice, batch: int):
+    """Rows ``cut`` of a batch-major state leaf: a tensor's, or the piece
+    of a :class:`~radiorust_tpu_torch.parallel.mesh.Shards` holding
+    them."""
+    if isinstance(t, Shards):
+        return t.get((cut,))
+    from .mesh import _batch_leaf
+    return _batch_leaf(t, batch)[cut]
+
+
+def _row_shards(carries: dict, row_b: int, batch: int):
+    """The rows' carries ({row: tree}) as one tree of :class:`~
+    radiorust_tpu_torch.parallel.mesh.Shards` over the stream batch."""
+    from ..blocks.base import _leaves
+    rows = sorted(carries)
+    cols = zip(*(_leaves(carries[r]) for r in rows))
+    it = iter([Shards((batch,) + tuple(col[0].shape[1:]),
+                      [((slice(r * row_b, (r + 1) * row_b),), t)
+                       for r, t in zip(rows, col)]) for col in cols])
+    return _map(carries[rows[0]], lambda _: next(it))
+
+
+def _refuse_spanning(mesh, what: str) -> None:
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            f"{what} on a mesh that spans processes: a CUDA graph cannot "
+            f"capture a gloo exchange; step eagerly with process()")
 
 
 class TimeShardedGraph:
@@ -596,45 +650,77 @@ class TimeShardedGraph:
                 carry.append(())
                 continue
             up = bg._upstream[i]
-            xin = ([tuple(vals[u][d] for u in up) for d in range(len(devices))]
+            xin = ([None if vals[up[0]][d] is None else
+                    tuple(vals[u][d] for u in up) for d in range(len(devices))]
                    if isinstance(up, tuple) else vals[up])
             pieces, vals[i] = self._handlers[i](
-                b, [p[i] for p in ps], state[i], xin, devices)
-            # The next step's carry is the last shard's piece.
-            carry.append(_map(pieces[-1], lambda t: move(t, devices[0])))
+                b, [None if p is None else p[i] for p in ps], state[i], xin,
+                devices)
+            # The next step's carry is the last shard's piece, at every
+            # rank of the line (the closed-form handlers read it on every
+            # shard).
+            like = next(p for p in pieces if p is not None)
+            carry.append(share(pieces[-1], len(devices) - 1, devices, like))
         return tuple(carry), {n: vals[j] for n, j in bg._outputs.items()}
 
     def process(self, params, state, xs_big):
+        """One group step: ``(state', {output: [batch, D*out_n]})``.  On a
+        mesh that spans processes each process steps only its own shards:
+        each output is a :class:`~radiorust_tpu_torch.parallel.mesh.
+        Shards` of this process's pieces (one per entry it owns), and the
+        carry is a tree of tensors where this process holds every row of
+        the mesh, else of :class:`~radiorust_tpu_torch.parallel.mesh.
+        Shards` of its rows; ``state`` may be either, or a whole tree."""
         d_count = self.t_devices
-        home = self.mesh.home
         batch = next(iter(xs_big.values())).shape[0]
         self.check(batch)
         rows, sub = len(self._rows), self.overlap
-        groups = rows * sub
-        if groups == 1:
-            states, xss = [state], [xs_big]
-        else:
-            states = split_batch(state, groups, batch)
-            xss = split_batch(xs_big, groups, batch)
-        carries, outs = [], []
-        for g, (st, xg) in enumerate(zip(states, xss)):
-            devices = self._rows[g // sub]
-            shards = {}
-            for name, x in xg.items():
-                n = x.shape[-1] // d_count
-                shards[name] = [move(x[:, d * n:(d + 1) * n], dev)
-                                .contiguous()
-                                for d, dev in enumerate(devices)]
-            st = _map(st, lambda t: move(t, devices[0]))
-            carry, ys = self._walk(params, st, shards, devices)
-            carries.append(carry)
-            outs.append({k: torch.cat([move(y, home) for y in v], dim=-1)
-                         for k, v in ys.items()})
-        if groups == 1:
-            return (_map(carries[0], lambda t: move(t, home)), outs[0])
-        return (concat(carries, home),
-                {k: torch.cat([o[k] for o in outs], dim=0)
-                 for k in outs[0]})
+        row_b = batch // rows
+        sb = row_b // sub
+        carries: dict = {}
+        pieces: dict = {k: [] for k in self.out_sigs}
+        for r, devices in enumerate(self._rows):
+            mine = local_indices(devices)
+            if not mine:
+                continue
+            home = devices[mine[0]]
+            subs = []
+            for j in range(sub):
+                cut = slice(r * row_b + j * sb, r * row_b + (j + 1) * sb)
+                # One row of one walk takes the state whole (leaves need
+                # not be batch-major).
+                st = _map(state, lambda t: move(
+                    t if rows * sub == 1 else _rows_of(t, cut, batch), home))
+                shards = {}
+                for name, x in xs_big.items():
+                    n = x.shape[-1] // d_count
+                    shards[name] = [
+                        move(x[cut, d * n:(d + 1) * n], devices[d])
+                        .contiguous() if d in mine else None
+                        for d in range(d_count)]
+                subs.append(self._walk(params, st, shards, devices))
+            carries[r] = (subs[0][0] if sub == 1
+                          else concat([c for c, _ in subs], home))
+            for name in pieces:
+                for d in mine:
+                    y = (subs[0][1][name][d] if sub == 1 else
+                         torch.cat([ys[name][d] for _, ys in subs], dim=0))
+                    # A row's outputs are its streams' (a channelizer
+                    # folds each stream into M rows).
+                    k, m = y.shape[0], y.shape[-1]
+                    pieces[name].append(((slice(r * k, (r + 1) * k),
+                                          slice(d * m, (d + 1) * m)), y))
+        outs = {name: Shards((rows * p[0][1].shape[0],
+                              d_count * p[0][1].shape[-1]), p)
+                for name, p in pieces.items()}
+        if len(carries) < rows:
+            return _row_shards(carries, row_b, batch), outs
+        home = self.mesh.home
+        state = (_map(carries[0], lambda t: move(t, home)) if rows == 1
+                 else concat([carries[r] for r in range(rows)], home))
+        if self.mesh.spans_processes:
+            return state, outs
+        return state, {name: y.join(home) for name, y in outs.items()}
 
     def _group_step(self, params, state, xs, reset):
         """One group step with the actor's all-or-nothing reset."""
@@ -652,7 +738,11 @@ class TimeShardedGraph:
         :func:`~radiorust_tpu_torch.blocks.base.jit_step` over the group
         signatures, one CUDA graph holding every shard's launches where
         the mesh is one card, eager otherwise.  A reset is all or nothing:
-        any true flag restarts every stream's carry before the group."""
+        any true flag restarts every stream's carry before the group.
+        On a mesh that spans processes it raises: a CUDA graph cannot
+        capture a gloo exchange, and such a step runs eagerly through
+        :meth:`process`."""
+        _refuse_spanning(self.mesh, "TimeShardedGraph.jit_step")
         return _Compiled(self.bound, whole_run=False,
                          process=self._group_step,
                          capturable=self.mesh.single_device)
@@ -732,7 +822,10 @@ class TimeShardedChain:
         shard="time")``): ``step(params, state, x, reset)`` as
         :func:`~radiorust_tpu_torch.blocks.base.jit_step` over the group
         signature; one CUDA graph of every shard's launches where the
-        mesh is one card, eager otherwise.  A reset is all or nothing."""
+        mesh is one card, eager otherwise.  A reset is all or nothing.
+        On a mesh that spans processes it raises, as
+        :meth:`TimeShardedGraph.jit_step` does."""
+        _refuse_spanning(self.mesh, "TimeShardedChain.jit_step")
         return _Compiled(self.bound, whole_run=False,
                          process=self._group_step,
                          capturable=self.mesh.single_device)

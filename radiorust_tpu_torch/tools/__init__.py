@@ -1,7 +1,9 @@
 """The measurement tools of the port: the JAX package's ``tools/``
 benchmarks and soak on torch, each run as ``python -m
 radiorust_tpu_torch.tools.<name>`` (``bench_configs``, ``bench_latency``,
-``bench_channelizer``, ``soak``, ``bench_serving``).
+``bench_channelizer``, ``soak``, ``bench_serving``), and the parallel
+layer's: ``fake_cluster`` (a job of processes on one machine),
+``collective_volumes`` and ``dryrun_multichip``.
 
 Each runs on CUDA by default, takes ``--device cpu`` (the kernels' plain
 versions, for tests) and raises without a card unless it is given the
