@@ -16,7 +16,7 @@ from ..convert import tree_to_torch
 from ..runtime.blocks import resolve_device
 from ..validate import port_lib
 
-__all__ = ["port_lib", "env_int", "parse_args", "device_label",
+__all__ = ["port_lib", "env_int", "parse_args", "device_label", "card",
            "seeded_input", "energy", "timed", "graphed_loop"]
 
 
@@ -47,6 +47,18 @@ def device_label(device) -> dict:
         return {"platform": "gpu",
                 "device": torch.cuda.get_device_name(device)}
     return {"platform": "cpu", "device": "cpu"}
+
+
+def card() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (its
+    first line)."""
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
 
 
 def seeded_input(t: int, batch: int, n: int, device, seed: int = 0):
@@ -83,14 +95,17 @@ def timed(fn: Callable, device) -> tuple:
 
 def graphed_loop(bound, graph: bool, t: int, reps: int, device,
                  post: Optional[Callable] = None,
-                 name: str = "config") -> tuple:
+                 name: str = "config", runs: int = 3,
+                 trace: Optional[str] = None) -> tuple:
     """Time ``reps`` replays of one ``make_scan`` of ``t`` chunk steps
     (one CUDA graph on the card; eager on the CPU) on seeded input made on
     the device, the state carried from replay to replay.  Each replay's
     output energy (plus ``post(ys, bound)``, a 0-d tensor) is summed on
-    the device.  Returns (best seconds of three timed runs, checksum: the
-    sum over the timed runs, fetched once); raises unless the warm-up
-    replay and the checksum are finite and positive."""
+    the device.  Returns (best seconds of ``runs`` timed runs, checksum:
+    the sum over the timed runs, fetched once); raises unless the warm-up
+    replay and the checksum are finite and positive.  ``trace``: a
+    directory where a device trace of one more replay is written
+    (``utils/profiling.py`` ``device_trace``)."""
     batch = (next(iter(bound.in_sigs.values())).batch if graph
              else bound.in_sig.batch)
     n = (next(iter(bound.in_sigs.values())).chunk_len if graph
@@ -115,11 +130,15 @@ def graphed_loop(bound, graph: bool, t: int, reps: int, device,
     if not (math.isfinite(warm) and warm > 0.0):
         raise RuntimeError(f"{name}: bad warm-up checksum {warm}")
     best, total = math.inf, None
-    for _ in range(3):
+    for _ in range(runs):
         acc, seconds = timed(lambda: replays(reps), device)
         best = min(best, seconds)
         total = acc if total is None else total + acc
     checksum = float(total)
     if not (math.isfinite(checksum) and checksum > 0.0):
         raise RuntimeError(f"{name}: bad checksum {checksum}")
+    if trace:
+        from ..utils.profiling import device_trace
+        with device_trace(trace):
+            float(replays(1))
     return best, checksum

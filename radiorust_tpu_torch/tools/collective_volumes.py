@@ -34,6 +34,8 @@ import sys
 
 import torch
 
+from ..runtime.blocks import resolve_device
+
 __all__ = ["measure_time_sharded_wfm", "measure_channel_sharded",
            "measure_fused_time_sharded", "volumes"]
 
@@ -67,19 +69,25 @@ def _time_sharded(bound, d, overlap, device):
 
 
 def measure_time_sharded_wfm(n: int = 16384, batch: int = 1, d: int = 8,
-                             overlap: int = 1, device="cpu") -> dict:
+                             overlap: int = 1, device=None) -> dict:
+    """The WFM chain time-sharded ``t=d``; on the card unless ``device``
+    names another (without a card and a device it raises)."""
     from ..blocks.base import StreamSig
     from ..models.wfm import wfm_receiver
+    device = resolve_device(device)
     return _time_sharded(wfm_receiver().bind(StreamSig(batch, n, RATE)), d,
                          overlap, device)
 
 
-def measure_channel_sharded(d: int = 8, device="cpu") -> dict:
+def measure_channel_sharded(d: int = 8, device=None) -> dict:
+    """The channelizer channel-sharded ``c=d``; on the card unless
+    ``device`` names another."""
     from ..blocks.base import StreamSig
     from ..convert import tree_to_torch
     from ..models.channelizer import channelized_receiver
     from ..parallel.channel_shard import ChannelShardedChain
     from ..parallel.mesh import make_mesh
+    device = resolve_device(device)
     bound = channelized_receiver(num_channels=64, input_rate=RATE).bind(
         StreamSig(1, 16384, RATE))
     cs = ChannelShardedChain(bound, make_mesh((d,), ("c",), device),
@@ -90,9 +98,12 @@ def measure_channel_sharded(d: int = 8, device="cpu") -> dict:
     return volumes(lambda: cs.process(params, state, x), d)
 
 
-def measure_fused_time_sharded(d: int = 8, device="cpu") -> dict:
+def measure_fused_time_sharded(d: int = 8, device=None) -> dict:
+    """The fused chain time-sharded ``t=d``; on the card unless ``device``
+    names another."""
     from ..blocks.base import StreamSig
     from ..models.wfm import wfm_receiver
+    device = resolve_device(device)
     return _time_sharded(wfm_receiver(fuse_frontend=True, fuse_demod=True)
                          .bind(StreamSig(2, 16384, RATE)), d, 1, device)
 
@@ -115,7 +126,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    from ..runtime.blocks import resolve_device
     dev = resolve_device(args.device)
     rows = {}
     print("| configuration | bytes/shard/step | breakdown |")

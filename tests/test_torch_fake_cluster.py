@@ -194,16 +194,16 @@ def test_collective_volumes_against_the_jax_tool():
     jax_tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_tool)
     for kw in ({}, {"batch": 8}, {"batch": 8, "overlap": 4}):
-        got = port.measure_time_sharded_wfm(**kw)
+        got = port.measure_time_sharded_wfm(**kw, device="cpu")
         _, want, _ = jax_tool.measure_time_sharded_wfm(**kw)
         assert set(got) == {"ring_left"}, got
         assert got["ring_left"] == want["collective-permute"], (kw, got,
                                                                 want)
         assert want["all-reduce"] > 0           # the carry's psum
-    got = port.measure_channel_sharded()
+    got = port.measure_channel_sharded(device="cpu")
     _, want, _ = jax_tool.measure_channel_sharded()
     assert got == {"all_gather": want["all-gather"]}, (got, want)
-    got = port.measure_fused_time_sharded()
+    got = port.measure_fused_time_sharded(device="cpu")
     _, want, _ = jax_tool.measure_fused_time_sharded()
     m, streams = 6144, 2
     assert got["ring_left"] + m * streams * 4 / 8 == \
