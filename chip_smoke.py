@@ -18,7 +18,12 @@
    768 rows: m = n = 1000, 1001, 65536, 98304 and m = 6144, n = 98304,
    and at the three whose column passes a one-column strip (the
    device-memory column route): m = n = 10001, a prime N = 19373,
-   m = 1, n = 19373 and m = n = 10003, with #5 and #6 at m = n = 10001; #7 through both
+   m = 1, n = 19373 and m = n = 10003; #5 and #6 (``DEMOD_ROUTES``) by
+   their cluster route (one launch a call, asserted on their
+   ``cluster_launches`` counters) at A's and B's geometry, a history off
+   whole rows, an odd n1, two-point rows and the largest transform each
+   takes, and by the stage route past it (16-column strips, and columns
+   in device memory at m = n = 10001); #7 through both
    signatures, the block's step (complex64 in place, a reset and a
    stream without a previous output) and the float planes; #8 bit for
    bit, both forms, on paths E audio's and E rf's keyer envelopes chunk
@@ -43,8 +48,9 @@
    the port never calls it.
 3. Drives its paths (A-G 16 chunks each), with every launch counter set to
    0 just before and read just after, and checks that each kernel of the
-   path was launched, that the output is finite and right, and that the
-   first streams equal the same path run on CPU tensors:
+   path was launched (every #5 and #6 launch by the cluster route), that
+   the output is finite and right, and that the first streams equal the
+   same path run on CPU tensors:
 
    A. ``wfm_receiver(tune_shift=100e3, fuse_frontend=True, fuse_demod=True,
       filter_ir_len=6144)`` at ``StreamSig(64, 24576, 1.024e6)``: FM
@@ -233,7 +239,18 @@ FAULT_GEOMETRIES = ((1000, 1000), (1001, 1001), (65536, 65536),
 # chunk 10003 (20006 = 2 x 7 x 1429: a generic pass of 7).
 STRIP_FAULTS = ((10001, 10001, 64), (9686, 9687, 2), (1, 19373, 8),
                 (10003, 10003, 8))
-STRIP_CHUNK, STRIP_BATCH = 10001, 8   # #5 and #6 there
+# (m, n, batch, kernels, cluster route, what) of #5's and #6's checks
+# beside A's and B's geometry (ops/filter.py cluster_size picks the route).
+DEMOD_ROUTES = (
+    (6080, 9280, 64, (5, 6), True, "a history off whole rows"),
+    (3648, 3648, 64, (5, 6), True, "odd n1, a generic pass of 19"),
+    (1001, 1001, 64, (5, 6), True, "two-point rows, C = 2"),
+    (56704, 56704, 8, (5,), True, "the largest N of #5's cluster route"),
+    (28480, 28480, 8, (6,), True, "the largest N of #6's cluster route"),
+    (65536, 65536, 8, (5,), False, "the stage route, 16-column strips"),
+    (32768, 32768, 8, (6,), False, "the stage route, 16-column strips"),
+    (10001, 10001, 8, (5, 6), False, "the stage route, columns in device "
+     "memory"))
 # (input rate, output rate, bandwidth, chunk) of #1's wide plans.
 WIDE_PLANS = ((48000.0, 44100.0, 20000.0, 1600),
               (384000.0, 44100.0, 16000.0, 12800),
@@ -1010,21 +1027,53 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
 
 
 def zero_counts(wrappers) -> None:
-    """Every launch counter at 0, once the card has finished."""
+    """Every launch counter at 0 (and #5's and #6's cluster-route
+    counters), once the card has finished."""
     torch.cuda.synchronize()
     for w in wrappers:
         w.launches = 0
+        if hasattr(w, "cluster_launches"):
+            w.cluster_launches = 0
+
+
+def cluster_counts(wrappers) -> dict:
+    """{wrapper name: launches by the cluster route} of the wrappers that
+    have one (#5, #6)."""
+    return {w.__name__: w.cluster_launches for w in wrappers
+            if hasattr(w, "cluster_launches")}
+
+
+def routed(wrapper, cluster: bool, run, label: str):
+    """Run ``run`` and fail unless ``wrapper`` launched, every launch by
+    the cluster route (``cluster``) or none of them."""
+    before = wrapper.launches, wrapper.cluster_launches
+    run()
+    calls = wrapper.launches - before[0]
+    by_cluster = wrapper.cluster_launches - before[1]
+    print(f"{label}: {calls} launches, {by_cluster} by the cluster route")
+    if calls < 1 or by_cluster != (calls if cluster else 0):
+        raise AssertionError(f"{label}: expected the "
+                             f"{'cluster' if cluster else 'stage'} route, "
+                             f"{by_cluster} of {calls} launches took the "
+                             f"cluster route")
 
 
 def read_counts(wrappers, label, want=()) -> dict:
     """{wrapper name: launches} once the card has finished; fails unless
-    each of ``want`` (wrappers or their names) was launched on ``label``."""
+    each of ``want`` (wrappers or their names) was launched on ``label``,
+    and unless every launch of #5 and #6 took the cluster route (every
+    geometry a path binds is one it takes)."""
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
     names = [w if isinstance(w, str) else w.__name__ for w in want]
     missing = [n for n in names if launches[n] < 1]
     if missing:
         raise AssertionError(f"{label}: {missing} not launched")
+    staged = [n for n, c in cluster_counts(wrappers).items()
+              if c != launches[n]]
+    if staged:
+        raise AssertionError(f"{label}: {staged} launched by the stage "
+                             f"route")
     return launches
 
 
@@ -1069,8 +1118,9 @@ def _cloned(obj):
 
 class _Tap:
     """A kernel wrapper's stand-in under :func:`tapped`: it records the
-    wrapper's eager calls, and its ``launches`` is the wrapper's own
-    counter, which the wrapper counts on through its module's name."""
+    wrapper's eager calls, and its ``launches`` (and #5's and #6's
+    ``cluster_launches``) are the wrapper's own counters, which the
+    wrapper counts on through its module's name."""
 
     def __init__(self, real, record):
         self.real, self.record = real, record
@@ -1082,6 +1132,14 @@ class _Tap:
     @launches.setter
     def launches(self, value):
         self.real.launches = value
+
+    @property
+    def cluster_launches(self):
+        return self.real.cluster_launches
+
+    @cluster_launches.setter
+    def cluster_launches(self, value):
+        self.real.cluster_launches = value
 
     def __call__(self, *args, **kw):
         return self.record(self.real, *args, **kw)
@@ -2683,30 +2741,45 @@ def main() -> None:
 
     # FM at the mid-chain rate, continuous across [history || chunk]:
     # where the filtered signal has a magnitude, its demod is not chaotic.
-    fm = torch.exp(1j * torch.cumsum(0.3 * randn(BATCH, m + n_mid), dim=1))
-    have = (torch.arange(BATCH, device=dev) % 3 > 0).to(torch.float32)
-    last = torch.exp(1j * randn(BATCH))
-    check("fused_demod_filter", "radiorust_tpu_torch/csrc/overlap_save.cu",
-          "radiorust_tpu/ops/pallas_filter.py:778", FILTER_BOUND,
-          ofl.fused_demod_filter, ofl.fused_demod_filter_plain,
-          (*planes(fm[:, m:]), *planes(last), randn(BATCH, m),
-           randn(BATCH), have, *grid_planes(demod.params["response"]),
-           torch.tensor(demod.params["factor"], device=dev)),
-          demod_filter_flops(BATCH, m, n_mid),
-          graphed=True)
+    # #5 and #6 at A's and B's geometry take the cluster route: one launch
+    # a call.
+    def demod_checks(label, m_, n_, rows, fmd_, fdf_, cluster, record=False,
+                     kinds=(5, 6)):
+        fm_ = torch.exp(1j * torch.cumsum(0.3 * randn(rows, m_ + n_), dim=1))
+        have_ = (torch.arange(rows, device=dev) % 3 > 0).to(torch.float32)
+        last_ = torch.exp(1j * randn(rows))
+        suffix = "" if record else f" {label}"
+        if 5 in kinds:
+            routed(ofl.fused_demod_filter, cluster, lambda: check(
+                "fused_demod_filter" + suffix,
+                "radiorust_tpu_torch/csrc/overlap_save.cu" if record else "",
+                "radiorust_tpu/ops/pallas_filter.py:778" if record else "",
+                FILTER_BOUND, ofl.fused_demod_filter,
+                ofl.fused_demod_filter_plain,
+                (*planes(fm_[:, m_:]), *planes(last_), randn(rows, m_),
+                 randn(rows), have_, *grid_planes(fmd_.params["response"]),
+                 torch.tensor(fmd_.params["factor"], device=dev)),
+                demod_filter_flops(rows, m_, n_), record=record,
+                of="fused_demod_filter", graphed=True),
+                f"fused_demod_filter {label}")
+        if 6 in kinds:
+            routed(ofl.fused_filter_demod_filter, cluster, lambda: check(
+                "fused_filter_demod_filter" + suffix,
+                "radiorust_tpu_torch/csrc/overlap_save.cu" if record else "",
+                "radiorust_tpu/ops/pallas_filter.py:886" if record else "",
+                FILTER_BOUND, ofl.fused_filter_demod_filter,
+                ofl.fused_filter_demod_filter_plain,
+                (*planes(fm_[:, :m_]), *planes(fm_[:, m_:]), *planes(last_),
+                 randn(rows, m_), randn(rows), have_,
+                 *grid_planes(fdf_.params["response1"]),
+                 *grid_planes(fdf_.params["response2"]),
+                 torch.tensor(fdf_.params["factor"], device=dev)),
+                filter_demod_filter_flops(rows, m_, n_), record=record,
+                of="fused_filter_demod_filter", graphed=True),
+                f"fused_filter_demod_filter {label}")
 
-    fdf = bound_mid.blocks[1]
-    check("fused_filter_demod_filter",
-          "radiorust_tpu_torch/csrc/overlap_save.cu",
-          "radiorust_tpu/ops/pallas_filter.py:886", FILTER_BOUND,
-          ofl.fused_filter_demod_filter, ofl.fused_filter_demod_filter_plain,
-          (*planes(fm[:, :m]), *planes(fm[:, m:]), *planes(last),
-           randn(BATCH, m), randn(BATCH), have,
-           *grid_planes(fdf.params["response1"]),
-           *grid_planes(fdf.params["response2"]),
-           torch.tensor(fdf.params["factor"], device=dev)),
-          filter_demod_filter_flops(BATCH, m, n_mid),
-          graphed=True)
+    demod_checks(f"at A / B ({BATCH} x {m} + {n_mid})", m, n_mid, BATCH,
+                 demod, bound_mid.blocks[1], True, record=True)
 
     bank = next(b for b in bound_st.bound
                 if type(b).__name__ == "_BoundFilterBank")
@@ -3110,33 +3183,19 @@ def main() -> None:
                    else overlap_save_flops(rows, m + n)), record=False,
                   of="fused_filter_bank" if bank else "fused_overlap_save",
                   graphed=True)
-    m = n = STRIP_CHUNK
-    rows = STRIP_BATCH
-    strip_sig = StreamSig(rows, n, 384000.0)
-    fmd = FmDemodFilter(150e3, _deemphasis_band).bind(strip_sig)
-    fdf_s = FilterDemodFilter(_lowpass_100k, 150e3,
-                              _deemphasis_band).bind(strip_sig)
-    fm_s = torch.exp(1j * torch.cumsum(0.3 * randn(rows, m + n), dim=1))
-    have_s = (torch.arange(rows, device=dev) % 3 > 0).to(torch.float32)
-    last_s = torch.exp(1j * randn(rows))
-    check(f"fused_demod_filter at m = n = {n} (columns in device memory, "
-          f"batch {rows})", "", "", FILTER_BOUND, ofl.fused_demod_filter,
-          ofl.fused_demod_filter_plain,
-          (*planes(fm_s[:, m:]), *planes(last_s), randn(rows, m),
-           randn(rows), have_s, *grid_planes(fmd.params["response"]),
-           torch.tensor(fmd.params["factor"], device=dev)),
-          demod_filter_flops(rows, m, n), record=False,
-          of="fused_demod_filter", graphed=True)
-    check(f"fused_filter_demod_filter at m = n = {n} (columns in device "
-          f"memory, batch {rows})", "", "", FILTER_BOUND,
-          ofl.fused_filter_demod_filter, ofl.fused_filter_demod_filter_plain,
-          (*planes(fm_s[:, :m]), *planes(fm_s[:, m:]), *planes(last_s),
-           randn(rows, m), randn(rows), have_s,
-           *grid_planes(fdf_s.params["response1"]),
-           *grid_planes(fdf_s.params["response2"]),
-           torch.tensor(fdf_s.params["factor"], device=dev)),
-          filter_demod_filter_flops(rows, m, n), record=False,
-          of="fused_filter_demod_filter", graphed=True)
+    # #5 and #6 at the other geometries of each route (DEMOD_ROUTES): the
+    # cluster route at a history off whole rows, an odd n1, two-point rows
+    # (C = 2) and the largest transform it takes; the stage route past
+    # it, with strips and (m = n = 10001) with columns in device memory.
+    for m_, n_, rows, kinds, cluster, what in DEMOD_ROUTES:
+        sig_ = StreamSig(rows, n_, 384000.0)
+        n1_, n2_ = ofl.kernel_factors(m_ + n_)
+        demod_checks(
+            f"at m = {m_}, n = {n_} (n1 = {n1_}, n2 = {n2_}, {what}, batch "
+            f"{rows})", m_, n_, rows,
+            FmDemodFilter(150e3, _deemphasis_band, ir_len=m_).bind(sig_),
+            FilterDemodFilter(_lowpass_100k, 150e3, _deemphasis_band,
+                              ir_len=m_).bind(sig_), cluster, kinds=kinds)
 
     # #1's wide form at the plans past one block of the polyphase kernel.
     for rate_in, rate_out, bw, n in WIDE_PLANS:
@@ -3210,13 +3269,18 @@ def main() -> None:
                 ofl.fused_filter_demod_filter, och.fused_pfb_demod,
                 osc.slew_scan, osc.agc_scan, ofe.decimate_phase_complex]
 
+    routes = {}   # path: {#5 / #6: launches by the cluster route}
+
     def drive(label, run, want, chunks=T):
         """Run a path with every launch counter at 0 just before and read
-        just after; fail unless each kernel of ``want`` was launched."""
+        just after; fail unless each kernel of ``want`` was launched (and
+        #5 and #6 by the cluster route)."""
         zero_counts(wrappers)
         out = run()
         launches = read_counts(wrappers, f"path {label}", want)
-        print(f"path {label} launches over {chunks} chunks: {launches}")
+        routes[label] = cluster_counts(wrappers)
+        print(f"path {label} launches over {chunks} chunks: {launches}; by "
+              f"the cluster route: {routes[label]}")
         return out, launches
 
     def finite(label, ys):
@@ -3948,8 +4012,11 @@ def main() -> None:
           f"L {launches_l['decimate']}, M {launches_m['decimate']} "
           f"(decimate)")
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
+    route_of = {"fused_demod_filter": "A", "fused_filter_demod_filter": "B"}
     for k in kernels:
         k["launches"] = path_of[k["name"]][k["name"]]
+        if k["name"] in route_of:
+            k["cluster_launches"] = routes[route_of[k["name"]]][k["name"]]
         k["on_paths_o_p"] = {
             "O": [e for e, r in examples.items() if k["name"] in r["launches"]],
             "P": [m for m, r in validated.items()

@@ -5,10 +5,12 @@
 //   rr_overlap_save  <- fused_overlap_save (:547, body _make_kernel :512 over
 //                       _os_pipeline :448)
 //   rr_filter_bank   <- fused_filter_bank (:632, body _make_bank_kernel :588)
-//   rr_demod_filter  <- fused_demod_filter (:778, body
+//   rr_demod_filter_cluster, rr_demod_filter (the stage route)
+//                    <- fused_demod_filter (:778, body
 //                       _make_demod_filter_kernel :749, _make_demod :706,
 //                       _make_pair_filter :728)
-//   rr_filter_demod_filter <- fused_filter_demod_filter (:886, body
+//   rr_filter_demod_filter_cluster, rr_filter_demod_filter (stage route)
+//                    <- fused_filter_demod_filter (:886, body
 //                       _make_filter_demod_filter_kernel :833)
 //
 // What it computes, per stream, on z = [prev (m) || cur (n)], N = m + n =
@@ -35,37 +37,46 @@
 // for all K responses; launch 3 runs over the K * b stacked band rows (the
 // TPU kernel's stacked inverse) and writes the [b, K, n] output directly.
 // The merged form is the filter, then the demod prologue on its filtered
-// planes (carried sample: the last *filtered* sample, which it also
-// emits), then the pair-packed deemphasis filter.  The TPU kernel kept the
-// filtered intermediate in VMEM; here it is a [b, n] device buffer (4.7 MB
-// at batch 64 x 9216) that the 50 MB L2 holds between the launches.
+// samples (carried sample: the last *filtered* sample, which it also
+// emits), then the pair-packed deemphasis filter.
 //
-// What bounds it on an H100: bytes.  Each launch reads and writes about
-// 16 bytes per sample and stream (two float planes in, two out); the
-// flops are some 160 per sample over all three launches at the receive
-// chain's 120 x 128 transform (column passes 8, 3, 5; row passes 4 and
-// 2^5, forward and inverse), about 3 flops per byte where the card
-// balances at 20.  A prime column length p runs one generic pass of 8p
-// flops per sample (n1 = 761: the dense DFT's cost, no more).  The bank
-// reads the forward rows once for its K bands and writes K inverse rows.
-// The dense four-step DFT this replaces cost 8 * (n1 + 256 + ho) flops
-// per sample (3584 at n1 = 120) and was bound by FMA issue and
-// shared-memory operand loads.
+// Two routes, chosen by the geometry alone (ops/filter.py cluster_size,
+// mirrored by cluster_bytes here); neither gives way to the other.
 //
-// What the design does about it: three launches over a [X, N] complex
-// scratch (two float planes) that the wrapper allocates, each touching
-// device memory once per sample.  Launches 1 and 3 stage a strip of C
-// columns of one stream's grid (the widest of 32, 16, ..., 1 within n2
-// whose two strip buffers of n1 rows and the column roots fit shared
-// memory: 32 up to n1 = 447, 16 up to 874, 8 up to 1704, ..., one column
-// up to 9685 rows, so a long column streams narrower strips) with
-// 16-byte cp.async copies (four loads where a chunk straddles the
-// prev || cur seam or is misaligned; scalar loads in strips under four
-// columns) and run the column FFT as Stockham passes between the two
-// buffers: radix 8, 4, 2, 3 and 5 butterflies, one thread per butterfly
-// and column, and one generic pass (one thread per output) for any other
-// prime.  A column past a one-column strip (n1 > 9685: an odd N past
-// 9685, N = 2 x odd past 19370, ...) takes the same passes in device
+// The stage route (#3 and #4 always; #5 and #6 where the cluster route
+// does not fit): three launches over a [X, N] complex scratch (two float
+// planes) that the wrapper allocates, each touching device memory once per
+// sample; #5 adds the demod_pack launch before them, #6 runs #3's three,
+// demod_pack and #5's three over a [b, n] filtered buffer.
+//
+// What bounds the stage route on an H100: bytes, on paper.  Each launch
+// reads and writes about 16 bytes per sample and stream (two float planes
+// in, two out); the flops are some 160 per sample over all three launches
+// at the receive chain's 120 x 128 transform (column passes 8, 3, 5; row
+// passes 4 and 2^5, forward and inverse), about 3 flops per byte where
+// the card balances at 20.  A prime column length p runs one generic pass
+// of 8p flops per sample (n1 = 761: the dense DFT's cost, no more).  The
+// bank reads the forward rows once for its K bands and writes K inverse
+// rows.  The dense four-step DFT this replaces cost 8 * (n1 + 256 + ho)
+// flops per sample (3584 at n1 = 120) and was bound by FMA issue and
+// shared-memory operand loads.  In practice each launch is one short wave
+// (32-64 grids of 120 x 128 at the receive chain's batch 64): measured on
+// an H100 80GB HBM3 at 700 W, the three launches of #3 take 27.3 us there
+// (10.6, 8.6 and 8.2), #5's four 27.0 and #6's seven 55.6, against bounds
+// of 3.8, 3.3 and 4.3 us: launch tails, the gaps between launches and the
+// scratch round trips through L2 bound them before either roofline.
+//
+// Launches 1 and 3 stage a strip of C columns of one stream's grid (the
+// widest of 32, 16, ..., 1 within n2 whose two strip buffers of n1 rows
+// and the column roots fit shared memory: 32 up to n1 = 447, 16 up to 874,
+// 8 up to 1704, ..., one column up to 9685 rows, so a long column streams
+// narrower strips) with 16-byte cp.async copies (four loads where a chunk
+// straddles the prev || cur seam or is misaligned; scalar loads in strips
+// under four columns) and run the column FFT as Stockham passes between
+// the two buffers: radix 8, 4, 2, 3 and 5 butterflies, one thread per
+// butterfly and column, and one generic pass (one thread per output) for
+// any other prime.  A column past a one-column strip (n1 > 9685: an odd N
+// past 9685, N = 2 x odd past 19370, ...) takes the same passes in device
 // memory instead, one launch per pass over all columns of all grids,
 // between the forward (or band) scratch and a column scratch [X, N] the
 // wrapper allocates (10 MB a pair at m = n = 10001, batch 64).  It is the
@@ -80,21 +91,74 @@
 // passes across lanes through __shfl_xor_sync; no matrix sits in shared
 // memory, so 9 blocks of 4 rows fit an SM (56 registers a thread at n2 =
 // 128) and even 512 rows spread over 128 blocks.  Plain float32 FMA: no
-// tensor cores, TF32 or library FFT.  Measured on an H100 80GB HBM3 at 700 W,
-// the three launches move 44 MB in 28.7 us at the receive chain's batch
-// 64 (~1.5 TB/s, mostly from L2): each launch is one short wave, and its
-// tail and the gaps between launches bound it before either roofline.
+// tensor cores, TF32 or library FFT.
+//
+// The cluster route (#5 and #6): one launch a call, one thread block
+// cluster of C = min(8, n2) blocks per stream pair (grid (C, b / 2)), and
+// the pair's grids stay in the cluster's shared memory from the input
+// load to the output store: no scratch, no demod_pack, no [b, n] filtered
+// buffer.  Block r owns the strip of W = n2 / C columns r W .. r W + W - 1
+// of each grid (#6 both streams' complex grids side by side, then the
+// packed grid in the buffer they leave free).  The demod runs on load:
+// #5 reads x[t] and x[t - 1] of the chunk from device memory (the carried
+// sample at t = 0; last_out after a break) and writes d as it packs; #6
+// reads the filtered samples t and t - 1 from the blocks owning their
+// columns through distributed shared memory (so a history m off whole
+// rows and the t - 1 neighbour at a strip's first column, or the row
+// before at i2 = 0, need no special case) and emits flr / fli.  Each
+// filter (cluster_filter): the column FFTs locally with the strip's
+// Stockham passes; cluster.sync(); each warp takes whole rows across the
+// cluster (LR lanes a row, as launch 2), gathers them from the owning
+// blocks through map_shared_rank with the twiddle, runs the row FFT, the
+// response, the inverse and the conjugate twiddle, and writes the row
+// back in place; cluster.sync(); the inverse column FFTs locally.  Output
+// rows i1 < ho go straight to y (s0 from the real plane, s1 from the
+// imaginary).  No block reads another's shared memory past the last
+// cluster barrier, so none leaves while its memory is read.  The
+// arithmetic is the stage route's, operation for operation (the row
+// stages' select-free form gives the same values): at the receive
+// chain's geometry the outputs' error against the plain version is the
+// stage route's to every printed digit.
+//
+// What bounds the cluster route: each block's own critical path.  Bytes
+// are read and written once (the bounds' 3.3 / 4.3 us at the receive
+// chain); the phases are latency- and issue-bound at one to three blocks
+// an SM.  Measured on an H100 80GB HBM3 at 700 W at 64 x 6144 + 9216
+// (tools/filter_split.py --clocks), a #5 block spends ~16 us: the demod
+// on load 4.7 (atan2f 1.7 of it), forward columns 2.9, the row phase
+// 3.7, inverse columns 2.6, each cluster barrier ~1.1 (waiting for the
+// slowest block), the rest in the table prologue and the output; #5
+// takes 21.7 us a call and #6 51.3 (the parent's stage route 26.8 and
+// 55.4 in the same run).  Registers are capped at 80 a thread (three
+// blocks an SM): at two, the card's GPCs hold 30 clusters of 8 at once,
+// so the receive chain's 32 pairs ran in two waves (28 / 66 us); at
+// three it holds 45 and they run in one, some SMs carrying three blocks
+// (19 against 16 us a block).  Unrolled column passes and prefetched
+// row tables spilled at that cap and were slower.
+//
+// The rule that picks it: a block's share, cluster_bytes(n1, n2, merged)
+// = 4 * ((4 or 8) * n1 * W + 2 * n1 + 2 * n2), within the 227 KB a block
+// may use at the portable C <= 8 (at n2 = 128, #5 up to n1 = 876 and #6
+// up to 445; at n2 = 256, #5 up to 443 and #6 never), checked against
+// cudaOccupancyMaxActiveClusters once per kernel and size; a launch that
+// fails returns its error and the wrapper raises.
 
 #include <cuda_runtime.h>
 
+#include <cooperative_groups.h>
+
 #include <cstdint>
 #include <initializer_list>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "fft.cuh"
 
 namespace {
 
 using namespace rr;
+namespace cg = cooperative_groups;
 
 constexpr int kMaxN2 = 256;       // the longest row: 8 values a lane
 constexpr int kColThreads = 256;  // threads of a column block: (C, 256 / C)
@@ -131,6 +195,18 @@ Plan make_plan(const float* tables, const int* radix, int npass, int n2,
   return p;
 }
 
+// The threads of a column phase: column c of a strip of C columns, and
+// row slot ty of ny.  The column launches take their block's (C, ny)
+// shape; the cluster kernel lays its 1-D block out by the strip's width.
+struct Lanes {
+  int C, c, ty, ny;
+};
+
+__device__ __forceinline__ Lanes block_lanes() {
+  return {(int)blockDim.x, (int)threadIdx.x, (int)threadIdx.y,
+          (int)blockDim.y};
+}
+
 // One Stockham pass of radix P down the C columns of a strip: butterfly
 // (k < s, q < m) reads x[k + s*(q + m*j)], j < P, and writes
 // y[k + s*(P*q + r)] = DFT_P[r] * w^(q*r*stride), w the n1 column root.
@@ -138,9 +214,10 @@ Plan make_plan(const float* tables, const int* radix, int npass, int n2,
 template <int P, bool kInv>
 __device__ void radix_pass(const float* xr, const float* xi, float* yr,
                            float* yi, int m, int s, int stride,
-                           const float* wr, const float* wi) {
-  const int C = blockDim.x, c = threadIdx.x;
-  for (int b = threadIdx.y; b < m * s; b += blockDim.y) {
+                           const float* wr, const float* wi,
+                           const Lanes& ln) {
+  const int C = ln.C, c = ln.c;
+  for (int b = ln.ty; b < m * s; b += ln.ny) {
     const int k = b % s, q = b / s;
     cf a[P];
 #pragma unroll
@@ -164,9 +241,10 @@ __device__ void radix_pass(const float* xr, const float* xi, float* yr,
 template <bool kInv>
 __device__ void generic_pass(const float* xr, const float* xi, float* yr,
                              float* yi, int p, int m, int s, int stride,
-                             int n1, const float* wr, const float* wi) {
-  const int C = blockDim.x, c = threadIdx.x, step = n1 / p;
-  for (int o = threadIdx.y; o < n1; o += blockDim.y) {
+                             int n1, const float* wr, const float* wi,
+                             const Lanes& ln) {
+  const int C = ln.C, c = ln.c, step = n1 / p;
+  for (int o = ln.ty; o < n1; o += ln.ny) {
     const int r = o % p, kq = o / p, k = kq % s, q = kq / s;
     float accr = 0.f, acci = 0.f;
     int e = 0;  // j * r mod p
@@ -187,28 +265,28 @@ __device__ void generic_pass(const float* xr, const float* xi, float* yr,
   }
 }
 
-// The length-n1 FFT down every column of the strip in buf (planes re, im
-// of n1 x C, then a second such pair): the plan's Stockham passes, from
-// one buffer to the other.  Returns the buffer holding the result, in
-// natural order.  Entered and left with the block synchronised.
+// The length-n1 FFT down every column of the strip in x (planes re, im
+// of n1 x C), with y a second such pair: the plan's Stockham passes, from
+// one buffer to the other.  Returns the buffer holding the result (x or
+// y), in natural order.  Entered and left with the block synchronised.
 template <bool kInv>
-__device__ const float* column_fft(float* buf, int plane, const Plan& pl,
-                                   const float* wr, const float* wi) {
-  float* x = buf;
-  float* y = buf + 2 * plane;
+__device__ float* column_fft(float* x, float* y, int plane, const Lanes& ln,
+                             const Plan& pl, const float* wr,
+                             const float* wi) {
   int n = pl.n1, s = 1;
   for (int ps = 0; ps < pl.npass; ++ps) {
     const int p = pl.radix[ps], m = n / p, stride = pl.n1 / n;
     const float *xr = x, *xi = x + plane;
     float *yr = y, *yi = y + plane;
     switch (p) {
-      case 2: radix_pass<2, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
-      case 3: radix_pass<3, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
-      case 4: radix_pass<4, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
-      case 5: radix_pass<5, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
-      case 8: radix_pass<8, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi); break;
+      case 2: radix_pass<2, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi, ln); break;
+      case 3: radix_pass<3, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi, ln); break;
+      case 4: radix_pass<4, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi, ln); break;
+      case 5: radix_pass<5, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi, ln); break;
+      case 8: radix_pass<8, kInv>(xr, xi, yr, yi, m, s, stride, wr, wi, ln); break;
       default:
-        generic_pass<kInv>(xr, xi, yr, yi, p, m, s, stride, pl.n1, wr, wi);
+        generic_pass<kInv>(xr, xi, yr, yi, p, m, s, stride, pl.n1, wr, wi,
+                           ln);
     }
     __syncthreads();
     float* t = x;
@@ -314,7 +392,8 @@ __global__ void __launch_bounds__(kColThreads)
   }
   cp_async_wait_all();
   __syncthreads();
-  const float* x = column_fft<false>(buf, plane, pl, wr, wi);
+  const float* x = column_fft<false>(buf, buf + 2 * plane, plane,
+                                     block_lanes(), pl, wr, wi);
   const size_t N = (size_t)n1 * n2;
   for (int k1 = threadIdx.y; k1 < n1; k1 += blockDim.y) {
     const int at = k1 * n2 + c0 + tx;
@@ -331,7 +410,12 @@ __global__ void __launch_bounds__(kColThreads)
 // lane's values with twiddle w^(l*j), then radix-2 decimation in
 // frequency across lanes l ^ h, h = LR / 2 .. 1 (partners stay in the
 // lane's group of LR).
-template <int V, int LR>
+//
+// kSelectFree (the cluster kernel): each lane stage as p -+ v by one FMA
+// with a sign of +-1 and a multiply by its lane's twiddle, 1 on the lower
+// lanes, in place of both branches and a select; the same values (a
+// product by 1 is exact).
+template <int V, int LR, bool kSelectFree = false>
 __device__ __forceinline__ void row_fft(cf* v, int l, const float* wr,
                                         const float* wi) {
   constexpr int n2 = V * LR;
@@ -342,11 +426,16 @@ __device__ __forceinline__ void row_fft(cf* v, int l, const float* wr,
   for (int h = LR / 2; h >= 1; h >>= 1) {
     const bool upper = l & h;
     const cf w = root<false>(wr, wi, (l & (h - 1)) * (n2 / (2 * h)));
+    const float sign = upper ? -1.f : 1.f;
+    const cf w1 = upper ? w : cf{1.f, 0.f};
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const cf p = {__shfl_xor_sync(0xffffffffu, v[j].r, h),
                     __shfl_xor_sync(0xffffffffu, v[j].i, h)};
-      v[j] = upper ? cmul(p - v[j], w) : v[j] + p;
+      if constexpr (kSelectFree)
+        v[j] = cmul({fmaf(sign, v[j].r, p.r), fmaf(sign, v[j].i, p.i)}, w1);
+      else
+        v[j] = upper ? cmul(p - v[j], w) : v[j] + p;
     }
   }
 }
@@ -354,7 +443,7 @@ __device__ __forceinline__ void row_fft(cf* v, int l, const float* wr,
 // The inverse of row_fft (unnormalised): from X[V * brev(l) + j] in v[j]
 // to x[l + LR j], by radix-2 decimation in time across lanes, h = 1 ..
 // LR / 2, the conjugate twiddle, and the inverse radix-V pass.
-template <int V, int LR>
+template <int V, int LR, bool kSelectFree = false>
 __device__ __forceinline__ void row_ifft(cf* v, int l, const float* wr,
                                          const float* wi) {
   constexpr int n2 = V * LR;
@@ -362,12 +451,21 @@ __device__ __forceinline__ void row_ifft(cf* v, int l, const float* wr,
   for (int h = 1; h < LR; h <<= 1) {
     const bool upper = l & h;
     const cf w = root<true>(wr, wi, (l & (h - 1)) * (n2 / (2 * h)));
+    const float sign = upper ? -1.f : 1.f;
+    const cf w1 = upper ? w : cf{1.f, 0.f};
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      if (upper) v[j] = cmul(v[j], w);
+      if constexpr (kSelectFree) {
+        v[j] = cmul(v[j], w1);
+      } else {
+        if (upper) v[j] = cmul(v[j], w);
+      }
       const cf p = {__shfl_xor_sync(0xffffffffu, v[j].r, h),
                     __shfl_xor_sync(0xffffffffu, v[j].i, h)};
-      v[j] = upper ? p - v[j] : v[j] + p;
+      if constexpr (kSelectFree)
+        v[j] = {fmaf(sign, v[j].r, p.r), fmaf(sign, v[j].i, p.i)};
+      else
+        v[j] = upper ? p - v[j] : v[j] + p;
     }
   }
 #pragma unroll
@@ -490,7 +588,8 @@ __global__ void __launch_bounds__(kColThreads)
   }
   cp_async_wait_all();
   __syncthreads();
-  const float* x = column_fft<true>(buf, plane, pl, wr, wi);
+  const float* x = column_fft<true>(buf, buf + 2 * plane, plane,
+                                    block_lanes(), pl, wr, wi);
   const size_t o = (size_t)(s % row_mod) * row_mul + s / row_mod;
   for (int i1 = threadIdx.y; i1 < ho; i1 += blockDim.y) {
     const int t = i1 * n2 + c0 + tx;
@@ -762,6 +861,434 @@ int run_pipeline(const float* prevr, const float* previ, int prev_stride,
                     out_stride, ho, tr, ti, stream);
 }
 
+// The cluster route of #5 and #6: one launch, one thread block cluster of
+// C = min(8, n2) blocks per stream pair, every grid of the pair in the
+// cluster's shared memory from the input load to the output store.
+// Block r of the cluster owns the strip of W = n2 / C columns c0 = r * W
+// .. c0 + W - 1 of each grid: its column FFTs run locally; the row phase
+// reads and writes the rows through distributed shared memory.
+
+constexpr int kClusterThreads = 256;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+// Blocks an SM may hold at once: registers capped at 80 a thread, so that
+// the 32 clusters of 8 of the receive chain's 64 streams fit the card in
+// one wave (30 at two blocks an SM).
+constexpr int kClusterMinBlocks = 3;
+constexpr int kBatch = 4;       // elements a thread loads before it computes
+
+// Blocks of the cluster at row length n2 (ops/filter.py cluster_size).
+__host__ __device__ constexpr int cluster_blocks(int n2) {
+  return n2 < kMaxCluster ? n2 : kMaxCluster;
+}
+
+// Shared bytes of a cluster block (all of them dynamic): the strip's two
+// buffers (re and im planes of n1 x W, one grid for #5, the stream pair's
+// two for #6) and the n1 column and n2 row roots.
+size_t cluster_bytes(int n1, int n2, bool merged) {
+  const size_t W = n2 / cluster_blocks(n2);
+  return sizeof(float) *
+         ((merged ? 8 : 4) * (size_t)n1 * W + 2 * (size_t)n1 + 2 * (size_t)n2);
+}
+
+struct ClusterArgs {
+  const float *prevr, *previ;  // #6: channel filter history [b, m]
+  const float *curr, *curi;    // [b, n]: #5 the pre-demod chunk, #6 the raw
+  const float *plr, *pli;      // [b] carried last (filtered) sample
+  const float *prevd;          // [b, m] demodulated history
+  const float *last_out, *have_prev;  // [b]
+  const float* fac;            // [b] at fac_stride 1, or one at 0
+  const float *g1r, *g1i;      // #6: channel response grid [n1, n2]
+  const float *g2r, *g2i;      // the real filter's response grid
+  float *dout, *y;             // [b, n]
+  float *flr, *fli;            // #6: [b] last filtered sample
+  long long* clk;              // development build: phase stamps, or null
+  int n, m, ho, fac_stride;
+  Plan pl;
+};
+
+// A development build (-DRR_OS_CLOCKS, tools/filter_split.py --clocks)
+// stamps clock64() at each phase of each block into clk, kMarks a block.
+// Marks 16 and 17: %globaltimer (ns, one clock for all SMs) at the
+// block's start and end; 18: the SM it ran on.
+constexpr int kMarks = 19;
+#ifdef RR_OS_CLOCKS
+#define OS_STAMP(clk, k, v)                                          \
+  do {                                                               \
+    if ((clk) != nullptr && threadIdx.x == 0)                        \
+      (clk)[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * kMarks + \
+            (k)] = (v);                                              \
+  } while (0)
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ long long sm_id() {
+  unsigned id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
+#define OS_MARK(clk, k) OS_STAMP(clk, k, clock64())
+#define OS_TIME(clk, k) OS_STAMP(clk, k, global_ns())
+#else
+#define OS_MARK(clk, k) \
+  do {                  \
+  } while (0)
+#define OS_TIME(clk, k) OS_MARK(clk, k)
+#endif
+
+// Quadrature FM demod of sample i from x and its predecessor p (as
+// demod_pack): atan2(Im, Re of x * conj(p)) * fac, or the carried last
+// output at i = 0 after a break.
+__device__ __forceinline__ float fm_sample(cf x, cf p, int i, float fac,
+                                           float have, float last) {
+  const float re = x.r * p.r + x.i * p.i;
+  const float im = x.i * p.r - x.r * p.i;
+  const float v = atan2f(im, re) * fac;
+  return i == 0 && have < 0.5f ? last : v;
+}
+
+// One overlap-save filter of the grids in the cluster's strips: x holds
+// kStreams grids side by side (columns s * W .. s * W + W - 1 of rows of
+// kStreams * W), y a second such buffer.  Forward column FFTs locally;
+// after a cluster barrier each warp takes whole rows (stream, k1), LR
+// lanes a row as os_rows, reads lane l's values i2 = l + LR j from the
+// block owning column i2 through distributed shared memory with the
+// twiddle, runs the row FFT, the response, the inverse row FFT and the
+// conjugate twiddle, and writes them back in place; after a second
+// barrier the inverse column FFTs run locally.  Returns the buffer (x or
+// y) holding the result.  Past the second barrier no block reads another's
+// shared memory.
+template <int V, int LR, int kStreams>
+__device__ float* cluster_filter(cg::cluster_group& cluster, float* x,
+                                 float* y, const Plan& pl,
+                                 const float* __restrict__ gr,
+                                 const float* __restrict__ gi,
+                                 const float* cwr, const float* cwi,
+                                 const float* rwr, const float* rwi,
+                                 long long* clk, int mark) {
+  constexpr int n2 = V * LR, kLog = LR == 32 ? 5 : LR == 16 ? 4 : LR == 8
+      ? 3 : LR == 4 ? 2 : LR == 2 ? 1 : 0;
+  constexpr int C = cluster_blocks(n2), W = n2 / C, cols = kStreams * W;
+  constexpr int kWarps = kClusterThreads / 32, kRowsWarp = 32 / LR;
+  const int n1 = pl.n1, plane = n1 * cols;
+  const Lanes ln = {cols, (int)threadIdx.x % cols, (int)threadIdx.x / cols,
+                    kClusterThreads / cols};
+  float* f = column_fft<false>(x, y, plane, ln, pl, cwr, cwi);
+  OS_MARK(clk, mark);
+  cluster.sync();
+  OS_MARK(clk, mark + 1);
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int l = lane % LR;
+  const int k2 = kLog ? V * (int)(__brev(l) >> (32 - kLog)) : 0;
+  float* at[V];  // lane l's values: column i2 of the grid in its owner
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int i2 = l + LR * j;
+    at[j] = (i2 / W == rank ? f : cluster.map_shared_rank(f, i2 / W)) +
+            i2 % W;
+  }
+  const int rows = kStreams * n1;
+  for (int first = (rank * kWarps + warp) * kRowsWarp; first < rows;
+       first += C * kWarps * kRowsWarp) {
+    const int row = first + lane / LR;
+    const bool live = row < rows;
+    const int k1 = live ? row % n1 : 0;
+    const int off = k1 * cols + (live ? row / n1 : 0) * W;
+    cf v[V], tw[V], g[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int t = k1 * n2 + l + LR * j;
+      tw[j] = {__ldg(pl.twr + t), __ldg(pl.twi + t)};
+      g[j] = {__ldg(gr + k1 * n2 + k2 + j), __ldg(gi + k1 * n2 + k2 + j)};
+      v[j] = live ? cf{at[j][off], at[j][plane + off]} : cf{0.f, 0.f};
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = live ? cmul(v[j], tw[j]) : v[j];
+    row_fft<V, LR, true>(v, l, rwr, rwi);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      v[j] = live ? cmul(v[j], g[j]) : cf{0.f, 0.f};
+    row_ifft<V, LR, true>(v, l, rwr, rwi);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const cf z = cmul(v[j], {tw[j].r, -tw[j].i});
+        at[j][off] = z.r;
+        at[j][plane + off] = z.i;
+      }
+    }
+  }
+  OS_MARK(clk, mark + 2);
+  cluster.sync();
+  OS_MARK(clk, mark + 3);
+  float* r = column_fft<true>(f, f == x ? y : x, plane, ln, pl, cwr, cwi);
+  OS_MARK(clk, mark + 4);
+  return r;
+}
+
+// #5 (kMerged false) or #6 (kMerged true) on stream pair blockIdx.y:
+// streams 2j and 2j + 1, packed as the real and imaginary part of the
+// real filter's transform.  Each thread loads kBatch elements before it
+// computes on them, so their loads are in flight together.
+// grid (C, b / 2), cluster (C, 1, 1), block kClusterThreads, shared
+// cluster_bytes(n1, n2, kMerged).
+template <int V, int LR, bool kMerged>
+__global__ void __launch_bounds__(kClusterThreads, kClusterMinBlocks)
+    os_cluster(const ClusterArgs a) {
+  constexpr int n2 = V * LR, W = n2 / cluster_blocks(n2);
+  constexpr int kRowsPass = kClusterThreads / W;  // strip rows a pass
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);
+  long long* const clk = a.clk;
+  OS_TIME(clk, 16);
+  OS_MARK(clk, 0);
+  const Plan& pl = a.pl;
+  const int n1 = pl.n1, n = a.n, m = a.m;
+  const int c0 = (int)cluster.block_rank() * W;
+  const int pair = blockIdx.y, tid = threadIdx.x;
+  const int plane = n1 * W;  // a plane of one grid's strip
+  float* cwr = buf + (kMerged ? 8 : 4) * plane;
+  float* cwi = cwr + n1;
+  float* rwr = cwi + n1;
+  float* rwi = rwr + n2;
+  for (int i = tid; i < n1; i += kClusterThreads) {
+    cwr[i] = pl.r1r[i];
+    cwi[i] = pl.r1i[i];
+  }
+  for (int i = tid; i < n2; i += kClusterThreads) {
+    rwr[i] = pl.r2r[i];
+    rwi[i] = pl.r2i[i];
+  }
+  OS_MARK(clk, 15);
+  const int s0 = 2 * pair, s1 = s0 + 1;
+  const float fac0 = a.fac[s0 * a.fac_stride];
+  const float fac1 = a.fac[s1 * a.fac_stride];
+  const float have0 = a.have_prev[s0], have1 = a.have_prev[s1];
+  const float last0 = a.last_out[s0], last1 = a.last_out[s1];
+  const cf carried0 = {a.plr[s0], a.pli[s0]};
+  const cf carried1 = {a.plr[s1], a.pli[s1]};
+  // The real filter's input, [prevd || demod] of s0 in the real and of s1
+  // in the imaginary plane, lands in x (re, im of n1 x W), y beside it.
+  float* x = buf;
+  const int c = tid % W;
+  if constexpr (kMerged) {
+    // The channel filter on both streams' complex [prev || cur]: stream
+    // s's strip at columns s * W .. of rows of 2W, in planes of 2 * plane,
+    // by 16-byte cp.async copies where a strip row has four columns or
+    // more (stage4: four loads across the prev || cur seam).
+    if constexpr (W >= 4) {
+      constexpr int kQuads = W / 4;
+      for (int q = tid; q < n1 * 2 * kQuads; q += kClusterThreads) {
+        const int i1 = q / (2 * kQuads), s = (q / kQuads) % 2;
+        const int cc = 4 * (q % kQuads), t = i1 * n2 + c0 + cc;
+        const size_t st = (size_t)(s0 + s);
+        float* d = buf + i1 * 2 * W + s * W + cc;
+        stage4(d, a.prevr + st * m, a.curr + st * n, t, m);
+        stage4(d + 2 * plane, a.previ + st * m, a.curi + st * n, t, m);
+      }
+      cp_async_wait_all();
+    } else {
+      for (int e = tid; e < 2 * plane; e += kClusterThreads) {
+        const int i1 = e / (2 * W), s = (e / W) % 2;
+        const int t = i1 * n2 + c0 + e % W;
+        const size_t st = (size_t)(s0 + s);
+        buf[e] = t < m ? a.prevr[st * m + t] : a.curr[st * n + t - m];
+        buf[2 * plane + e] =
+            t < m ? a.previ[st * m + t] : a.curi[st * n + t - m];
+      }
+    }
+    __syncthreads();
+    OS_MARK(clk, 1);
+    float* f = cluster_filter<V, LR, 2>(cluster, buf, buf + 4 * plane, pl,
+                                        a.g1r, a.g1i, cwr, cwi, rwr, rwi,
+                                        clk, 2);
+    cluster.sync();  // every block's filtered strips are whole
+    OS_MARK(clk, 7);
+    // Filtered sample i of stream s sits at row i / n2, column i % n2 of
+    // its grid, in the block owning that column.
+    const int rank = (int)cluster.block_rank();
+    auto filtered = [&](int s, int i) -> cf {
+      const int col = i % n2, owner = col / W;
+      const float* o =
+          owner == rank ? f : cluster.map_shared_rank(f, owner);
+      const int at = (i / n2) * 2 * W + s * W + col % W;
+      return {o[at], o[2 * plane + at]};
+    };
+    x = f == buf ? buf + 4 * plane : buf;  // the free buffer, two grids
+    for (int i0 = tid / W; i0 < n1; i0 += kBatch * kRowsPass) {
+      cf x0[kBatch], x1[kBatch], p0[kBatch], p1[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int t = (i0 + u * kRowsPass) * n2 + c0 + c;
+        if (i0 + u * kRowsPass < n1 && t >= m) {
+          const int i = t - m;
+          x0[u] = filtered(0, i);
+          x1[u] = filtered(1, i);
+          p0[u] = i ? filtered(0, i - 1) : carried0;
+          p1[u] = i ? filtered(1, i - 1) : carried1;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i1 = i0 + u * kRowsPass, t = i1 * n2 + c0 + c;
+        if (i1 >= n1) break;
+        float v0, v1;
+        if (t < m) {
+          v0 = __ldg(a.prevd + (size_t)s0 * m + t);
+          v1 = __ldg(a.prevd + (size_t)s1 * m + t);
+        } else {
+          const int i = t - m;
+          v0 = fm_sample(x0[u], p0[u], i, fac0, have0, last0);
+          v1 = fm_sample(x1[u], p1[u], i, fac1, have1, last1);
+          a.dout[(size_t)s0 * n + i] = v0;
+          a.dout[(size_t)s1 * n + i] = v1;
+          if (i == n - 1) {
+            a.flr[s0] = x0[u].r;
+            a.fli[s0] = x0[u].i;
+            a.flr[s1] = x1[u].r;
+            a.fli[s1] = x1[u].i;
+          }
+        }
+        x[i1 * W + c] = v0;
+        x[plane + i1 * W + c] = v1;
+      }
+    }
+  } else {
+    for (int i0 = tid / W; i0 < n1; i0 += kBatch * kRowsPass) {
+      cf x0[kBatch], x1[kBatch], p0[kBatch], p1[kBatch];
+      float h0[kBatch], h1[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int t = (i0 + u * kRowsPass) * n2 + c0 + c;
+        if (i0 + u * kRowsPass >= n1) break;
+        if (t < m) {
+          h0[u] = __ldg(a.prevd + (size_t)s0 * m + t);
+          h1[u] = __ldg(a.prevd + (size_t)s1 * m + t);
+        } else {
+          const int i = t - m;
+          const size_t r0 = (size_t)s0 * n + i, r1 = (size_t)s1 * n + i;
+          x0[u] = {__ldg(a.curr + r0), __ldg(a.curi + r0)};
+          x1[u] = {__ldg(a.curr + r1), __ldg(a.curi + r1)};
+          p0[u] = i ? cf{__ldg(a.curr + r0 - 1), __ldg(a.curi + r0 - 1)}
+                    : carried0;
+          p1[u] = i ? cf{__ldg(a.curr + r1 - 1), __ldg(a.curi + r1 - 1)}
+                    : carried1;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i1 = i0 + u * kRowsPass, t = i1 * n2 + c0 + c;
+        if (i1 >= n1) break;
+        float v0, v1;
+        if (t < m) {
+          v0 = h0[u];
+          v1 = h1[u];
+        } else {
+          const int i = t - m;
+          v0 = fm_sample(x0[u], p0[u], i, fac0, have0, last0);
+          v1 = fm_sample(x1[u], p1[u], i, fac1, have1, last1);
+          a.dout[(size_t)s0 * n + i] = v0;
+          a.dout[(size_t)s1 * n + i] = v1;
+        }
+        x[i1 * W + c] = v0;
+        x[plane + i1 * W + c] = v1;
+      }
+    }
+  }
+  __syncthreads();
+  OS_MARK(clk, 8);
+  const float* r = cluster_filter<V, LR, 1>(cluster, x, x + 2 * plane, pl,
+                                            a.g2r, a.g2i, cwr, cwi, rwr, rwi,
+                                            clk, 9);
+  // Output rows i1 < ho where t < n: s0 from the real, s1 from the
+  // imaginary plane.
+  for (int i1 = tid / W; i1 < a.ho; i1 += kRowsPass) {
+    const int t = i1 * n2 + c0 + c;
+    if (t < n) {
+      a.y[(size_t)s0 * n + t] = r[i1 * W + c];
+      a.y[(size_t)s1 * n + t] = r[plane + i1 * W + c];
+    }
+  }
+  OS_MARK(clk, 14);
+  OS_TIME(clk, 17);
+#ifdef RR_OS_CLOCKS
+  OS_STAMP(clk, 18, sm_id());
+#endif
+}
+
+// The cluster's occupancy query, once per kernel and shared size (the
+// first call of a geometry runs eagerly, before any graph captures it).
+std::mutex occupancy_mu;
+std::map<std::pair<const void*, size_t>, int> occupancy_seen;
+
+// With `clusters` given, only the occupancy query: the clusters of this
+// geometry the card holds at once.
+template <int V, int LR, bool kMerged>
+int launch_cluster(const ClusterArgs& a, int pairs, cudaStream_t stream,
+                   int* clusters = nullptr) {
+  const int C = cluster_blocks(V * LR);
+  const size_t bytes = cluster_bytes(a.pl.n1, V * LR, kMerged);
+  const void* fn = (const void*)os_cluster<V, LR, kMerged>;
+  int err = set_smem(fn, bytes);
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, pairs, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr)
+    return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
+  {
+    std::lock_guard<std::mutex> hold(occupancy_mu);
+    int& seen = occupancy_seen[{fn, bytes}];
+    if (seen == 0) {
+      if ((err = (int)cudaOccupancyMaxActiveClusters(&seen, fn, &cfg)))
+        return err;
+      if (seen == 0) return (int)cudaErrorInvalidConfiguration;
+    }
+  }
+  return (int)cudaLaunchKernelEx(&cfg, os_cluster<V, LR, kMerged>, a);
+}
+
+#ifdef RR_OS_CLOCKS
+long long* clock_out = nullptr;  // where the next launches stamp (or null)
+#endif
+
+// The cluster route at the plan's row length; an error where the geometry
+// is not one it takes (ops/filter.py cluster_size 0).
+template <bool kMerged>
+int run_cluster(ClusterArgs a, int pairs, cudaStream_t st,
+                int* clusters = nullptr) {
+#ifdef RR_OS_CLOCKS
+  a.clk = clock_out;
+#endif
+  const Plan& pl = a.pl;
+  if (pl.n2 > kMaxN2 || cluster_bytes(pl.n1, pl.n2, kMerged) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  switch (pl.n2) {
+    case 1: return launch_cluster<1, 1, kMerged>(a, pairs, st, clusters);
+    case 2: return launch_cluster<1, 2, kMerged>(a, pairs, st, clusters);
+    case 4: return launch_cluster<1, 4, kMerged>(a, pairs, st, clusters);
+    case 8: return launch_cluster<1, 8, kMerged>(a, pairs, st, clusters);
+    case 16: return launch_cluster<1, 16, kMerged>(a, pairs, st, clusters);
+    case 32: return launch_cluster<1, 32, kMerged>(a, pairs, st, clusters);
+    case 64: return launch_cluster<2, 32, kMerged>(a, pairs, st, clusters);
+    case 128: return launch_cluster<4, 32, kMerged>(a, pairs, st, clusters);
+    case 256: return launch_cluster<8, 32, kMerged>(a, pairs, st, clusters);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -841,6 +1368,96 @@ int rr_filter_demod_filter(
   return run_pipeline(zr, zi, N, zr + m, zi + m, N, m, n, b / 2, pl, g2r,
                       g2i, scr_r, scr_i, y, y + n, 2 * n, ho, tr, ti, st);
 }
+
+// #5 by the cluster route: the arguments of rr_demod_filter without its
+// scratch (no zr/zi, scr_r/scr_i or column scratch).
+int rr_demod_filter_cluster(const float* curr, const float* curi,
+                            const float* plr, const float* pli,
+                            const float* prevd, const float* last_out,
+                            const float* have_prev, const float* fac,
+                            int fac_stride, float* dout, int b, int n, int m,
+                            const float* tables, const int* radix, int npass,
+                            int n2, const float* gr, const float* gi,
+                            float* y, int n1, int ho, void* stream) {
+  ClusterArgs a = {};
+  a.curr = curr;
+  a.curi = curi;
+  a.plr = plr;
+  a.pli = pli;
+  a.prevd = prevd;
+  a.last_out = last_out;
+  a.have_prev = have_prev;
+  a.fac = fac;
+  a.fac_stride = fac_stride;
+  a.g2r = gr;
+  a.g2i = gi;
+  a.dout = dout;
+  a.y = y;
+  a.n = n;
+  a.m = m;
+  a.ho = ho;
+  a.pl = make_plan(tables, radix, npass, n2, n1);
+  return run_cluster<false>(a, b / 2, (cudaStream_t)stream);
+}
+
+// #6 by the cluster route: the arguments of rr_filter_demod_filter
+// without its scratch (no fr/fi, zr/zi, scr_r/scr_i or column scratch).
+int rr_filter_demod_filter_cluster(
+    const float* prevr, const float* previ, const float* curr,
+    const float* curi, const float* plr, const float* pli,
+    const float* prevd, const float* last_out, const float* have_prev,
+    const float* fac, int fac_stride, float* dout, float* flr, float* fli,
+    int b, int n, int m, const float* tables, const int* radix, int npass, int n2,
+    const float* g1r, const float* g1i, const float* g2r, const float* g2i,
+    float* y, int n1, int ho, void* stream) {
+  ClusterArgs a = {};
+  a.prevr = prevr;
+  a.previ = previ;
+  a.curr = curr;
+  a.curi = curi;
+  a.plr = plr;
+  a.pli = pli;
+  a.prevd = prevd;
+  a.last_out = last_out;
+  a.have_prev = have_prev;
+  a.fac = fac;
+  a.fac_stride = fac_stride;
+  a.g1r = g1r;
+  a.g1i = g1i;
+  a.g2r = g2r;
+  a.g2i = g2i;
+  a.dout = dout;
+  a.y = y;
+  a.flr = flr;
+  a.fli = fli;
+  a.n = n;
+  a.m = m;
+  a.ho = ho;
+  a.pl = make_plan(tables, radix, npass, n2, n1);
+  return run_cluster<true>(a, b / 2, (cudaStream_t)stream);
+}
+
+// The clusters of the cluster route at (n1, n2) that the card holds at
+// once (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
+int rr_cluster_occupancy(int n1, int n2, int merged) {
+  ClusterArgs a = {};
+  a.pl.n1 = n1;
+  a.pl.n2 = n2;
+  int clusters = 0;
+  const int err = merged ? run_cluster<true>(a, 1, nullptr, &clusters)
+                         : run_cluster<false>(a, 1, nullptr, &clusters);
+  return err ? -err : clusters;
+}
+
+#ifdef RR_OS_CLOCKS
+// Development build only: the cluster route's launches from now on stamp
+// clock64() at their phases into clk (int64, kMarks a block, block
+// blockIdx.y * C + blockIdx.x); null stops it.
+int rr_cluster_clocks(long long* clk) {
+  clock_out = clk;
+  return 0;
+}
+#endif
 
 // K overlap-save filters of b complex streams sharing one forward
 // transform: prev [b, m] and cur [b, n] planes, grid planes [K, n1, n2],

@@ -56,6 +56,13 @@ _SIGNATURES = {
                         + _COLUMN_SCRATCH + [_P]),
     "rr_filter_demod_filter": ([_P] * 17 + [_I] * 3 + _PLAN + [_P] * 7
                                + [_I, _I] + _COLUMN_SCRATCH + [_P]),
+    # The cluster route of #5 and #6: the factor's stride after it.
+    "rr_demod_filter_cluster": ([_P] * 8 + [_I] + [_P] + [_I] * 3 + _PLAN
+                                + [_P] * 3 + [_I, _I] + [_P]),
+    "rr_filter_demod_filter_cluster": ([_P] * 10 + [_I] + [_P] * 3
+                                       + [_I] * 3 + _PLAN + [_P] * 5
+                                       + [_I, _I] + [_P]),
+    "rr_cluster_occupancy": [_I, _I, _I],   # n1, n2, merged
     "rr_filter_bank": ([_P] * 4 + [_I] * 4 + _PLAN + [_P] * 8 + [_I, _I]
                        + _COLUMN_SCRATCH + [_P]),
     "rr_pfb_demod": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
@@ -68,6 +75,7 @@ _SIGNATURES = {
 # Entry points of a development build only (``lib(defines)``).
 _DEV_SIGNATURES = {
     "rr_slew_clocks": [_P] * 9 + [_I] * 3 + [_P, _P],   # RR_SCAN_CLOCKS
+    "rr_cluster_clocks": [_P],                            # RR_OS_CLOCKS
 }
 
 _libs = {}

@@ -27,7 +27,6 @@ counts nothing.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import numpy as np
 import torch
@@ -35,7 +34,7 @@ import torch
 from ..math import sinc
 from ..windowing import Kaiser
 from . import _build
-from .filter import _factor_vector, fft_roots
+from .filter import _factor_arg, _factor_vector, fft_roots
 
 __all__ = ["design_prototype", "branch_fir", "dft_channels",
            "pfb_channelize", "fused_pfb_demod", "fused_pfb_demod_plain",
@@ -149,15 +148,6 @@ def _roots(device) -> torch.Tensor:
         _device_roots[key] = torch.from_numpy(
             np.concatenate(fft_roots(M))).to(device)
     return _device_roots[key]
-
-
-def _factor_arg(factor, b: int, device) -> Tuple[torch.Tensor, int]:
-    """(tensor, stride) of the demod factor for the kernel: a device
-    scalar or [b] vector read in place (stride 0 or 1), else a copy."""
-    f = torch.as_tensor(factor, dtype=torch.float32, device=device)
-    if f.numel() == 1:
-        return f.reshape(1), 0
-    return f.expand(b).contiguous(), 1
 
 
 def pfb_demod_supported(n: int, num_channels: int,

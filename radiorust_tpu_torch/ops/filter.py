@@ -34,9 +34,18 @@ values and radix-2 passes across the lanes (a row of fewer than 32
 points takes n2 lanes); every twiddle comes from the float32 root tables
 of :func:`fft_roots`.
 
+Two routes, chosen by the geometry alone.  #3 and #4 always take the
+stage route: three launches (forward columns, rows, inverse columns) over
+a device-memory scratch.  #5 and #6 take the cluster route wherever
+:func:`cluster_size` is not 0: one launch, one thread block cluster of
+C = min(8, n2) blocks per stream pair, whose shared memory holds the
+pair's grids from the input load to the output store (no scratch is
+allocated); elsewhere they run the demod prologue and the stage route.
+
 Each wrapper takes the JAX function's arguments as float32 tensors.  On
 CUDA it launches the kernels of ``csrc/overlap_save.cu`` and counts the
-launch in its ``launches`` attribute; on the CPU it runs the plain
+launch in its ``launches`` attribute (#5 and #6 also count a launch of
+the cluster route in ``cluster_launches``); on the CPU it runs the plain
 ``torch.fft`` version beside it (``*_plain``).  A counter counts where a
 wrapper is called: under a captured CUDA graph (``jit_step``, ``make_scan``)
 that is at capture, and a replay counts nothing.
@@ -53,6 +62,7 @@ import torch
 from . import _build
 
 __all__ = ["kernel_factors", "strip_cols", "supported", "bank_supported",
+           "cluster_size", "cluster_bytes",
            "fft_radices",
            "fft_roots", "response_grid", "fused_overlap_save",
            "fused_overlap_save_plain", "fused_filter_bank",
@@ -67,6 +77,7 @@ _MAX_N1 = 768     # the longest column of a 16-column strip; past it the
                   # plan takes 256-point rows where N allows
 _SMEM = 232448    # shared bytes a block may use (kMaxSmem in the kernels)
 _RADICES = (8, 4, 2, 3, 5)   # the kernel's specialised butterflies
+_CLUSTER = 8      # blocks of the cluster route's clusters (portable size)
 
 
 def strip_cols(n1: int, n2: int) -> int:
@@ -79,6 +90,28 @@ def strip_cols(n1: int, n2: int) -> int:
         if c <= n2 and 4 * (4 * n1 * c + 2 * n1) <= _SMEM:
             return c
     return 0
+
+
+def cluster_bytes(n1: int, n2: int, merged: bool = False) -> int:
+    """Shared bytes a block of the cluster route takes (``cluster_bytes``
+    in csrc/overlap_save.cu): two buffers of the block's W = n2 / C
+    columns of the pair's one grid (#5) or two grids (#6, ``merged``), re
+    and im planes of n1 rows each, and the n1 column and n2 row roots."""
+    w = n2 // min(_CLUSTER, n2)
+    return 4 * ((8 if merged else 4) * n1 * w + 2 * n1 + 2 * n2)
+
+
+def cluster_size(n_total: int, merged: bool = False) -> int:
+    """Blocks C of the cluster that runs #5 (#6 where ``merged``) in one
+    launch on an n_total-point transform: min(8, n2), one strip of n2 / C
+    columns a block; 0 where a block's share (:func:`cluster_bytes`) does
+    not fit shared memory, and the kernel takes the stage route.  The rule
+    is the geometry's alone: at n2 = 128, #5 up to n1 = 876 and #6 up to
+    445; at n2 = 256, #5 up to 443, #6 never."""
+    n1, n2 = kernel_factors(n_total)
+    if cluster_bytes(n1, n2, merged) > _SMEM:
+        return 0
+    return min(_CLUSTER, n2)
 
 
 def kernel_factors(n_total: int):
@@ -321,6 +354,16 @@ def _factor_vector(factor, b: int, device,
                            device=device).expand(b).contiguous()
 
 
+def _factor_arg(factor, b: int, device) -> Tuple[torch.Tensor, int]:
+    """(tensor, stride) of the demod factor for a kernel that reads
+    ``fac[s * stride]`` (#5's and #6's cluster route, #7): a device scalar
+    or [b] vector read in place (stride 0 or 1), else a copy."""
+    f = torch.as_tensor(factor, dtype=torch.float32, device=device)
+    if f.numel() == 1:
+        return f.reshape(1), 0
+    return f.expand(b).contiguous(), 1
+
+
 def fm_demod_planes(curr, curi, prev_last_r, prev_last_i, last_out,
                     have_prev, factor):
     """The demod prologue of :func:`fused_demod_filter` in plain PyTorch:
@@ -380,20 +423,30 @@ def fused_demod_filter(curr, curi, prev_last_r, prev_last_i, prevd,
     dev = curr.device
     N = m + n
     n1, ho, consts = _constants(N, n, dev)
-    fac = _factor_vector(factor, b, dev)
     names = ("curr", "curi", "prev_last_r", "prev_last_i", "prevd",
              "last_out", "have_prev")
     ptrs = [_build.f32_ptr(t, nm) for t, nm in zip(tensors, names)]
+    grid = [_build.f32_ptr(t, nm) for t, nm in ((resp_gr, "resp_gr"),
+                                                (resp_gi, "resp_gi"))]
     dout = torch.empty((b, n), dtype=torch.float32, device=dev)
+    y = torch.empty((b, n), dtype=torch.float32, device=dev)
+    if cluster_size(N):
+        fac, stride = _factor_arg(factor, b, dev)
+        fused_demod_filter.launches += 1
+        fused_demod_filter.cluster_launches += 1
+        err = _build.lib().rr_demod_filter_cluster(
+            *ptrs, fac.data_ptr(), stride, dout.data_ptr(), b, n, m, *consts,
+            *grid, y.data_ptr(), n1, ho, _build.stream_handle(dev))
+        _build.check(err, "fused_demod_filter (cluster route)")
+        return y, dout
+    fac = _factor_vector(factor, b, dev)
     zr, zi, scr_r, scr_i = (torch.empty((b // 2, N), dtype=torch.float32,
                                         device=dev) for _ in range(4))
-    y = torch.empty((b, n), dtype=torch.float32, device=dev)
     tr, ti, _tmp = _column_scratch(N, b // 2, dev)
     fused_demod_filter.launches += 1
     err = _build.lib().rr_demod_filter(
         *ptrs, fac.data_ptr(), dout.data_ptr(), zr.data_ptr(),
-        zi.data_ptr(), b, n, m, *consts,
-        _build.f32_ptr(resp_gr, "resp_gr"), _build.f32_ptr(resp_gi, "resp_gi"),
+        zi.data_ptr(), b, n, m, *consts, *grid,
         scr_r.data_ptr(), scr_i.data_ptr(), y.data_ptr(), n1, ho, tr, ti,
         _build.stream_handle(dev))
     _build.check(err, "fused_demod_filter")
@@ -401,6 +454,7 @@ def fused_demod_filter(curr, curi, prev_last_r, prev_last_i, prevd,
 
 
 fused_demod_filter.launches = 0
+fused_demod_filter.cluster_launches = 0
 
 
 def fused_filter_demod_filter_plain(prevr, previ, curr, curi, prev_last_r,
@@ -448,19 +502,31 @@ def fused_filter_demod_filter(prevr, previ, curr, curi, prev_last_r,
     dev = curr.device
     N = m + n
     n1, ho, consts = _constants(N, n, dev)
-    fac = _factor_vector(factor, b, dev)
     names = ("prevr", "previ", "curr", "curi", "prev_last_r", "prev_last_i",
              "prevd", "last_out", "have_prev")
     ptrs = [_build.f32_ptr(t, nm) for t, nm in zip(tensors, names)]
     grids = [_build.f32_ptr(t, "response grid") for t in tensors[9:]]
-    fr, fi, dout, y = (torch.empty((b, n), dtype=torch.float32, device=dev)
-                       for _ in range(4))
+    dout, y = (torch.empty((b, n), dtype=torch.float32, device=dev)
+               for _ in range(2))
+    flr, fli = (torch.empty((b,), dtype=torch.float32, device=dev)
+                for _ in range(2))
+    if cluster_size(N, merged=True):
+        fac, stride = _factor_arg(factor, b, dev)
+        fused_filter_demod_filter.launches += 1
+        fused_filter_demod_filter.cluster_launches += 1
+        err = _build.lib().rr_filter_demod_filter_cluster(
+            *ptrs, fac.data_ptr(), stride, dout.data_ptr(), flr.data_ptr(),
+            fli.data_ptr(), b, n, m, *consts, *grids, y.data_ptr(), n1, ho,
+            _build.stream_handle(dev))
+        _build.check(err, "fused_filter_demod_filter (cluster route)")
+        return y, dout, flr, fli
+    fac = _factor_vector(factor, b, dev)
+    fr, fi = (torch.empty((b, n), dtype=torch.float32, device=dev)
+              for _ in range(2))
     zr, zi = (torch.empty((b // 2, N), dtype=torch.float32, device=dev)
               for _ in range(2))
     scr_r, scr_i = (torch.empty((b, N), dtype=torch.float32, device=dev)
                     for _ in range(2))
-    flr, fli = (torch.empty((b,), dtype=torch.float32, device=dev)
-                for _ in range(2))
     tr, ti, _tmp = _column_scratch(N, b, dev)
     fused_filter_demod_filter.launches += 1
     err = _build.lib().rr_filter_demod_filter(
@@ -474,3 +540,4 @@ def fused_filter_demod_filter(prevr, previ, curr, curi, prev_last_r,
 
 
 fused_filter_demod_filter.launches = 0
+fused_filter_demod_filter.cluster_launches = 0
