@@ -12,7 +12,11 @@
    float-plane signatures, #1 also at the ``fuse_deemphasis`` fold, at
    paths F/G's and C's plans, on a ragged last tile, on misaligned planes
    and, on its wide form, at the three plans of more than 16 output
-   phases (48 kHz, 384 kHz and 1.024 MHz to 44.1 kHz); #3 and #4 also at
+   phases (48 kHz, 384 kHz and 1.024 MHz to 44.1 kHz) and path J's
+   upsample (3:64), and its phase-mode entry chunk after chunk at path
+   K's plan, 8:3 at 60, 100 and 7, 384 -> 1024 at 64 and 1.024 MHz to
+   44.1 and 22.05 kHz (#1's bytes: ``decimate_bytes``, the plan's
+   nonzero taps once, whatever taps tensor the kernel reads); #3 and #4 also at
    the geometries of paths E-G, at column lengths n1 = 77 and, #3, n1 =
    768, and (#4 at K = 3) at the five transforms past 128-point rows or
    768 rows: m = n = 1000, 1001, 65536, 98304 and m = 6144, n = 98304,
@@ -163,10 +167,13 @@
    the associative scan, with the scan's launches, at path F's shape;
    ``--profile`` adds each path's device time by kernel (torch.profiler).
 
-``--clocks`` runs only #8's cycle split instead, from a development build
-of the kernels (``-DRR_SCAN_CLOCKS``): the serial tiled walk the segments
-replaced, the bare step chain and the segmented kernel's walks and passes,
-on random input and on E audio's keyer envelopes.
+``--clocks`` runs only the cycle splits instead, from development builds
+of the kernels: #8's (``-DRR_SCAN_CLOCKS``: the serial tiled walk the
+segments replaced, the bare step chain and the segmented kernel's walks
+and passes, on random input and on E audio's keyer envelopes), then #1's
+wide form and phase-mode entry (``-DRR_DECIM_CLOCKS``,
+``tools/decimate_split.py``: a block's copies, sums, shuffles, stores and
+history share at each wide geometry).
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
@@ -196,7 +203,7 @@ from radiorust_tpu_torch.tools._common import card
 # The one roofline model: the card's peaks, each call's bytes and bound,
 # and each kernel's operation count (radiorust_tpu_torch/tools/mfu.py).
 from radiorust_tpu_torch.tools.mfu import (agc_flops, bound_of,
-                                           decimate_flops,
+                                           decimate_bytes, decimate_flops,
                                            decimate_phase_flops,
                                            demod_filter_flops,
                                            filter_bank_flops,
@@ -255,6 +262,8 @@ DEMOD_ROUTES = (
 WIDE_PLANS = ((48000.0, 44100.0, 20000.0, 1600),
               (384000.0, 44100.0, 16000.0, 12800),
               (1024000.0, 44100.0, 16000.0, 20480))
+# Path J's Upsampler plan (wfm_transmitter at 48 kHz): p = 3, q = 64.
+J_UPSAMPLE = (48000.0, 1024000.0, 40000.0)
 WIDE_CHUNK = 262144   # wfm_receiver() on long chunks: mid chunk 98304
 WIDE_BATCH, WIDE_T = 8, 4
 RESAMPLE_RATE, RESAMPLE_CHUNK = 48000.0, 1600   # 48 kHz -> 44.1 kHz
@@ -2527,6 +2536,10 @@ def main() -> None:
 
     if "--clocks" in sys.argv[1:]:
         slew_clocks(dev, randn)
+        # #1's wide form and phase-mode entry: a block's phases at each
+        # geometry (tools/decimate_split.py, -DRR_DECIM_CLOCKS).
+        from radiorust_tpu_torch.tools.decimate_split import clocks
+        clocks(dev, reps=20)
         return
 
     def phase(label, t0):
@@ -2569,7 +2582,7 @@ def main() -> None:
     def check(name, source, replaces, bound_, kernel, plain, args, flops,
               outputs=None, record=True, of=None, absolute=False,
               plain_timing=(3, 20), graphed=False, library=None,
-              inputs=None, calls=1):
+              inputs=None, calls=1, bytes_of=None):
         """Kernel vs plain on the same CUDA tensors: max |diff| /
         max |ref| within ``bound_`` (max |diff| if ``absolute``);
         ``flops``: the operations the function needs on these inputs,
@@ -2582,7 +2595,10 @@ def main() -> None:
         version's result to that call's layout.  A check not recorded as
         a kernel's entry is listed under the entry named ``of``.  ``calls``:
         the kernel calls ``kernel`` makes (a chunk sequence): every time,
-        the bound and ``flops`` are per call."""
+        the bound and ``flops`` are per call.  ``bytes_of(result)``: the
+        bytes the calls must move, where not ``io_bytes`` of ``inputs``
+        and the result (#1: ``decimate_bytes``, the plan's nonzero taps
+        in place of a taps tensor)."""
         res = kernel(*args)
         want_res = plain(*args)
         got = res if outputs is None else outputs(res)
@@ -2593,8 +2609,9 @@ def main() -> None:
         plain_ms = cuda_ms(lambda: plain(*args), reps=reps,
                            warmup=warmup) / calls
         err, kind = (abs_err, "max|diff|") if absolute else (rel, "rel")
-        bound_ms, bound_by = bound_of(
-            io_bytes(args if inputs is None else inputs, res) / calls, flops)
+        nbytes = (io_bytes(args if inputs is None else inputs, res)
+                  if bytes_of is None else bytes_of(res))
+        bound_ms, bound_by = bound_of(nbytes / calls, flops)
         device_ms = device10_ms = None
         if graphed:
             device_ms = graph_ms(lambda: kernel(*args)) / calls
@@ -2653,8 +2670,9 @@ def main() -> None:
         check(label, decim_src, "radiorust_tpu/ops/pallas_frontend.py:181",
               FIR_BOUND, ofe.decimate_complex, ofe.decimate_complex_plain,
               (x, h, w, plan.p, plan.q, real_input), flops,
-              inputs=(*part(x), *part(h), w), record=record, of="decimate",
-              graphed=True,
+              bytes_of=lambda r: decimate_bytes(plan, (*part(x), *part(h)),
+                                                r),
+              record=record, of="decimate", graphed=True,
               library=("conv1d", call, lambda r: layout(part(r[0]))))
 
     plan = tail.plan
@@ -3197,7 +3215,8 @@ def main() -> None:
             FilterDemodFilter(_lowpass_100k, 150e3, _deemphasis_band,
                               ir_len=m_).bind(sig_), cluster, kinds=kinds)
 
-    # #1's wide form at the plans past one block of the polyphase kernel.
+    # #1's wide form at the plans past one block of the polyphase kernel,
+    # and at path J's upsample.
     for rate_in, rate_out, bw, n in WIDE_PLANS:
         wplan = plan_downsample(rate_in, rate_out, bw)
         check_decimate(f"decimate, wide form, {rate_in / 1e3:g} kHz -> "
@@ -3205,6 +3224,11 @@ def main() -> None:
                        f"{wplan.p}, q = {wplan.q}, Kw = "
                        f"{wplan.kernel.shape[1]}, two planes)", wplan, BATCH,
                        n, False)
+    jplan = plan_upsample(*J_UPSAMPLE)
+    check_decimate(f"decimate, wide form, path J's upsample 48 kHz -> "
+                   f"1.024 MHz at chunk 768 (p = {jplan.p}, q = {jplan.q}, "
+                   f"Kw = {jplan.kernel.shape[1]}, two planes)", jplan,
+                   BATCH, 768, False)
 
     # #1's phase-mode entry (rr_decimate_phase) against its plain version,
     # rational_fir_phase, chained chunk after chunk (history and grid
@@ -3248,7 +3272,8 @@ def main() -> None:
               lambda *a: phase_chunks(ofe.rational_fir_phase, *a),
               (xs, h, ph, w, p, q), flops, record=False, of="decimate",
               graphed=True, library=library, calls=steps,
-              inputs=(xs, h, ph, w))
+              bytes_of=lambda r: decimate_bytes(plan, (xs, h, ph), r,
+                                                steps))
         got = phase_chunks(ofe.decimate_phase_complex, xs, h, ph, w, p, q)
         for k, v in enumerate(valid):
             if bool((got[k][:, v:] != 0).any()):
@@ -3260,6 +3285,10 @@ def main() -> None:
     for label, plan, b, n, steps in phase_plans(plan_downsample,
                                                 plan_upsample):
         check_phase(label, plan, b, n, steps)
+    # The fuse_deemphasis fold in phase mode: a block past 48 KB of
+    # shared memory (the opt-in).
+    check_phase(f"at the fuse_deemphasis fold ({dplan.kernel.shape[1]} "
+                f"taps) at chunk 1001", dplan, BATCH, 1001, 3)
     t0 = phase("kernel checks", t0)
 
     # -- the paths ------------------------------------------------------------

@@ -55,43 +55,79 @@
 //     real-input call writes the zero imaginary part itself.
 // Plain float32 FMA; no tensor cores.
 //
-// Wide plans (rr_decimate_wide).  A plan whose q phases (one warp each)
-// pass the block's 16 warps, or whose staged span and [q][p][apad] taps
-// pass shared memory, is one of the other kind: a large p against few
-// periods per chunk, each phase row holding one or two taps (48 kHz ->
-// 44.1 kHz: p = 160, q = 147, Kw = 171, 10 periods a 1600-sample chunk;
-// 1.024 MHz -> 44.1 kHz: p = 10240, q = 441, Kw = 10458, 2 periods).
-// There the polyphase rows and the register window over periods share
-// nothing, and each kernel row W[r] is the prototype filter shifted to
-// its own offset: L = Kw - p + 1 nonzero taps of Kw (12 of 171, 219 of
-// 10458).  So the wide kernel reads W in its own [q, Kw] layout through
-// the L2, each row only over its band of nonzero taps [lo_r, hi_r) (from
-// the wrapper, once per taps tensor), and loops the phases over its warps
-// in rounds: block (tile of tm periods, stream, phase block of QB rows),
-// 8 warps, warp w takes rows w, w + 8, ...  The block stages, per chunk
-// of UC taps of its rows' joint band, the tm windows buf[(m0 + m) p + u]
-// (both planes, complex64 read in place at element stride 2); the lanes
-// of a warp split a row's band, feed each tap to every staged period (up
-// to 8 in registers) and meet by shuffles; partial sums over the chunks
-// collect in shared memory.  The last tile's first phase block copies the
-// new history from the sources, bit for bit.
+// The wide form (rr_decimate_wide, rr_decimate_phase): decimate_wide_kernel.
+// It replaces pallas_decimate (pallas_frontend.py:181) at the plans the
+// polyphase kernel does not take: more than 16 output phases, or a staged
+// span and [q][p][apad] taps past shared memory (48 kHz -> 44.1 kHz: p =
+// 160, q = 147, Kw = 171, 10 periods a 1600-sample chunk; the upsample
+// 48 kHz -> 1.024 MHz: p = 3, q = 64, 256 periods a 768-sample chunk).
+// There each kernel row W[r] is a band of nonzero taps [lo_r, lo_r +
+// L_r) of Kw: a downsample plan's rows are the prototype at q offsets (L
+// = 12 of 171, 233 of 10472), an upsample plan's its q phases (36 of 38).
+// It also runs phase mode, a chunk of C samples that is not a whole
+// number of periods.  The JAX package computes that with XLA's
+// convolution on a slice at a traced offset (radiorust_tpu/ops/
+// polyphase.py rational_fir_phase, no Pallas kernel); here the history is
+// the last Kw - 1 samples, buf = [hist || x || zeros], and the step's grid
+// phase ph = phase[0] (an int32 in device memory: a captured CUDA graph
+// replays the step as the phase walks its schedule) puts window w at
+// buf[p - 1 - ph + w p ..).  E = ceil(C / p) windows are written; those
+// from v = (ph + C) / p on are exact zeros (not yet complete this step).
+// The new history is buf[C, C + Kw - 1), which may reach back into the
+// old history (a chunk shorter than the window), and the new phase is
+// (phase + C) mod p per stream.
 //
-// Phase mode (rr_decimate_phase), a chunk of C samples that is not a whole
-// number of periods.  The JAX package computes it with XLA's convolution
-// on a slice at a traced offset (radiorust_tpu/ops/polyphase.py
-// rational_fir_phase, no Pallas kernel); here it is the wide kernel with
-// the offset read on the device.  The history is the last Kw - 1 samples,
-// buf = [hist || x || zeros], and the step's grid phase ph = phase[0] (an
-// int32 in device memory: a captured CUDA graph replays the step as the
-// phase walks its schedule) puts window w at buf[p - 1 - ph + w p ..).
-// E = ceil(C / p) windows are written; those from v = (ph + C) / p on are
-// exact zeros (not yet complete this step).  The new history is buf[C,
-// C + Kw - 1), which may reach back into the old history (a chunk shorter
-// than the window), and the new phase (phase + C) mod p per stream.
-// Bytes bound it as they bound the wide form (384 kHz -> 44.1 kHz at
-// chunk 6144, 64 streams: 5.1 MB, 1.5 us; 0.05 GFLOP, 0.7 us); it is the
-// wide form unchanged but for the offset, the zero reads and the masked
-// windows, a simple first kernel whose time PERF.md records.
+// What bounds it on an H100: bytes, by a margin that leaves launch and
+// latency the real floor.  Path K's tail (384 kHz -> 44.1 kHz in phase
+// mode at chunk 6144, 64 streams, L = 285) moves 5.1 MB, 1.5 us, for 54
+// MFLOP, 0.8 us; 1.024 MHz -> 44.1 kHz at 16384 moves 15 MB, 4.4 us; path
+// I moves 1.6 MB, 0.5 us.  Every output is a dot product of L taps with
+// L samples its neighbours share only in part, so what costs is the
+// shared-memory loads that feed the FMAs, and each block's latency.
+//
+// What the design does about it:
+//   - One output, one thread (or a lane group).  A block holds nr
+//     consecutive phases and tm windows of one stream: thread t takes
+//     lane g = t % G of phase r0 + (t / G) % nr and windows ws + j WS
+//     (j < NW, kept in registers), so each tap it loads from shared
+//     memory feeds NW windows on both planes.  Bands of 128 taps or more
+//     are split over a group of G = 8 lanes that meet in one 3-step
+//     shuffle; shorter ones run whole in one thread.  Lanes take
+//     consecutive phases of one window, so the outputs leave as
+//     coalesced 8-byte (re, im) stores.
+//   - Only the bands, each once.  The wrapper re-lays the taps once per
+//     taps tensor to [U][ls]: the distinct bands, each from tap 0, zero
+//     padded (ls = G mod 2 G, so the lanes' tap reads fall in distinct
+//     banks), beside each row's (lo_r, L_r, band) and each phase block's
+//     joint band (ulo, width) and bands [u0, u0 + un).  A downsample
+//     plan's rows are one prototype at q offsets, so U = 1 and a block
+//     copies one band; an upsample plan's rows are q phases of it (U =
+//     q).  A block copies its bands by cp.async, 16 bytes at a time at
+//     the source's own 16-byte phase; the dense W is never read.
+//   - One staged span.  A block's windows read buf[start + (m0 + k) p +
+//     ulo + i], i < width: one run of (tm - 1) p + width samples where
+//     windows overlap (p <= width), else tm runs of width samples at a
+//     stride xs >= width of p's parity.  A complex64 input is staged in place as
+//     (re, im) pairs by cp.async, 16 bytes where the shared row and the
+//     source share a 16-byte phase (the row is shifted by one pair to
+//     make them), 8 elsewhere; float planes and real inputs by scalar
+//     loads.  The taps' and the span's copies overlap; zeros go past the
+//     chunk in phase mode.
+//   - Shared memory as the bands need it, above 48 KB by opt-in (K's
+//     block: one band of 296 taps and 5 windows of 538 pairs, 22 KB).
+//     Phases split over blocks of at most 256 / G rows, windows over
+//     tiles of WS NW, so that a call fills the card (wide_config in
+//     ops/frontend.py picks the shape; this file checks it).
+//   - Every block copies its share of the new history from the sources,
+//     bit for bit, while its copies land; one block a stream writes the
+//     new phase.
+// Plain float32 FMA; no tensor cores (operations do not bound it).
+//
+// A development build (-DRR_DECIM_CLOCKS, rr_decim_clocks) stamps each
+// block's phases (kWideMarks a block): clock64() at its start, after the
+// copies are issued, after its share of the history, once the copies
+// land, after the sums, the shuffles and the stores; %globaltimer at its
+// start and end; its SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,6 +148,15 @@ struct DecimArgs {
   const float* p0[2];    // mixer only: start phasor re, im
   int64_t p0_step;
   int32_t b, n, hist, p, q, apad, inner, nplanes;
+};
+
+// The wide launch's shape (ops/frontend.py wide_config and _WideArgs).
+struct WideArgs {
+  const float* taps;   // [U][ls]: the distinct bands, from tap 0, padded
+  const int* rows;     // [q][3]: row r's (lo_r, L_r, its band in taps)
+  const int* zband;    // [ceil(q / nr)][4]: a phase block's joint band
+                       // (ulo, width) and its bands [u0, u0 + un)
+  int ls, g, nr, un, ws, nw, xs, xlen, threads;
 };
 
 namespace {
@@ -452,168 +497,347 @@ __global__ void __launch_bounds__(kMaxThreads) decimate_kernel(
   }
 }
 
-constexpr int kWideThreads = 256;   // 8 warps: rows in rounds of 8
-constexpr int kWideOut = 8;         // periods a lane keeps in registers
-constexpr int kWideStatic = 64;     // static shared bytes kept free
+constexpr int kWideThreads = 256;   // the most threads of a wide block
+constexpr int kWideNW = 8;          // the most windows a thread keeps
+constexpr int kWideMarks = 10;      // clock stamps a block (development)
+constexpr size_t kSmemMax = 232448; // 227 KB, a block's most on an H100
 
-// grid (ceil(M / tm), batch, ceil(q / QB)), block kWideThreads.  Shared:
-// S [NP][tm][UC] staged windows, then red [NP][QB][tm] partial sums.
-// band [q][2]: row r's nonzero taps [lo, hi) (lo = Kw, hi = 0 for a zero
-// row).  A.taps: W [q][Kw], row-major.  PHASE: phase mode (see the head of
-// this file), A.hist = Kw - 1, M = ceil(n / p) windows from the offset
-// p - 1 - phase_in[0]; else aligned, A.hist = Kw - p, M = n / p from 0.
-template <int NP, bool PHASE>
+#ifdef RR_DECIM_CLOCKS
+#define DW_STAMP(clk, k, v)                                               \
+  do {                                                                    \
+    if ((clk) != nullptr && threadIdx.x == 0)                             \
+      (clk)[(((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + \
+             blockIdx.x) * kWideMarks + (k)] = (v);                       \
+  } while (0)
+__device__ __forceinline__ long long dw_global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ long long dw_sm_id() {
+  unsigned id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
+#define DW_MARK(clk, k) DW_STAMP(clk, k, clock64())
+#define DW_TIME(clk, k) DW_STAMP(clk, k, dw_global_ns())
+#define DW_SM(clk, k) DW_STAMP(clk, k, dw_sm_id())
+long long* wide_clocks = nullptr;
+#else
+#define DW_MARK(clk, k) \
+  do {                  \
+  } while (0)
+#define DW_TIME(clk, k) DW_MARK(clk, k)
+#define DW_SM(clk, k) DW_MARK(clk, k)
+long long* const wide_clocks = nullptr;
+#endif
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+
+// count complex64 elements src[0, count) to dst[0, count), read in place
+// as (re, im) pairs, by the block's threads: 16 bytes at a time where
+// source and destination share their 16-byte phase, else 8.
+__device__ __forceinline__ void copy_pairs(float2* dst, const float2* src,
+                                           int count, int tid, int nt) {
+  if (count <= 0) return;
+  const int odd = (int)(((uintptr_t)src >> 3) & 1);
+  if (odd != (int)((__cvta_generic_to_shared(dst) >> 3) & 1)) {
+    for (int i = tid; i < count; i += nt) cp_async8(dst + i, src + i);
+    return;
+  }
+  const int head = min(odd, count), pairs = (count - head) >> 1;
+  if (head && tid == 0) cp_async8(dst, src);
+  for (int i = tid; i < pairs; i += nt)
+    cp_async16(dst + head + 2 * i, src + head + 2 * i);
+  if (((count - head) & 1) && tid == nt - 1)
+    cp_async8(dst + count - 1, src + count - 1);
+}
+
+// One source of buf (the history or the chunk) of one stream: plane k
+// of element e at p[k][e * step]; pairs: a complex64 row read in place.
+struct Row {
+  const float* p0;
+  const float* p1;
+  int64_t step;
+  bool pairs;
+};
+
+// count elements of a source from element e0 to X[d0, d0 + count) (NP
+// floats a position).
+template <int NP>
+__device__ __forceinline__ void put(float* X, int d0, const Row& src,
+                                    int64_t e0, int count, int tid, int nt) {
+  if (NP == 2 && src.pairs) {
+    copy_pairs(reinterpret_cast<float2*>(X) + d0,
+               reinterpret_cast<const float2*>(src.p0) + e0, count, tid,
+               nt);
+    return;
+  }
+  for (int i = tid; i < count; i += nt) {
+    const float v0 = __ldg(src.p0 + (e0 + i) * src.step);
+    if (NP == 2)
+      reinterpret_cast<float2*>(X)[d0 + i] =
+          make_float2(v0, __ldg(src.p1 + (e0 + i) * src.step));
+    else
+      X[d0 + i] = v0;
+  }
+}
+
+// Positions [J, J + len) of buf = [hist || x || zeros] to X[D, D + len).
+template <int NP>
+__device__ __forceinline__ void stage_run(float* X, int D, int64_t J,
+                                          int len, const Row& h, const Row& x,
+                                          int hist, int n, int tid, int nt) {
+  const int64_t end = J + len, xa = hist, xb = (int64_t)hist + n;
+  int64_t a = J, b = end < xa ? end : xa;
+  if (a < b) put<NP>(X, D, h, a, (int)(b - a), tid, nt);
+  a = J > xa ? J : xa;
+  b = end < xb ? end : xb;
+  if (a < b) put<NP>(X, D + (int)(a - J), x, a - hist, (int)(b - a), tid, nt);
+  a = J > xb ? J : xb;
+  for (int64_t j = a + tid; j < end; j += nt) {
+    const int d = D + (int)(j - J);
+    if (NP == 2)
+      reinterpret_cast<float2*>(X)[d] = make_float2(0.f, 0.f);
+    else
+      X[d] = 0.f;
+  }
+}
+
+// Floats of a wide block's taps: un bands of ls, shifted by up to 3 to
+// the source's 16-byte phase, rounded up to a 16-byte boundary.
+__host__ __device__ __forceinline__ int wide_tap_floats(int un, int ls) {
+  return (un * ls + 3 + 3) & ~3;
+}
+
+// grid (ceil(q / nr), ceil(M / tm), batch) with tm = WS NW; block
+// W.threads.  Shared: the taps, then the staged span, xlen + 1
+// positions of NP floats (one spare for the 16-byte shift).  Phase mode:
+// A.hist = Kw - 1, M = ceil(n / p) windows from p - 1 - phase_in[0];
+// else A.hist = Kw - p, M = n / p from 0.
+template <int NP, int NW>
 __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
-    DecimArgs A, const int* __restrict__ band, int tm, int QB, int UC,
-    const int* __restrict__ phase_in, int* __restrict__ phase_out) {
+    DecimArgs A, WideArgs W, int phase_mode, const int* __restrict__ phase_in,
+    int* __restrict__ phase_out, long long* clk) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int ulo_s, uhi_s;
-  const int p = A.p, q = A.q, n = A.n, hist = A.hist;
-  const int kw = PHASE ? hist + 1 : hist + p;
-  const int M = PHASE ? (n + p - 1) / p : n / p, s = blockIdx.y;
-  // Window m reads buf[start + m p + u]; windows from v on are not
-  // complete.
-  const int ph = PHASE ? __ldg(phase_in) : 0;
-  const int64_t start = PHASE ? p - 1 - ph : 0;
-  const int v = PHASE ? (ph + n) / p : M;
-  const int m0 = blockIdx.x * tm, mt = min(tm, M - m0);
-  const int r0 = blockIdx.z * QB, nr = min(QB, q - r0);
-  float* S = smem;
-  float* red = smem + NP * tm * UC;
+  DW_TIME(clk, 7);
+  DW_MARK(clk, 0);
+  const int z = blockIdx.x, tile = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
-  if (tid == 0) {
-    ulo_s = kw;
-    uhi_s = 0;
+  const int p = A.p, q = A.q, n = A.n, hist = A.hist;
+  const int M = phase_mode ? (n + p - 1) / p : n / p;
+  // Window m reads buf[start + m p + u]; windows from v on are not
+  // complete (phase mode).
+  const int ph = phase_mode ? __ldg(phase_in) : 0;
+  const int64_t start = phase_mode ? p - 1 - ph : 0;
+  const int v = phase_mode ? (ph + n) / p : M;
+  const int tm = W.ws * W.nw;
+  const int m0 = tile * tm, mt = min(tm, M - m0);
+  const int r0 = z * W.nr, nr = min(W.nr, q - r0);
+  const int ulo = __ldg(W.zband + 4 * z), width = __ldg(W.zband + 4 * z + 1);
+  const int u0 = __ldg(W.zband + 4 * z + 2), un = __ldg(W.zband + 4 * z + 3);
+  const Row h{A.h[0] + s * A.h_row, NP == 2 ? A.h[1] + s * A.h_row : nullptr,
+              A.h_step, NP == 2 && A.h_step == 2 && A.h[1] == A.h[0] + 1};
+  const Row x{A.x[0] + s * A.x_row, NP == 2 ? A.x[1] + s * A.x_row : nullptr,
+              A.x_step, NP == 2 && A.x_step == 2 && A.x[1] == A.x[0] + 1};
+
+  // The rows' bands, at the source's 16-byte phase: 16 bytes a copy.
+  const int64_t t0 = (int64_t)u0 * W.ls;
+  const int ta = (int)(t0 & 3);
+  float* T = smem + ta;
+  {
+    const float* src = W.taps + t0;
+    const int count = un * W.ls;
+    const int head = min((4 - ta) & 3, count), nv = (count - head) >> 2;
+    for (int i = tid; i < head; i += nt) cp_async4(T + i, src + i);
+    for (int i = tid; i < nv; i += nt)
+      cp_async16(T + head + 4 * i, src + head + 4 * i);
+    for (int i = head + 4 * nv + tid; i < count; i += nt)
+      cp_async4(T + i, src + i);
   }
-  for (int i = tid; i < NP * QB * tm; i += nt) red[i] = 0.f;
-  __syncthreads();
-  for (int i = tid; i < nr; i += nt) {
-    atomicMin(&ulo_s, __ldg(band + 2 * (r0 + i)));
-    atomicMax(&uhi_s, __ldg(band + 2 * (r0 + i) + 1));
-  }
-  __syncthreads();
-  const int ulo = ulo_s, uhi = uhi_s;
-  const float* h0 = A.h[0] + s * A.h_row;
-  const float* h1 = NP == 2 ? A.h[1] + s * A.h_row : nullptr;
-  const float* x0 = A.x[0] + s * A.x_row;
-  const float* x1 = NP == 2 ? A.x[1] + s * A.x_row : nullptr;
-  for (int U0 = ulo; U0 < uhi; U0 += UC) {
-    const int uc = min(UC, uhi - U0);
-    // S[pl][m][u - U0] = buf[start + (m0 + m) p + u]: inside [hist || x]
-    // but for the incomplete windows of phase mode, which read zeros.
-    for (int i = tid; i < mt * uc; i += nt) {
-      const int m = i / uc, du = i - m * uc;
-      const int64_t j = start + (int64_t)(m0 + m) * p + U0 + du;
-      float v0 = 0.f, v1 = 0.f;
-      if (j < hist) {
-        v0 = __ldg(h0 + j * A.h_step);
-        if (NP == 2) v1 = __ldg(h1 + j * A.h_step);
-      } else if (!PHASE || j < (int64_t)hist + n) {
-        v0 = __ldg(x0 + (j - hist) * A.x_step);
-        if (NP == 2) v1 = __ldg(x1 + (j - hist) * A.x_step);
+  // The span: one run where windows overlap (xs == p), else one a window.
+  // A complex64 chunk's pairs land at their source's 16-byte phase.
+  const int64_t P0 = start + (int64_t)m0 * p + ulo;
+  const int sh = x.pairs ? (int)((((uintptr_t)x.p0 >> 3) + (P0 - hist)) & 1)
+                         : 0;
+  float* X = smem + wide_tap_floats(W.un, W.ls) + NP * sh;
+  const bool one_run = W.xs == p;
+  const int runs = one_run ? 1 : mt;
+  const int rlen = one_run ? (mt - 1) * p + width : width;
+  if (width > 0)
+    for (int k = 0; k < runs; ++k)
+      stage_run<NP>(X, k * W.xs, P0 + (int64_t)k * p, rlen, h, x, hist, n,
+                    tid, nt);
+  DW_MARK(clk, 1);
+  // This block's share of the new history buf[n, n + hist), copied from
+  // its sources while the copies land: four loads in flight a thread.
+  {
+    const int nb = gridDim.x * gridDim.y, bi = tile * gridDim.x + z;
+    const int per = (hist + nb - 1) / nb;
+    const int i1 = min(hist, (bi + 1) * per);
+    float* nh0 = A.nh[0] + s * A.nh_row;
+    float* nh1 = A.nh[1] ? A.nh[1] + s * A.nh_row : nullptr;
+    for (int i0 = bi * per + tid; i0 < i1; i0 += 4 * nt) {
+      float v0[4], v1[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + e * nt;
+        const int64_t j = (int64_t)n + i;
+        const Row& src = j < hist ? h : x;
+        const int64_t at = (j < hist ? j : j - hist) * src.step;
+        v0[e] = i < i1 ? __ldg(src.p0 + at) : 0.f;
+        v1[e] = NP == 2 && i < i1 ? __ldg(src.p1 + at) : 0.f;
       }
-      S[m * UC + du] = v0;
-      if (NP == 2) S[(tm + m) * UC + du] = v1;
-    }
-    __syncthreads();
-    for (int rr = warp; rr < nr; rr += nw) {
-      const int r = r0 + rr;
-      const int lo = max(__ldg(band + 2 * r), U0);
-      const int hi = min(__ldg(band + 2 * r + 1), U0 + uc);
-      if (lo >= hi) continue;   // warp-uniform
-      const float* w = A.taps + (int64_t)r * kw;
-      for (int mb = 0; mb < mt; mb += kWideOut) {
-        float acc[NP][kWideOut];
 #pragma unroll
-        for (int pl = 0; pl < NP; ++pl)
-#pragma unroll
-          for (int j = 0; j < kWideOut; ++j) acc[pl][j] = 0.f;
-        for (int u = lo + lane; u < hi; u += 32) {
-          const float wu = __ldg(w + u);
-          const float* sp = S + (u - U0) + mb * UC;
-#pragma unroll
-          for (int j = 0; j < kWideOut; ++j) {
-            if (mb + j < mt) {
-              acc[0][j] = fmaf(wu, sp[j * UC], acc[0][j]);
-              if (NP == 2) acc[1][j] = fmaf(wu, sp[(tm + j) * UC], acc[1][j]);
-            }
-          }
-        }
-#pragma unroll
-        for (int pl = 0; pl < NP; ++pl)
-#pragma unroll
-          for (int j = 0; j < kWideOut; ++j)
-#pragma unroll
-            for (int off = 16; off >= 1; off >>= 1)
-              acc[pl][j] += __shfl_xor_sync(0xffffffffu, acc[pl][j], off);
-        if (lane == 0) {
-#pragma unroll
-          for (int pl = 0; pl < NP; ++pl)
-#pragma unroll
-            for (int j = 0; j < kWideOut; ++j)
-              if (mb + j < mt) red[(pl * QB + rr) * tm + mb + j] += acc[pl][j];
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + e * nt;
+        if (i < i1) {
+          nh0[i * A.nh_step] = v0[e];
+          if (nh1) nh1[i * A.nh_step] = v1[e];
         }
       }
     }
-    __syncthreads();   // the next chunk's staging overwrites S
+    if (phase_mode && bi == 0 && tid == 0)
+      phase_out[s] = (phase_in[s] + n) % p;
   }
+  DW_MARK(clk, 2);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  DW_MARK(clk, 3);
+
+  // Lane g of a group of G, phase r, windows ws + j WS.
+  const int G = W.g;
+  const int g = tid % G, rr = (tid / G) % W.nr, ws = tid / (G * W.nr);
+  const int r = r0 + rr;
+  const bool live = rr < nr && ws < W.ws && ws < mt;
+  int off = 0, len = 0, band = u0;
+  if (live) {
+    off = __ldg(W.rows + 3 * r) - ulo;
+    len = __ldg(W.rows + 3 * r + 1);
+    band = __ldg(W.rows + 3 * r + 2);
+  }
+  int xo[NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+    xo[j] = min(ws + j * W.ws, mt - 1) * W.xs + off;
+  float acc[NW][NP];
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+#pragma unroll
+    for (int pl = 0; pl < NP; ++pl) acc[j][pl] = 0.f;
+  const float* tr = T + (band - u0) * W.ls;
+#pragma unroll 4
+  for (int u = g; u < len; u += G) {
+    const float w = tr[u];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (NP == 2) {
+        const float2 xv = reinterpret_cast<const float2*>(X)[xo[j] + u];
+        acc[j][0] = fmaf(w, xv.x, acc[j][0]);
+        acc[j][1] = fmaf(w, xv.y, acc[j][1]);
+      } else {
+        acc[j][0] = fmaf(w, X[xo[j] + u], acc[j][0]);
+      }
+    }
+  }
+  DW_MARK(clk, 4);
+  for (int o = G >> 1; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int pl = 0; pl < NP; ++pl)
+        acc[j][pl] += __shfl_xor_sync(0xffffffffu, acc[j][pl], o);
+  DW_MARK(clk, 5);
+
   float* y0 = A.y[0] + s * A.y_row;
   float* y1 = A.y[1] ? A.y[1] + s * A.y_row : nullptr;
   const bool pairs = y1 == y0 + 1 && A.y_step == 2;
-  for (int i = tid; i < nr * mt; i += nt) {
-    const int m = i / nr, rr = i - m * nr;
-    const int64_t at = ((int64_t)(m0 + m) * q + r0 + rr) * A.y_step;
-    const bool done = m0 + m < v;   // phase mode: later windows are zeros
-    const float v0 = done ? red[rr * tm + m] : 0.f;
-    const float v1 = NP == 2 && done ? red[(QB + rr) * tm + m] : 0.f;
-    if (pairs) {
-      *reinterpret_cast<float2*>(y0 + at) = make_float2(v0, v1);
-    } else {
-      y0[at] = v0;
-      if (y1) y1[at] = v1;   // a real input's imaginary part is 0
-    }
-  }
-  // New history buf[n, n + hist), copied from its sources.
-  if (blockIdx.x == gridDim.x - 1 && blockIdx.z == 0) {
-    float* nh0 = A.nh[0] + s * A.nh_row;
-    float* nh1 = A.nh[1] ? A.nh[1] + s * A.nh_row : nullptr;
-    for (int i = tid; i < hist; i += nt) {
-      const int64_t j = (int64_t)n + i;
-      float v0, v1 = 0.f;
-      if (j < hist) {
-        v0 = __ldg(h0 + j * A.h_step);
-        if (NP == 2) v1 = __ldg(h1 + j * A.h_step);
-      } else {
-        v0 = __ldg(x0 + (j - hist) * A.x_step);
-        if (NP == 2) v1 = __ldg(x1 + (j - hist) * A.x_step);
+  if (live && g == 0) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int k = ws + j * W.ws;
+      if (k < mt) {
+        const int m = m0 + k;
+        const bool done = m < v;   // phase mode: later windows are zeros
+        const float v0 = done ? acc[j][0] : 0.f;
+        const float v1 = NP == 2 && done ? acc[j][NP - 1] : 0.f;
+        const int64_t at = ((int64_t)m * q + r) * A.y_step;
+        if (pairs) {
+          *reinterpret_cast<float2*>(y0 + at) = make_float2(v0, v1);
+        } else {
+          y0[at] = v0;
+          if (y1) y1[at] = v1;   // a real input's imaginary part is 0
+        }
       }
-      nh0[i * A.nh_step] = v0;
-      if (nh1) nh1[i * A.nh_step] = v1;
     }
-    if (PHASE && tid == 0) phase_out[s] = (phase_in[s] + n) % p;
   }
+  DW_MARK(clk, 6);
+  DW_TIME(clk, 8);
+  DW_SM(clk, 9);
 }
 
-// Shared bytes of a wide launch; ops/frontend.py::wide_config mirrors it.
-size_t wide_smem_bytes(int np, int tm, int qb, int uc) {
-  return sizeof(float) * ((size_t)np * tm * uc + (size_t)np * qb * tm);
+// Shared bytes of a wide launch; ops/frontend.py::_wide_smem mirrors it.
+size_t wide_smem_bytes(int np, int un, int ls, int xlen) {
+  return sizeof(float) *
+         ((size_t)wide_tap_floats(un, ls) + (size_t)np * (xlen + 1));
 }
 
-template <int NP, bool PHASE>
-int launch_wide(const DecimArgs& a, const int* band, int tm, int qb, int uc,
-                const int* phase_in, int* phase_out, cudaStream_t stream) {
-  const int M = PHASE ? (a.n + a.p - 1) / a.p : a.n / a.p;
-  if (tm < 1 || qb < 1 || uc < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  if (PHASE && (!phase_in || !phase_out || a.hist < 1))
-    return (int)cudaErrorInvalidValue;
-  // Dynamic and static shared memory together within 48 KB (no opt-in).
-  const size_t smem = wide_smem_bytes(NP, tm, qb, uc);
-  if (smem + kWideStatic > 48 * 1024) return (int)cudaErrorInvalidValue;
-  dim3 grid((M + tm - 1) / tm, a.b, (a.q + qb - 1) / qb);
-  decimate_wide_kernel<NP, PHASE><<<grid, kWideThreads, smem, stream>>>(
-      a, band, tm, qb, uc, phase_in, phase_out);
+template <int NP, int NW>
+int launch_wide_nw(const DecimArgs& a, const WideArgs& w, int phase_mode,
+                   const int* phase_in, int* phase_out, dim3 grid,
+                   size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decimate_wide_kernel<NP, NW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  decimate_wide_kernel<NP, NW><<<grid, w.threads, smem, stream>>>(
+      a, w, phase_mode, phase_in, phase_out, wide_clocks);
   return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_wide(const DecimArgs& a, const WideArgs& w, int phase_mode,
+                const int* phase_in, int* phase_out, cudaStream_t stream) {
+  const int M = phase_mode ? (a.n + a.p - 1) / a.p : a.n / a.p;
+  const int64_t lanes = (int64_t)w.g * w.nr * w.ws;
+  // The shape wide_config gives: lane groups within a warp, every
+  // thread's place in the block, the span within its rows.
+  if (M < 1 || a.b < 1 || a.b > 65535 || w.g < 1 || w.g > 32 ||
+      (w.g & (w.g - 1)) || w.nr < 1 || w.un < 1 || w.ws < 1 || w.nw < 1 ||
+      w.nw > kWideNW || w.ls < 1 || w.threads % 32 ||
+      w.threads > kWideThreads || lanes > w.threads || w.xs < 0 ||
+      (w.xs == a.p ? (int64_t)(w.ws * w.nw - 1) * a.p > w.xlen
+                   : (int64_t)w.ws * w.nw * w.xs > w.xlen))
+    return (int)cudaErrorInvalidValue;
+  if (phase_mode && (!phase_in || !phase_out || a.hist < 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wide_smem_bytes(NP, w.un, w.ls, w.xlen);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int tm = w.ws * w.nw, tiles = (M + tm - 1) / tm;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((a.q + w.nr - 1) / w.nr, tiles, a.b);
+  switch (w.nw) {
+    case 1: return launch_wide_nw<NP, 1>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 2: return launch_wide_nw<NP, 2>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 3: return launch_wide_nw<NP, 3>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 4: return launch_wide_nw<NP, 4>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 5: return launch_wide_nw<NP, 5>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 6: return launch_wide_nw<NP, 6>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 7: return launch_wide_nw<NP, 7>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    default: return launch_wide_nw<NP, 8>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+  }
 }
 
 bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
@@ -686,36 +910,43 @@ int rr_decimate(const DecimArgs* args, int r, int g, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// A wide plan (see the head of this file): args->taps is W [q][Kw]
-// row-major, band [q][2] each row's nonzero taps; tm periods a tile, qb
-// phases a block, uc staged taps a chunk (shared bytes wide_smem_bytes,
-// at most 48 KB).
-int rr_decimate_wide(const DecimArgs* args, const int* band, int tm, int qb,
-                     int uc, void* stream) {
+// A wide plan (see the head of this file) in aligned mode: args->hist =
+// Kw - p; wide the band taps and the launch's shape (wide_config).
+int rr_decimate_wide(const DecimArgs* args, const WideArgs* wide,
+                     void* stream) {
   const DecimArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (a.nplanes == 1)
-    return launch_wide<1, false>(a, band, tm, qb, uc, nullptr, nullptr, st);
+    return launch_wide<1>(a, *wide, 0, nullptr, nullptr, st);
   if (a.nplanes == 2)
-    return launch_wide<2, false>(a, band, tm, qb, uc, nullptr, nullptr, st);
+    return launch_wide<2>(a, *wide, 0, nullptr, nullptr, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Phase mode (see the head of this file) on the wide kernel: args->hist is
 // Kw - 1, args->n the chunk; phase_in [b] int32 the grid phase (row 0
-// places the windows), phase_out [b] int32 the next phase; tm, qb, uc as
-// for rr_decimate_wide with ceil(n / p) windows in place of n / p periods.
-int rr_decimate_phase(const DecimArgs* args, const int* band,
-                      const int* phase_in, int* phase_out, int tm, int qb,
-                      int uc, void* stream) {
+// places the windows), phase_out [b] int32 the next phase; the shape as
+// for rr_decimate_wide with ceil(n / p) windows.
+int rr_decimate_phase(const DecimArgs* args, const WideArgs* wide,
+                      const int* phase_in, int* phase_out, void* stream) {
   const DecimArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (a.nplanes == 1)
-    return launch_wide<1, true>(a, band, tm, qb, uc, phase_in, phase_out, st);
+    return launch_wide<1>(a, *wide, 1, phase_in, phase_out, st);
   if (a.nplanes == 2)
-    return launch_wide<2, true>(a, band, tm, qb, uc, phase_in, phase_out, st);
+    return launch_wide<2>(a, *wide, 1, phase_in, phase_out, st);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef RR_DECIM_CLOCKS
+// Development build only: wide launches from now on stamp their phases
+// into clk (int64, kWideMarks a block, block (z-major) blockIdx.z, .y,
+// .x); null stops it.
+int rr_decim_clocks(long long* clk) {
+  wide_clocks = clk;
+  return 0;
+}
+#endif
 
 int rr_mix_decimate(const DecimArgs* args, int r, int g, void* stream) {
   const DecimArgs& a = *args;

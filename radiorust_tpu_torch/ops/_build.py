@@ -47,9 +47,9 @@ _COLUMN_SCRATCH = [_P, _P]  # overlap-save column scratch planes, or null
 _SIGNATURES = {
     "rr_decimate": [_P, _I, _I, _P],        # DecimArgs*, R, G, stream
     "rr_mix_decimate": [_P, _I, _I, _P],
-    "rr_decimate_wide": [_P, _P, _I, _I, _I, _P],   # args, band, tm, qb, uc
-    # args, band, phase in, phase out, tm, qb, uc
-    "rr_decimate_phase": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rr_decimate_wide": [_P, _P, _P],      # DecimArgs*, WideArgs*, stream
+    # DecimArgs*, WideArgs*, phase in, phase out, stream
+    "rr_decimate_phase": [_P, _P, _P, _P, _P],
     "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + _PLAN
                         + [_P] * 6 + [_I, _I, _I] + _COLUMN_SCRATCH + [_P]),
     "rr_demod_filter": ([_P] * 11 + [_I] * 3 + _PLAN + [_P] * 5 + [_I, _I]
@@ -76,6 +76,7 @@ _SIGNATURES = {
 _DEV_SIGNATURES = {
     "rr_slew_clocks": [_P] * 9 + [_I] * 3 + [_P, _P],   # RR_SCAN_CLOCKS
     "rr_cluster_clocks": [_P],                            # RR_OS_CLOCKS
+    "rr_decim_clocks": [_P],                              # RR_DECIM_CLOCKS
 }
 
 _libs = {}

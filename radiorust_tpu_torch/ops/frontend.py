@@ -30,10 +30,10 @@ The kernel reads the taps re-laid by phase, :func:`relay_taps`, built
 once per taps tensor on its device.  A plan whose phases or staged span
 pass one block of that kernel (:func:`fits_block`: more than 16 output
 phases, as 48 kHz -> 44.1 kHz has 147) runs :func:`decimate` on the
-kernel's wide form instead (``rr_decimate_wide``, shaped by
-:func:`wide_config`): the taps in their own [q, Kw] layout, each row over
-its band of nonzero taps (:func:`tap_bands`), the phases looped over the
-block's warps in rounds.  The mixer form takes the first kind only.
+kernel's wide form instead (``rr_decimate_wide``), as every phase-mode
+step does: the taps re-laid to their bands (:func:`wide_layout`, once
+per taps tensor), one output a thread or lane group, the launch shaped
+by :func:`wide_config`.  The mixer form takes the first kind only.
 """
 
 from __future__ import annotations
@@ -41,7 +41,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import _build
@@ -54,18 +56,22 @@ __all__ = ["decimate", "decimate_plain", "fused_mix_decimate",
            "fused_mix_decimate_complex_plain", "mix_tail",
            "decimate_supported",
            "relay_taps", "launch_config", "fits_block", "wide_config",
-           "tap_bands"]
+           "wide_layout", "WideLayout"]
 
 # Shared memory one block may take and threads a block may have
 # (kMaxThreads in csrc/decimate.cu) on an H100.
 _SMEM_LIMIT = 227 * 1024
 _MAX_THREADS = 512
-# The wide form: 8 warps a block, at most 48 KB of shared memory with its
-# 64 static bytes (no opt-in), a tile of up to 32 periods and a phase
-# block of up to 32 rows.
-_WIDE_SMEM = 48 * 1024 - 64
-_WIDE_TM = 32
-_WIDE_QB = 32
+# The wide form (kWideThreads, kWideNW in csrc/decimate.cu): at most 256
+# threads a block and 8 windows a thread; bands of _WIDE_LONG taps or more
+# are split over lane groups of _WIDE_GROUP; a call aims at _WIDE_FILL
+# blocks (two on each of the H100's 132 SMs) before it takes more windows
+# a thread.
+_WIDE_THREADS = 256
+_WIDE_NW = 8
+_WIDE_LONG = 128
+_WIDE_GROUP = 8
+_WIDE_FILL = 264
 
 
 def _apad(kw: int, p: int) -> int:
@@ -123,16 +129,128 @@ def fits_block(p: int, q: int, kw: int, nplanes: int = 2) -> bool:
             and (32 * r + _apad(kw, p) + 8) * p * p < 2 ** 31)
 
 
-def wide_config(p: int, q: int, kw: int, n: int, nplanes: int):
-    """(tm, qb, uc) of a wide launch at chunk n: tm periods a tile (up to
-    32), qb phases a block (up to 32), and uc taps staged a chunk so that
-    the staged windows [nplanes, tm, uc] and the partial sums [nplanes,
-    qb, tm] leave 64 of 48 KB free (``wide_smem_bytes`` in
-    csrc/decimate.cu)."""
-    tm = min(n // p, _WIDE_TM)
-    qb = min(q, _WIDE_QB)
-    budget = _WIDE_SMEM // 4 - nplanes * qb * tm
-    return tm, qb, min(kw, budget // (nplanes * tm))
+@dataclass(frozen=True, eq=False)
+class WideLayout:
+    """The wide form's taps, re-laid once per taps tensor: ``taps`` [U,
+    ls] float32, the distinct bands of nonzero taps (each from column 0,
+    zero padded; a downsample plan's rows are one prototype at q offsets,
+    so U = 1), ``rows`` [q, 3] int32 (lo_r, L_r, band: the band's first
+    tap in W, its length, 0 for a row of zeros, and which of ``taps``)
+    and ``zband`` [ceil(q / nr), 4] int32 (a phase block's joint band:
+    first tap ulo, width; the bands its rows read, [u0, u0 + un)); ``g``
+    lanes an output, ``nr`` phases a block, ``un`` the most bands a
+    block reads, ``wmax`` the widest joint band.  numpy arrays from
+    :func:`wide_layout`, tensors on the taps' device in the wrapper."""
+    taps: object
+    rows: object
+    zband: object
+    g: int
+    ls: int
+    nr: int
+    un: int
+    wmax: int
+
+    @property
+    def shape(self):
+        """What :func:`wide_config` reads: (g, ls, nr, un, wmax, blocks
+        of phases)."""
+        return self.g, self.ls, self.nr, self.un, self.wmax, len(self.zband)
+
+
+def wide_layout(kernel_matrix: np.ndarray) -> WideLayout:
+    """The wide form's band layout of a [q, Kw] taps matrix (host numpy).
+    Lane groups: G = 8 where the longest band has 128 taps or more, else
+    1.  Row stride ls >= L with ls = G mod 2 G, so the lanes' tap reads
+    fall in distinct banks.  Equal bands are stored once.  Phases a
+    block: nr <= 256 / G (fewer while the block's bands pass half of
+    shared memory), spread evenly over ceil(q / nr) blocks."""
+    w = np.asarray(kernel_matrix, dtype=np.float32)
+    q, kw = w.shape
+    nz = w != 0
+    have = nz.any(axis=1)
+    lo = np.where(have, nz.argmax(axis=1), 0)
+    hi = np.where(have, kw - nz[:, ::-1].argmax(axis=1), 0)
+    lens = hi - lo
+    L = int(lens.max())
+    g = _WIDE_GROUP if L >= _WIDE_LONG else 1
+    ls = L + (g - L % (2 * g)) % (2 * g)
+    index, bands = {}, []
+    band = np.zeros(q, np.int64)
+    for r in range(q):
+        key = w[r, lo[r]:hi[r]].tobytes()
+        if key not in index:
+            index[key] = len(bands)
+            bands.append(w[r, lo[r]:hi[r]])
+        band[r] = index[key]
+    taps = np.zeros((len(bands), ls), np.float32)
+    for u, v in enumerate(bands):
+        taps[u, :len(v)] = v
+    nr = _WIDE_THREADS // g
+    while True:
+        blocks = -(-q // nr)
+        nr_even = -(-q // blocks)
+        zband = np.zeros((blocks, 4), np.int32)
+        for z in range(blocks):
+            sel = slice(z * nr_even, min(q, (z + 1) * nr_even))
+            u0, u1 = int(band[sel].min()), int(band[sel].max()) + 1
+            zband[z, 2:] = u0, u1 - u0
+            if have[sel].any():
+                ulo = int(lo[sel][have[sel]].min())
+                zband[z, :2] = ulo, int(hi[sel].max()) - ulo
+        un = int(zband[:, 3].max())
+        if nr == 1 or 4 * un * ls <= _SMEM_LIMIT // 2:
+            break
+        nr //= 2
+    rows = np.stack([lo, lens, band], 1).astype(np.int32)
+    return WideLayout(taps, rows, zband, g, ls, nr_even, un,
+                      int(zband[:, 1].max()))
+
+
+def _wide_span(p: int, wmax: int, tm: int):
+    """(xs, xlen) of a wide block's staged span for tm windows: one run
+    at stride p where windows overlap (p <= width), else one run a window
+    at a stride xs >= width of p's parity (the 16-byte shift holds for
+    every run); xlen positions in all."""
+    if p <= wmax:
+        return p, (tm - 1) * p + wmax
+    xs = wmax + ((wmax ^ p) & 1)
+    return xs, tm * xs
+
+
+def _wide_smem(nplanes: int, un: int, ls: int, xlen: int) -> int:
+    """Shared bytes of a wide launch (``wide_smem_bytes`` in
+    csrc/decimate.cu): un bands at their 16-byte phase, then xlen + 1
+    positions of the span."""
+    return 4 * (((un * ls + 6) & ~3) + nplanes * (xlen + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def wide_config(shape, p: int, windows: int, batch: int, nplanes: int):
+    """(ws, nw, xs, xlen, threads, smem) of a wide launch of ``windows``
+    windows a stream (n / p aligned, ceil(n / p) in phase mode) at the
+    layout's ``shape`` (:attr:`WideLayout.shape`): ws windows across a
+    block's threads, nw in each thread's registers (tm = ws nw a tile),
+    the span's stride and length, threads a block and shared bytes.  nw
+    is the largest that still gives :data:`_WIDE_FILL` blocks (else 1,
+    the most blocks).  Raises where no shape fits a block."""
+    g, ls, nr, un, wmax, zb = shape
+    ws = max(1, min(_WIDE_THREADS // (nr * g), windows))
+    threads = -(-nr * g * ws // 32) * 32
+    best = None
+    for nw in range(1, _WIDE_NW + 1):
+        if nw > 1 and (nw - 1) * ws >= windows:
+            break
+        xs, xlen = _wide_span(p, wmax, ws * nw)
+        smem = _wide_smem(nplanes, un, ls, xlen)
+        if smem > _SMEM_LIMIT:
+            break
+        blocks = batch * -(-windows // (ws * nw)) * zb
+        if best is None or blocks >= _WIDE_FILL:
+            best = (ws, nw, xs, xlen, threads, smem)
+    if best is None:
+        raise ValueError(f"wide decimation: no block fits p={p}, "
+                         f"shape {shape} in shared memory")
+    return best
 
 
 def decimate_supported(n: int, plan, mixer: bool = False) -> bool:
@@ -155,19 +273,6 @@ def _check_layout(n, hist, kw, p):
     # violating call would compute misaligned windows, not fail.
     assert n % p == 0, (p, n)
     assert hist == kw - p and hist > 0, (hist, kw, p)
-
-
-def tap_bands(kernel_matrix: torch.Tensor) -> torch.Tensor:
-    """[q, 2] int32: each row's nonzero taps [lo, hi) (first nonzero, last
-    nonzero + 1), or [Kw, 0] for a row of zeros."""
-    q, kw = kernel_matrix.shape
-    nz = (kernel_matrix != 0).to(torch.int32)
-    any_nz = nz.amax(dim=1) > 0
-    first = nz.argmax(dim=1)
-    lo = torch.where(any_nz, first, torch.full_like(first, kw))
-    hi = torch.where(any_nz, kw - nz.flip(1).argmax(dim=1),
-                     torch.zeros_like(first))
-    return torch.stack([lo, hi], dim=1).to(torch.int32).contiguous()
 
 
 _relaid = {}
@@ -196,9 +301,30 @@ def _device_taps(kernel_matrix: torch.Tensor, p: int) -> torch.Tensor:
     return _cached(kernel_matrix, p, lambda w: relay_taps(w, p))
 
 
+def _device_wide(kernel_matrix: torch.Tensor) -> WideLayout:
+    """:func:`wide_layout` of this taps tensor on its device, built once
+    per tensor (one read of the taps to the host, in an eager step before
+    any capture)."""
+    def build(w):
+        lay = wide_layout(w.detach().cpu().numpy())
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            w.device)
+        return WideLayout(put(lay.taps), put(lay.rows), put(lay.zband),
+                          lay.g, lay.ls, lay.nr, lay.un, lay.wmax)
+    return _cached(kernel_matrix, "wide", build)
+
+
 _PAIR = ctypes.c_void_p * 2
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
+
+
+class _WideArgs(ctypes.Structure):
+    """``WideArgs`` of csrc/decimate.cu, field for field."""
+    _fields_ = [("taps", ctypes.c_void_p), ("rows", ctypes.c_void_p),
+                ("zband", ctypes.c_void_p), ("ls", _I32), ("g", _I32),
+                ("nr", _I32), ("un", _I32), ("ws", _I32), ("nw", _I32),
+                ("xs", _I32), ("xlen", _I32), ("threads", _I32)]
 
 
 class _Args(ctypes.Structure):
@@ -274,20 +400,23 @@ def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
     a.b, a.n, a.hist, a.p, a.q = b, n, hist, p, q
     a.apad, a.inner, a.nplanes = _apad(kw, p), 1, nplanes
     if wide:
-        a.taps = _build.f32_ptr(kernel_matrix, "kernel_matrix")
-        bands = _cached(kernel_matrix, "bands", tap_bands)
+        _build.f32_ptr(kernel_matrix, "kernel_matrix")   # raises on others
+        lay = _device_wide(kernel_matrix)
+        windows = -(-n // p) if phase is not None else n // p
+        ws, nw, xs, xlen, threads, _ = wide_config(lay.shape, p, windows, b,
+                                                   nplanes)
+        wa = _WideArgs(lay.taps.data_ptr(), lay.rows.data_ptr(),
+                       lay.zband.data_ptr(), lay.ls, lay.g, lay.nr, lay.un,
+                       ws, nw, xs, xlen, threads)
         stream = _build.stream_handle(x0.device)
         if phase is None:
             err = _build.lib().rr_decimate_wide(
-                ctypes.addressof(a), bands.data_ptr(),
-                *wide_config(p, q, kw, n, nplanes), stream)
+                ctypes.addressof(a), ctypes.addressof(wa), stream)
             _build.check(err, "rr_decimate_wide")
             return
-        # ceil(n / p) windows: wide_config takes the periods as n // p.
         err = _build.lib().rr_decimate_phase(
-            ctypes.addressof(a), bands.data_ptr(), phase[0].data_ptr(),
-            phase[1].data_ptr(), *wide_config(p, q, kw, -(-n // p) * p,
-                                              nplanes), stream)
+            ctypes.addressof(a), ctypes.addressof(wa), phase[0].data_ptr(),
+            phase[1].data_ptr(), stream)
         _build.check(err, "rr_decimate_phase")
         return
     a.taps = _device_taps(kernel_matrix, p).data_ptr()

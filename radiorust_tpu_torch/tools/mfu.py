@@ -55,7 +55,8 @@ from ._common import device_label, env_int, parse_args, port_lib, \
 __all__ = ["PEAK_BYTES_S", "PEAK_FLOPS", "DEMOD_FLOPS", "MIX_FLOPS",
            "SLEW_FLOPS", "AGC_FLOPS", "CONFIGS", "tensors",
            "io_bytes", "bound_of", "fft_flops", "nonzero_taps",
-           "decimate_flops", "decimate_phase_flops", "mix_decimate_flops",
+           "decimate_flops", "decimate_phase_flops", "decimate_bytes",
+           "mix_decimate_flops",
            "overlap_save_flops", "filter_bank_flops", "demod_filter_flops",
            "filter_demod_filter_flops", "pfb_demod_flops", "slew_flops",
            "agc_flops", "stage_flops", "config", "analyze", "main"]
@@ -131,6 +132,16 @@ def decimate_phase_flops(plan, batch: int, valid: int,
     """#1's phase-mode entry: ``valid`` output samples a row (the
     schedule's, over the steps counted)."""
     return 2 * planes * batch * (valid // plan.q) * nonzero_taps(plan)
+
+
+def decimate_bytes(plan, inputs, results, calls: int = 1) -> int:
+    """Bytes #1 must move in ``calls`` calls (any form: polyphase, wide,
+    phase mode): its sample tensors (input, history, phase; ``inputs``
+    without any taps tensor) and ``results`` by :func:`io_bytes`, plus
+    the plan's nonzero taps (float32) read once a call.  The taps count
+    the same whatever layout a kernel reads them in (the dense W, the
+    polyphase re-layout, the wide form's bands)."""
+    return io_bytes(inputs, results) + calls * 4 * nonzero_taps(plan)
 
 
 def mix_decimate_flops(plan, batch: int, n: int) -> float:

@@ -306,6 +306,37 @@ def test_stage_flops_of_the_bench_chain_are_its_kernels_counts():
 
 # --- 5. the code's shape ------------------------------------------------------
 
+def test_decimate_bytes_at_path_k_count_the_nonzero_taps_once():
+    """#1's bytes at path K's phase-mode plan (384 kHz -> 44.1 kHz, chunk
+    6144, 64 streams): the input, history, phase, outputs, new history
+    and new phase, plus the plan's 147 x 285 nonzero taps once, whatever
+    taps tensor the kernel is handed (the dense W, the polyphase
+    re-layout or the wide form's bands)."""
+    from radiorust_tpu_torch.ops import frontend as tfe
+    from radiorust_tpu_torch.ops.polyphase import plan_downsample
+    plan = plan_downsample(384000.0, 44100.0, 36000.0)
+    q, kw = plan.kernel.shape
+    assert (plan.p, q, kw, mfu.nonzero_taps(plan)) == (1280, 147, 1564,
+                                                       147 * 285)
+    b, n = 64, 6144
+    x = torch.zeros((b, n), dtype=torch.complex64)
+    h = torch.zeros((b, kw - 1), dtype=torch.complex64)
+    ph = torch.zeros(b, dtype=torch.int32)
+    y = torch.zeros((b, 5 * q), dtype=torch.complex64)
+    want = (8 * b * (n + (kw - 1) + 5 * q + (kw - 1)) + 2 * 4 * b
+            + 4 * 147 * 285)
+    assert mfu.decimate_bytes(plan, (x, h, ph), (y, h.clone(),
+                                                 ph.clone())) == want
+    # The taps tensor a call passes changes nothing: only the plan counts.
+    w = torch.from_numpy(plan.kernel)
+    bands = tfe.wide_layout(plan.kernel).taps
+    assert bands.size < w.numel() and 4 * 147 * 285 < 4 * w.numel()
+    assert mfu.decimate_bytes(plan, (x, h, ph), (y, h.clone(), ph.clone()),
+                              calls=3) == want + 2 * 4 * 147 * 285
+    assert mfu.bound_of(want, mfu.decimate_phase_flops(plan, b, 4 * q))[1] \
+        == "bytes"
+
+
 def test_chip_smoke_takes_the_model_from_mfu():
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     own = set()

@@ -10,7 +10,12 @@ vectorised over threads and blocks, shared memory as flat float32 arrays
 that start as NaN, so a read of a position nothing staged shows), fed the
 same re-laid taps, and is held against the plain versions
 ``decimate_plain`` / ``fused_mix_decimate_plain`` at every plan the port
-binds.  Nothing here needs a GPU.
+binds.  ``wide_model`` does the same for the wide form and phase mode
+(``decimate_wide_kernel``: band taps from
+:func:`~radiorust_tpu_torch.ops.frontend.wide_layout`, one output a
+thread or lane group, the launch shape of ``wide_config``) against
+``decimate_plain`` and ``rational_fir_phase``.  Nothing here needs a
+GPU.
 """
 
 import numpy as np
@@ -421,159 +426,280 @@ def test_complex_wrappers_match_plane_wrappers(form):
     assert torch.equal(y, want_y) and torch.equal(nh, want_h)
 
 
-# The plans past one block of the polyphase kernel: (input rate, output
-# rate, bandwidth, chunk).  48 kHz -> 44.1 kHz has p = 160, q = 147,
-# Kw = 171; 384 kHz -> 44.1 kHz p = 1280, q = 147, Kw = 1361; 1.024 MHz
-# -> 44.1 kHz p = 10240, q = 441, Kw = 10458.
-WIDE_PLANS = {"48k to 44.1k": (48000.0, 44100.0, 20000.0, 1600),
-              "384k to 44.1k": (384000.0, 44100.0, 16000.0, 12800),
-              "1.024M to 44.1k": (1024000.0, 44100.0, 16000.0, 20480)}
-WIDE_OUT = 8      # kWideOut: periods a lane keeps in registers
+# The plans past one block of the polyphase kernel: (maker, chunk).
+# 48 kHz -> 44.1 kHz has p = 160, q = 147, Kw = 171 (path I); 384 kHz ->
+# 44.1 kHz p = 1280, q = 147, Kw = 1361; 1.024 MHz -> 44.1 kHz p = 10240,
+# q = 441, Kw = 10458; path J's upsample 48 kHz -> 1.024 MHz p = 3, q =
+# 64, Kw = 38 (wfm_transmitter's, 256 periods a 768-sample chunk).
+WIDE_PLANS = {
+    "48k to 44.1k": (lambda: plan_downsample(48000.0, 44100.0, 20000.0),
+                     1600),
+    "384k to 44.1k": (lambda: plan_downsample(384000.0, 44100.0, 16000.0),
+                      12800),
+    "1.024M to 44.1k": (lambda: plan_downsample(1024000.0, 44100.0,
+                                                16000.0), 20480),
+    "J 3:64": (lambda: plan_upsample(48000.0, 1024000.0, 40000.0), 768),
+}
 
 
 def _wide_plan(name):
-    rate_in, rate_out, bw, n = WIDE_PLANS[name]
-    return plan_downsample(rate_in, rate_out, bw), n
+    make, n = WIDE_PLANS[name]
+    return make(), n
 
 
-def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None):
+def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
+               shape_batch=None):
     """One launch of ``decimate_wide_kernel``: xs_in [b, NP, n], hs_in
-    [b, NP, hist] float32, W [q, Kw]; cfg = (tm, qb, uc) or None for
-    the wrapper's ``wide_config``.  Block by block (tile, stream, phase
-    block): the rows' joint band, the staged windows per chunk of uc taps
-    (NaN where nothing is staged), each row's lanes over its band with
-    fmaf, the shuffle tree, the partial sums, the outputs and the history
-    copy.  ``phase`` [b] int32: phase mode (``rr_decimate_phase``), hist =
-    Kw - 1, M = ceil(n / p) windows from the offset p - 1 - phase[0],
-    zeros read past the chunk, windows from v = (phase[0] + n) // p on
-    written as zeros.  Returns (y [b, NP, M q], new hist), and in phase
-    mode the new phase too."""
+    [b, NP, hist] float32, W [q, Kw]; cfg = (ws, nw, xs, xlen, threads,
+    smem) or None for the wrapper's ``wide_config`` at batch b (at
+    ``shape_batch`` where given: the paths' launch shape on fewer
+    streams).  Block by block
+    (phase block z, tile, stream): the rows' band taps as re-laid by
+    ``wide_layout``, the staged span (one run or one a window, NaN where
+    nothing is staged, zeros past the chunk), each thread's lane g, phase
+    and windows (clamped to the tile), its fmaf sums over its share of
+    the band, the lane group's shuffle tree, the masked stores, and each
+    block's share of the history copy.  ``phase`` [b] int32: phase mode
+    (``rr_decimate_phase``), hist = Kw - 1, M = ceil(n / p) windows from
+    p - 1 - phase[0], windows from v = (phase[0] + n) // p on written as
+    zeros.  Returns (y [b, NP, M q], new hist), and in phase mode the new
+    phase too."""
     b, NP, n = xs_in.shape
     hist = hs_in.shape[-1]
     kw = W.shape[-1]
     if phase is None:
-        M, o0, v = n // p, 0, n // p
+        M, start, v = n // p, 0, n // p
         assert hist == kw - p
     else:
         M = -(-n // p)
-        o0, v = p - 1 - int(phase[0]), (int(phase[0]) + n) // p
+        start, v = p - 1 - int(phase[0]), (int(phase[0]) + n) // p
         assert hist == kw - 1
-    tm, qb, ucap = cfg or tfe.wide_config(p, q, kw, M * p, NP)
-    assert 4 * (NP * tm * ucap + NP * qb * tm) <= tfe._WIDE_SMEM
-    band = tfe.tap_bands(torch.from_numpy(W)).numpy()
-    lane = np.arange(LANES)
+    lay = tfe.wide_layout(W)
+    g, ls, nrc, un, wmax, zb = lay.shape
+    ws_n, nw, xs, xlen, threads, smem = cfg or tfe.wide_config(
+        lay.shape, p, M, shape_batch or b, NP)
+    assert smem == tfe._wide_smem(NP, un, ls, xlen) <= tfe._SMEM_LIMIT
+    assert g * nrc * ws_n <= threads <= tfe._WIDE_THREADS
+    assert threads % LANES == 0 and LANES % g == 0 and nw <= tfe._WIDE_NW
+    tm = ws_n * nw
+    tiles = -(-M // tm)
+    taps = lay.taps.reshape(-1)
     y = np.full((b, NP, M * q), np.nan, np.float32)
     nh = np.full((b, NP, hist), np.nan, np.float32)
-    tiles, zblocks = -(-M // tm), -(-q // qb)
-    for s, tile, z in np.ndindex(b, tiles, zblocks):
-        m0, r0 = tile * tm, z * qb
-        mt, nr = min(tm, M - m0), min(qb, q - r0)
-        ulo, uhi = band[r0:r0 + nr, 0].min(), band[r0:r0 + nr, 1].max()
-        red = np.zeros((NP, qb, tm), np.float32)
-        for U0 in range(ulo, uhi, ucap):
-            uc = min(ucap, uhi - U0)
-            S = np.full((NP, tm, ucap), np.nan, np.float32)
-            j = o0 + (m0 + np.arange(mt)[:, None]) * p + U0 + np.arange(uc)
+    t = np.arange(threads)
+    gl, rr, wsl = t % g, (t // g) % nrc, t // (g * nrc)
+    for z, tile, s in np.ndindex(zb, tiles, b):
+        m0, r0 = tile * tm, z * nrc
+        mt, nr = min(tm, M - m0), min(nrc, q - r0)
+        ulo, width, u0, unz = (int(c) for c in lay.zband[z])
+        assert width <= wmax and unz <= un
+        T = taps[u0 * ls:(u0 + unz) * ls]
+        # The span: buf[P0 + k p + i] to X[k xs + i].
+        buf = np.concatenate([hs_in[s], xs_in[s]], axis=-1)
+        X = np.full((NP, xlen + 1), np.nan, np.float32)
+        P0 = start + m0 * p + ulo
+        one_run = xs == p
+        runs = (1 if one_run else mt) if width else 0
+        rlen = (mt - 1) * p + width if one_run else width
+        for k in range(runs):
+            j = P0 + k * p + np.arange(rlen)
             assert phase is not None or (j < hist + n).all()
-            from_h = np.where(j < hist, j, 0)
-            from_x = np.where((j >= hist) & (j < hist + n), j - hist, 0)
-            S[:, :mt, :uc] = np.where(
-                j < hist, hs_in[s][:, from_h],
-                np.where(j < hist + n, xs_in[s][:, from_x], 0.0))
-            for rr in range(nr):
-                r = r0 + rr
-                lo, hi = max(band[r, 0], U0), min(band[r, 1], U0 + uc)
-                for mb in range(0, mt, WIDE_OUT):
-                    acc = np.zeros((NP, LANES, WIDE_OUT), np.float32)
-                    for u0 in range(lo, hi, LANES):
-                        u = u0 + lane
-                        live = u < hi
-                        wu = np.where(live, W[r, np.where(live, u, 0)], 0)
-                        col = np.where(live, u - U0, 0)
-                        for jj in range(min(WIDE_OUT, mt - mb)):
-                            sv = S[:, mb + jj, col]
-                            assert not np.isnan(sv[:, live]).any()
-                            fma = (wu.astype(np.float64) * sv
-                                   + acc[:, :, jj]).astype(np.float32)
-                            acc[:, :, jj] = np.where(live, fma, acc[:, :, jj])
-                    for off in (16, 8, 4, 2, 1):
-                        acc = (acc + acc[:, lane ^ off]).astype(np.float32)
-                    k = min(WIDE_OUT, mt - mb)
-                    red[:, rr, mb:mb + k] += acc[:, 0, :k]
-        m = np.arange(mt)
-        done = (m0 + m) < v
-        for rr in range(nr):
-            y[s][:, (m0 + m) * q + r0 + rr] = np.where(done, red[:, rr, :mt],
-                                                       0.0)
-        if tile == tiles - 1 and z == 0:
-            buf = np.concatenate([hs_in[s], xs_in[s]], axis=-1)
-            nh[s] = buf[:, n:n + hist]
+            at = k * xs + np.arange(rlen)
+            assert at.max() < xlen
+            X[:, at] = np.where(j < hist + n,
+                                buf[:, np.minimum(j, hist + n - 1)], 0.0)
+        # [threads, nw]: each thread's windows.
+        k_of = wsl[:, None] + np.arange(nw)[None, :] * ws_n
+        live = (rr < nr) & (wsl < ws_n) & (wsl < mt)
+        r = np.minimum(r0 + rr, q - 1)
+        off = np.where(live, lay.rows[r, 0] - ulo, 0)
+        ln = np.where(live, lay.rows[r, 1], 0)
+        tb = np.where(live, lay.rows[r, 2] - u0, 0)
+        assert (tb >= 0).all() and (tb < unz).all()
+        acc = np.zeros((NP, threads, nw), np.float32)
+        xo = np.minimum(k_of, mt - 1) * xs + off[:, None]
+        for u0 in range(0, int(ln.max(initial=0)), g):
+            u = u0 + gl
+            act = u < ln
+            w = np.where(act, T[np.where(act, tb * ls + u, 0)], 0.0)
+            xv = X[:, np.where(act[:, None], xo + u[:, None], 0)]
+            assert not np.isnan(xv[:, act]).any()
+            fma = (w[None, :, None].astype(np.float64) * xv
+                   + acc).astype(np.float32)   # fmaf: one rounding
+            acc = np.where(act[None, :, None], fma, acc)
+        o = g >> 1
+        while o:   # __shfl_xor_sync within the lane group
+            acc = (acc + acc[:, t ^ o]).astype(np.float32)
+            o >>= 1
+        for tt in np.flatnonzero(live & (gl == 0)):
+            for j in range(nw):
+                k = k_of[tt, j]
+                if k < mt:
+                    m = m0 + k
+                    y[s, :, m * q + r0 + rr[tt]] = (acc[:, tt, j] if m < v
+                                                    else 0.0)
+        # This block's share of the new history buf[n, n + hist).
+        nb, bi = tiles * zb, tile * zb + z
+        per = -(-hist // nb)
+        i = np.arange(bi * per, min(hist, (bi + 1) * per))
+        nh[s][:, i] = buf[:, n + i]
+    assert not np.isnan(y).any() and not np.isnan(nh).any()
     if phase is None:
         return y, nh
     return y, nh, ((phase + n) % p).astype(np.int32)
 
 
-# (plan, planes, (tm, qb, uc) or None for wide_config): the three plans
-# as the wrapper launches them, a real input, and a launch of short
-# chunks, a ragged tile and a ragged phase block.
+def _ragged_tiles(name):
+    """A launch of 3 windows a tile (10 windows: a last tile of 1) at
+    one window a thread slot."""
+    plan, _ = _wide_plan(name)
+    lay = tfe.wide_layout(plan.kernel)
+    xs, xlen = tfe._wide_span(plan.p, lay.wmax, 3)
+    threads = -(-lay.nr * lay.g // LANES) * LANES
+    return (1, 3, xs, xlen, threads,
+            tfe._wide_smem(2, lay.un, lay.ls, xlen))
+
+
+# (plan, planes, batch, launch shape): the plans as the wrapper launches
+# them at the paths' batch of 64 ("paths": its windows a thread) on fewer
+# streams, a real input, batch 1 and odd batches at their own shape
+# (None), and a launch with a ragged last tile.
 WIDE_CASES = {
-    "48k to 44.1k, two planes": ("48k to 44.1k", 2, None),
-    "384k to 44.1k, two planes": ("384k to 44.1k", 2, None),
-    "1.024M to 44.1k, two planes": ("1.024M to 44.1k", 2, None),
-    "48k to 44.1k, real input": ("48k to 44.1k", 1, None),
-    "384k to 44.1k, chunked, ragged": ("384k to 44.1k", 2, (4, 12, 40)),
+    "48k to 44.1k, two planes": ("48k to 44.1k", 2, 2, "paths"),
+    "384k to 44.1k, two planes": ("384k to 44.1k", 2, 1, "paths"),
+    "1.024M to 44.1k, two planes": ("1.024M to 44.1k", 2, 1, "paths"),
+    "48k to 44.1k, real input": ("48k to 44.1k", 1, 2, "paths"),
+    "384k to 44.1k, chunked, ragged": ("384k to 44.1k", 2, 1,
+                                       _ragged_tiles),
+    "J 3:64, two planes": ("J 3:64", 2, 2, "paths"),
+    "J 3:64, real input, batch 3": ("J 3:64", 1, 3, None),
+    "48k to 44.1k, batch 1": ("48k to 44.1k", 2, 1, None),
+    "48k to 44.1k, batch 5": ("48k to 44.1k", 2, 5, None),
 }
 
 
 @pytest.mark.parametrize("case", list(WIDE_CASES))
 def test_wide_model_matches_plain(case):
-    name, NP, cfg = WIDE_CASES[case]
+    name, NP, b, cfg = WIDE_CASES[case]
     plan, n = _wide_plan(name)
     p, q, W = plan.p, plan.q, plan.kernel
     kw = W.shape[-1]
     assert tfe.decimate_supported(n, plan)
     assert not tfe.fits_block(p, q, kw, NP)
     assert not tfe.decimate_supported(n, plan, mixer=True)
-    b = 2 if kw < 1000 else 1
-    rng = np.random.default_rng(n + kw + NP)
+    rng = np.random.default_rng(n + kw + NP + b)
     xs = rng.standard_normal((b, NP, n)).astype(np.float32)
     hs = rng.standard_normal((b, NP, plan.hist)).astype(np.float32)
-    got, got_h = wide_model(xs, hs, W, p, q, cfg)
+    got, got_h = wide_model(xs, hs, W, p, q,
+                            cfg(name) if callable(cfg) else None,
+                            shape_batch=64 if cfg == "paths" else None)
     want, want_h = _plain(xs, hs, W, p, q)
     assert got.shape == want.shape
     assert _rel(got, want) <= REL, case
     np.testing.assert_array_equal(got_h, want_h)
 
 
+def _all_wide_geometries():
+    """(label, plan, windows a stream) of every geometry the wide kernel
+    runs at on the paths and in chip_smoke.py's checks."""
+    out = [(name, *_wide_plan(name)) for name in WIDE_PLANS]
+    out = [(name, plan, n // plan.p) for name, plan, n in out]
+    for name, (make, n, _) in PHASE_PLANS.items():
+        plan = make()
+        out.append((name, plan, -(-n // plan.p)))
+    return out
+
+
 @pytest.mark.parametrize("name", list(WIDE_PLANS))
 def test_wide_configs_and_bands(name):
-    """The launch shape of each wide plan, and the bands it reads: each
-    row is the prototype shifted, L = Kw - p + 1 taps from its own
-    offset, so the band holds every nonzero tap and nothing else."""
+    """The band layout of each wide plan: row r's re-laid band is W's
+    nonzero taps from lo_r, L_r of them, zero padded to ls = G mod 2 G,
+    each distinct band stored once (a downsample plan's rows are one
+    prototype at q offsets: one band; the upsample's rows are q
+    different phases: q bands); each phase block's joint band covers its
+    rows' bands and nothing past them, and names the bands they read; a
+    row of zeros has an empty band."""
     plan, n = _wide_plan(name)
     p, q, W = plan.p, plan.q, plan.kernel
-    kw = W.shape[-1]
-    tm, qb, uc = tfe.wide_config(p, q, kw, n, 2)
-    assert tm == min(n // p, 32) and qb == min(q, 32) and uc >= 1
-    assert 4 * (2 * tm * uc + 2 * qb * tm) <= tfe._WIDE_SMEM
-    band = tfe.tap_bands(torch.from_numpy(W)).numpy()
+    lay = tfe.wide_layout(W)
+    g, ls, nr, un, wmax, zb = lay.shape
+    assert ls % (2 * g) == g and zb == -(-q // nr)
     for r in range(q):
-        lo, hi = band[r]
+        lo, ln, band = lay.rows[r]
         nz = np.flatnonzero(W[r])
-        assert lo == nz[0] and hi == nz[-1] + 1
-        assert hi - lo <= kw - p + 1
-    zero = np.zeros((2, 5), np.float32)
+        assert lo == nz[0] and lo + ln == nz[-1] + 1 and ln <= ls
+        np.testing.assert_array_equal(lay.taps[band, :ln], W[r, lo:lo + ln])
+        assert not lay.taps[band, ln:].any()
+    assert len(lay.taps) == (q if name.startswith("J") else 1)
+    assert len({lay.taps[u].tobytes() for u in range(len(lay.taps))}) == \
+        len(lay.taps)
+    for z in range(zb):
+        rows = lay.rows[z * nr:(z + 1) * nr]
+        ulo, width, u0, unz = lay.zband[z]
+        assert ulo == rows[:, 0].min()
+        assert ulo + width == (rows[:, 0] + rows[:, 1]).max() <= W.shape[1]
+        assert u0 == rows[:, 2].min() and u0 + unz == rows[:, 2].max() + 1
+        assert unz <= un
+    assert wmax == lay.zband[:, 1].max() and un == lay.zband[:, 3].max()
+    zero = np.zeros((3, 5), np.float32)
     zero[1, 2] = 1.0
-    assert tfe.tap_bands(torch.from_numpy(zero)).tolist() == [[5, 0], [2, 3]]
+    zl = tfe.wide_layout(zero)
+    assert zl.rows.tolist() == [[0, 0, 0], [2, 1, 1], [0, 0, 0]]
+    assert zl.zband.tolist() == [[2, 1, 0, 2]] and zl.taps.shape == (2, 1)
 
 
+@pytest.mark.parametrize("batch", [64, 3, 1])
+def test_wide_launch_shapes_fit(batch):
+    """At every geometry the wide kernel runs (batch 64, an odd batch,
+    batch 1): a block within 227 KB of shared memory and 1024 threads
+    (the kernel's own 256; past 48 KB only at the fold's 9510 taps),
+    lane groups inside a warp, every output thread placed, the tile within the kernel's 8 register windows and
+    the grid within CUDA's limits; and at batch 64 the blocks the shape
+    aims at, two an SM."""
+    for label, plan, windows in _all_wide_geometries():
+        lay = tfe.wide_layout(plan.kernel)
+        g, ls, nr, un, wmax, zb = lay.shape
+        for NP in (1, 2):
+            ws, nw, xs, xlen, threads, smem = tfe.wide_config(
+                lay.shape, plan.p, windows, batch, NP)
+            assert smem <= tfe._SMEM_LIMIT == 232448, label
+            assert threads <= tfe._WIDE_THREADS <= 1024, label
+            assert threads % LANES == 0 and LANES % g == 0
+            assert g * nr * ws <= threads and 1 <= nw <= tfe._WIDE_NW
+            assert (nw - 1) * ws < windows
+            tiles = -(-windows // (ws * nw))
+            assert tiles <= 65535 and batch <= 65535
+            span = ((ws * nw - 1) * plan.p + wmax if xs == plan.p
+                    else ws * nw * xs)
+            assert span <= xlen and (xs == plan.p or xs >= wmax)
+            blocks = batch * tiles * zb
+            if batch == 64 and windows > 1:
+                assert blocks >= tfe._WIDE_FILL or nw == 1, label
+            # The fold's block opts in past 48 KB of shared memory.
+            assert (smem > 48 * 1024) == label.startswith("fuse_"), label
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_wide_tap_reads_hit_distinct_banks(g):
+    """A warp's tap reads T[rr ls + u0 + lane % G], rr = lane / G + c, at
+    ls = G mod 2 G, fall in 32 distinct banks."""
+    lane = np.arange(LANES)
+    for L in (12, 36, 82, 233, 285, 465):
+        ls = L + (g - L % (2 * g)) % (2 * g)
+        assert ls % (2 * g) == g
+        for c in range(3):
+            for u0 in range(0, 2 * g, g):
+                banks = (((lane // g) + c) * ls + u0 + lane % g) % 32
+                assert len(set(banks.tolist())) == LANES
 # (maker of the plan, chunk, steps): every phase-mode plan the port binds
 # on the paths and the JAX tests, chained chunk after chunk.  384 kHz ->
 # 44.1 kHz at 6144 (the 44.1 kHz receiver's tail: p = 1280, q = 147, a
 # schedule of 5 steps, 588 or 735 valid samples), 8:3 at 60, 100 and 7
 # (7 is shorter than a period: the history is longer than the chunk),
-# the upsample 384 -> 1024 at 64, and 1.024 MHz -> 44.1 kHz and 22.05 kHz
-# at 16384 (p = 10240, 20480: at 22.05 kHz some steps have no window).
+# the upsample 384 -> 1024 at 64, 1.024 MHz -> 44.1 kHz and 22.05 kHz
+# at 16384 (p = 10240, 20480: at 22.05 kHz some steps have no window),
+# and the fuse_deemphasis fold (8:1, 9510 taps) at 1001, whose block
+# takes shared memory past 48 KB.
 PHASE_PLANS = {
     "384k to 44.1k at 6144": (lambda: plan_downsample(384000.0, 44100.0,
                                                       36000.0), 6144, 4),
@@ -586,24 +712,22 @@ PHASE_PLANS = {
         1024000.0, 44100.0, 17640.0), 16384, 3),
     "1.024M to 22.05k at 16384": (lambda: plan_downsample(
         1024000.0, 22050.0, 8820.0), 16384, 3),
+    "fuse_deemphasis fold at 1001": (lambda: PLANS["fold"][0], 1001, 2),
 }
 
 
-@pytest.mark.parametrize("name", list(PHASE_PLANS))
-def test_phase_model_matches_rational_fir_phase(name):
-    """The phase-mode kernel's index arithmetic (the offset read from the
-    phase, zeros past the chunk, windows masked from v on, the history
-    reaching back into the old one) against ``rational_fir_phase``, step
-    after step with the history and phase handed on, on two planes and
-    on one (a real input); the masked windows exact zeros, the history
-    and phase equal bit for bit."""
+def _phase_chain(name, b, shape_batch=None):
+    """The phase-mode model chained over the plan's steps at batch b (at
+    the launch shape of ``shape_batch`` where given), on two planes and
+    on one (a real input), against ``rational_fir_phase``
+    with the history and phase handed on: the valid prefix within REL,
+    exact zeros behind it, the history and phase bit for bit."""
     make, n, steps = PHASE_PLANS[name]
     plan = make()
     p, q, W = plan.p, plan.q, plan.kernel
     kw = W.shape[-1]
     assert not plan.aligned(n)
-    rng = np.random.default_rng(n + kw)
-    b = 2
+    rng = np.random.default_rng(n + kw + b)
     for NP in (2, 1):
         xs = rng.standard_normal((steps, b, 2, n)).astype(np.float32)
         if NP == 1:
@@ -617,7 +741,7 @@ def test_phase_model_matches_rational_fir_phase(name):
         valid = plan.valid_counts(n, 0, steps)
         for k in range(steps):
             got, nh, nph = wide_model(xs[k, :, :NP], h[:, :NP], W, p, q,
-                                      phase=ph)
+                                      phase=ph, shape_batch=shape_batch)
             x = torch.from_numpy(xs[k, :, 0] + 1j * xs[k, :, 1])
             y, th, tph = tfe.rational_fir_phase(
                 x, th, tph, torch.from_numpy(W), p, q, real_input=NP == 1)
@@ -631,6 +755,29 @@ def test_phase_model_matches_rational_fir_phase(name):
             np.testing.assert_array_equal(nph, tph.numpy())
             h[:, :NP], ph = nh, nph
         assert int(ph[0]) == (steps * n) % p
+
+
+@pytest.mark.parametrize("name", list(PHASE_PLANS))
+def test_phase_model_matches_rational_fir_phase(name):
+    """The phase-mode kernel's index arithmetic (the offset read from the
+    phase, zeros past the chunk, windows masked from v on, the history
+    reaching back into the old one) against ``rational_fir_phase``, step
+    after step with the history and phase handed on, on two planes and
+    on one (a real input); the masked windows exact zeros, the history
+    and phase equal bit for bit; at the launch shape of the paths' batch
+    of 64."""
+    _phase_chain(name, 2, shape_batch=64)
+
+
+@pytest.mark.parametrize("name,b", [("384k to 44.1k at 6144", 1),
+                                    ("384k to 44.1k at 6144", 3),
+                                    ("8:3 at 7", 1),
+                                    ("384 to 1024 at 64", 5)])
+def test_phase_model_at_batch_1_and_odd_batches(name, b):
+    """The same chain at batch 1 (path O's examples) and odd batches:
+    another launch shape (fewer blocks, one window a thread) over the
+    same arithmetic."""
+    _phase_chain(name, b)
 
 
 @pytest.mark.parametrize("name", list(PHASE_PLANS))
@@ -653,9 +800,29 @@ def test_phase_wrapper_on_cpu_is_the_plain_version(name):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert tfe.decimate_phase_complex.launches == before
-    e = -(-n // p)
-    tm, qb, uc = tfe.wide_config(p, q, kw, e * p, 2)
-    assert tm == min(e, 32) and qb == min(q, 32) and uc >= 1
-    assert 4 * (2 * tm * uc + 2 * qb * tm) <= tfe._WIDE_SMEM
+    lay = tfe.wide_layout(plan.kernel)
+    ws, nw, xs, xlen, threads, smem = tfe.wide_config(
+        lay.shape, p, -(-n // p), 2, 2)
+    assert smem == tfe._wide_smem(2, lay.un, lay.ls, xlen) <= tfe._SMEM_LIMIT
+    assert threads <= tfe._WIDE_THREADS and ws * nw >= 1
     with pytest.raises(ValueError):
         tfe.decimate_phase_complex(x, h[:, 1:], ph, W, p, q)
+
+
+def test_decimate_split_runs_the_plain_versions_on_the_cpu(capsys):
+    """``tools/decimate_split.py`` on the CPU: every geometry of #1's wide
+    form and phase-mode entry, and #1's polyphase form and #2 at A, each
+    held against its plain version (here the wrapper is the plain
+    version: no launch, no time), one JSON line each and the card line
+    last."""
+    import json
+
+    from radiorust_tpu_torch.tools import decimate_split
+    rows = decimate_split.main(["--device", "cpu", "--batch", "2"])
+    assert len(rows) == 12
+    assert {r["launches"] for r in rows} == {0}
+    assert all(r["rel"] == 0.0 and r["us_graph_10"] is None for r in rows)
+    kinds = [r["geometry"].split(":")[0] for r in rows]
+    assert kinds[:3] == ["I", "384 kHz -> 44.1 kHz at 12800", "J"]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == {"card": "cpu"}
