@@ -208,7 +208,8 @@ from radiorust_tpu_torch.tools.mfu import (agc_flops, bound_of,
                                            demod_filter_flops,
                                            filter_bank_flops,
                                            filter_demod_filter_flops,
-                                           io_bytes, mix_decimate_flops,
+                                           io_bytes, mix_decimate_bytes,
+                                           mix_decimate_flops,
                                            overlap_save_flops,
                                            pfb_demod_flops, slew_flops,
                                            tensors)
@@ -267,6 +268,25 @@ J_UPSAMPLE = (48000.0, 1024000.0, 40000.0)
 WIDE_CHUNK = 262144   # wfm_receiver() on long chunks: mid chunk 98304
 WIDE_BATCH, WIDE_T = 8, 4
 RESAMPLE_RATE, RESAMPLE_CHUNK = 48000.0, 1600   # 48 kHz -> 44.1 kHz
+# Path U: Chain(MixerDecimator(shift, rate_out, bw), GainControl(1.0)) on
+# #2's wide form at batch 64, U_CHUNKS chunks with a set_shift after the
+# first half: (label, shift, output rate, bandwidth, input rate, chunk,
+# the shift set, output tone of stream 0 and the step between streams).
+U_PATHS = (("U1", -300e3, 240e3, 200e3, 2.048e6, 16384, -295e3, 1000.0,
+            1300.0),
+           ("U2", -250e3, 12e3, 10e3, 2.048e6, 16384, -249.5e3, -4000.0,
+            125.0),
+           ("U3", -7e3, 44100.0, 20e3, RESAMPLE_RATE, RESAMPLE_CHUNK, -6.5e3,
+            300.0, 120.0))
+U_CHUNKS = 8
+# #2's wide form checked beside U's plans: (label, shift, output rate,
+# bandwidth, input rate, chunk).
+MIX_WIDE_CHECKS = (
+    ("1.024 MHz -> 200 kHz at 16384", -250e3, 200e3, 150e3, 1.024e6, 16384),
+    ("2.048 MHz -> 12 kHz at 1024, a chunk shorter than the history",
+     -250e3, 12e3, 10e3, 2.048e6, 1024),
+    ("48 kHz -> 44.1 kHz at 1760, an oscillator block of 110", -7e3,
+     44100.0, 20e3, 48000.0, 1760))
 AGC_ATOL, GAIN_ATOL = 2e-4, 2e-3   # #9 outputs and carried gain, the same
 TX_CPU_ATOL = 1e-2    # J vs CPU: FmMod's cumsum sums in another order
 BW_REL = 9e-3         # L's bandwidth in Hz vs CPU (TOL["bw_meter"])
@@ -1033,6 +1053,163 @@ def runtime_paths(dev, tag, wrappers, k_chain, profile: bool) -> dict:
     scan_row("1x16384 make_scan", bound_1, xs_1[:T])
     return dict(cases=serving, retune=retune,
                 wrapper_calls_per_chunk_a=per_chunk)
+
+
+def _retuned(bound_, step, params_host, state0_, xs_, new_shift):
+    """``step`` (``scan`` or a ``make_scan`` runner) over the first half of
+    ``xs_``, a phase-continuous retune of every block that has one on host
+    trees (as N2), then the second half: (final state, outputs)."""
+    from radiorust_tpu_torch.convert import tree_to_numpy, tree_to_torch
+    half = xs_.shape[0] // 2
+    st_, y1 = step(tree_to_torch(params_host, xs_.device), state0_,
+                   xs_[:half])
+    ps, ss = list(params_host), list(tree_to_numpy(st_))
+    for i, blk in enumerate(bound_.blocks):
+        if hasattr(blk, "retune"):
+            ps[i], ss[i] = blk.retune(ps[i], ss[i], new_shift)
+    st_, y2 = step(tree_to_torch(tuple(ps), xs_.device),
+                   tree_to_torch(tuple(ss), xs_.device), xs_[half:])
+    return st_, torch.cat([y1, y2])
+
+
+def cpeak_hz(z, rate):
+    """Signed frequency of the windowed spectrum's peak of complex ``z``."""
+    spec = np.abs(np.fft.fft(z * np.hanning(len(z))))
+    return float(np.fft.fftfreq(len(z), 1.0 / rate)[np.argmax(spec)])
+
+
+def mixer_wide_paths(dev, tag, wrappers, graphed_rows, phase) -> dict:
+    """Path U: ``Chain(MixerDecimator, GainControl(1.0))`` on #2's wide
+    form, I's shape with the fused front end at batch 64 (``U_PATHS``):
+    U1 2.048 MHz -> 240 kHz and U2 -> 12 kHz at 16384, U3 48 kHz -> 44.1
+    kHz at I's chunk of 1600 (which only the port takes).  One tone a
+    stream; ``U_CHUNKS`` chunks with a set_shift after the first half,
+    eager (launch counters at 0 just before, read just after: one #2
+    launch a chunk, none of #1) and through ``make_scan`` (a capture a
+    params tree; bit for bit), the tones before and after the retune,
+    against the chain on CPU tensors and against FreqShifter +
+    Downsampler (#1's wide form) on the card, both within CPU_ATOL from
+    ``valid_from``; us per chunk step eager and graphed into
+    ``graphed_rows``.  Returns {path: launches}."""
+    from radiorust_tpu_torch.blocks.base import (Chain, StreamSig,
+                                                 make_scan, scan)
+    from radiorust_tpu_torch.blocks.frontend import MixerDecimator
+    from radiorust_tpu_torch.blocks.resampling import Downsampler
+    from radiorust_tpu_torch.blocks.transform import (FreqShifter,
+                                                      GainControl)
+    from radiorust_tpu_torch.convert import tree_to_torch
+    from radiorust_tpu_torch.ops import frontend as ofe
+    launches_u = {}
+    t0 = time.perf_counter()
+    for (label, shift, out, bw, rate, n, new_shift, f0,
+         df) in U_PATHS:
+        def chain_u(b_, shift=shift, out=out, bw=bw, rate=rate, n=n):
+            return Chain(MixerDecimator(shift, out, bw),
+                         GainControl(1.0)).bind(StreamSig(b_, n, rate))
+        bound_u = chain_u(BATCH)
+        plan_u = bound_u.blocks[0].plan
+        if ofe.fits_block(plan_u.p, plan_u.q, plan_u.kernel.shape[1]):
+            raise AssertionError(f"path {label}: not a wide plan")
+        tones_u = f0 + df * np.arange(BATCH)
+        t_u = np.arange(U_CHUNKS * n) / rate
+        xs_host = np.stack([np.exp(2j * np.pi * (f - shift) * t_u).astype(
+            np.complex64).reshape(U_CHUNKS, n) for f in tones_u], axis=1)
+        xs = torch.from_numpy(xs_host).to(dev)
+        state0 = tree_to_torch(bound_u.init_state(), dev)
+        zero_counts(wrappers)
+        st_u, ys = _retuned(bound_u, lambda p_, s_, x_: scan(
+            bound_u, p_, s_, x_), bound_u.params, state0, xs, new_shift)
+        launches = read_counts(wrappers, f"path {label}",
+                               [ofe.fused_mix_decimate])
+        print(f"path {label} launches over {U_CHUNKS} chunks: {launches}")
+        if launches["decimate"] or launches["fused_mix_decimate"] != \
+                U_CHUNKS:
+            raise AssertionError(f"path {label}: launches {launches}, want "
+                                 f"{U_CHUNKS} of fused_mix_decimate only")
+        launches_u[label] = launches
+        if not bool(torch.isfinite(torch.view_as_real(ys)).all()):
+            raise AssertionError(f"path {label}: non-finite output")
+        v = bound_u.valid_from
+        ys_host = ys.cpu().numpy()
+        out_rate = bound_u.out_sig.sample_rate
+        half = U_CHUNKS // 2
+        for s_ in (0, BATCH // 2, BATCH - 1):
+            for k0, k1, moved in ((v, half, 0.0),
+                                  (half, U_CHUNKS, new_shift - shift)):
+                seg = ys_host[k0:k1, s_].reshape(-1)
+                peak = cpeak_hz(seg, out_rate)
+                # The tone's bin, or within TONE_HZ where bins are finer.
+                tol = max(TONE_HZ, 2.0 * out_rate / len(seg))
+                want_f = tones_u[s_] + moved
+                print(f"path {label} stream {s_} chunks {k0}-{k1 - 1}: tone "
+                      f"{want_f:.1f} Hz, peak {peak:.1f} Hz")
+                if abs(peak - want_f) > tol:
+                    raise AssertionError(f"path {label} stream {s_}: peak "
+                                         f"{peak} Hz, tone {want_f} Hz")
+        small = chain_u(2)
+        _, ys_cpu = _retuned(small, lambda p_, s_, x_: scan(small, p_, s_,
+                                                            x_),
+                             small.params,
+                             tree_to_torch(small.init_state(), "cpu"),
+                             torch.from_numpy(xs_host[:, :2]), new_shift)
+        diff = float(np.abs(ys_host[v:, :2] - ys_cpu.numpy()[v:]).max())
+        print(f"path {label}: streams vs CPU tensors max|diff|={diff:.3e} "
+              f"(atol {CPU_ATOL:g})")
+        if not diff <= CPU_ATOL:
+            raise AssertionError(f"path {label} disagrees with the CPU run")
+        unfused = Chain(FreqShifter(shift), Downsampler(out, bw),
+                        GainControl(1.0)).bind(StreamSig(BATCH, n, rate))
+        zero_counts(wrappers)
+        _, ys_un = _retuned(unfused, lambda p_, s_, x_: scan(
+            unfused, p_, s_, x_), unfused.params,
+            tree_to_torch(unfused.init_state(), dev), xs, new_shift)
+        un_counts = read_counts(wrappers, f"path {label} unfused",
+                                [ofe.decimate])
+        v_un = max(v, unfused.valid_from)
+        diff = float((ys[v_un:] - ys_un[v_un:]).abs().max())
+        print(f"path {label}: vs FreqShifter + Downsampler on the card "
+              f"(decimate {un_counts['decimate']} launches) max|diff|="
+              f"{diff:.3e} (atol {CPU_ATOL:g})")
+        if not diff <= CPU_ATOL:
+            raise AssertionError(f"path {label} disagrees with FreqShifter "
+                                 f"+ Downsampler")
+        # Through make_scan: a capture for the first half's params tree,
+        # another for the retuned one.
+        run = make_scan(bound_u)
+        zero_counts(wrappers)
+        st_g, ys_g = _retuned(bound_u, run, bound_u.params, state0, xs,
+                              new_shift)
+        at_capture = read_counts(wrappers, f"graphed path {label} (at "
+                                 f"capture)", [ofe.fused_mix_decimate])
+        pairs = list(zip(tensors((st_g, ys_g)), tensors((st_u, ys))))
+        same = bool(pairs) and all(torch.equal(a, b) for a, b in pairs)
+        diff = max(max_abs_diff(a, b) for a, b in pairs)
+        # Times over T chunks (the first half's, repeated) on one params
+        # tree, as the other paths: eager, and as replays of its capture.
+        params_u = tree_to_torch(bound_u.params, dev)
+        xs_t = torch.cat([xs[:half]] * (T // half))
+        eager_ms = cuda_ms(lambda: scan(bound_u, params_u, state0, xs_t),
+                           reps=3) / T
+        run(params_u, state0, xs_t)
+        step_ms = cuda_ms(lambda: run(params_u, state0, xs_t), reps=3) / T
+        msps = BATCH * n / (step_ms * 1e-3) / 1e6
+        print(f"graphed path {label}: {step_ms * 1e3:.1f} us per chunk step "
+              f"(eager {eager_ms * 1e3:.1f}), {msps:.1f} Msamples/s, "
+              f"{run.captures} captures (a params tree each), the last "
+              f"{run.capture_ms:.1f} ms; wrapper counts at capture "
+              f"{at_capture}; vs eager max|diff|={diff:.3e}, bit for bit: "
+              f"{same} {tag}")
+        if not same or at_capture["decimate"]:
+            raise AssertionError(f"graphed path {label} differs from the "
+                                 f"eager run")
+        graphed_rows[label] = dict(
+            us_per_step=step_ms * 1e3, eager_us_per_step=eager_ms * 1e3,
+            msamples_s=msps, capture_ms=run.capture_ms,
+            captures=run.captures, max_abs_diff=diff)
+        run.free()
+        del run, ys_g, st_g, xs_t
+        t0 = phase(f"path {label}", t0)
+    return launches_u
 
 
 def zero_counts(wrappers) -> None:
@@ -2507,7 +2684,8 @@ def main() -> None:
     from radiorust_tpu_torch.models.wfm import (wfm_receiver_graph,
                                                 wfm_transmitter)
     from radiorust_tpu_torch.blocks.frontend import (FilterDemodFilter,
-                                                     FmDemodFilter)
+                                                     FmDemodFilter,
+                                                     MixerDecimator)
     from radiorust_tpu_torch.blocks.transform import GainControl
     from radiorust_tpu_torch.models.wfm import _deemphasis_band, _lowpass_100k
     from radiorust_tpu_torch.ops import _build
@@ -2744,6 +2922,65 @@ def main() -> None:
           of="fused_mix_decimate", graphed=True,
           library=("conv1d (FIR part only, on the mixed signal)", call,
                    lambda r: layout(r[:2])))
+
+    # #2's wide form (rr_mix_decimate_wide) at path U's plans and beside
+    # them, the tables of the block bound there: within FIR_BOUND, the
+    # mixed history bit for bit; the yardstick conv1d of the FIR part on
+    # the signal mixed beforehand; bytes with the tables
+    # (mix_decimate_bytes).  U3's plan also through the float planes.
+    def check_mix_wide(label, shift, out, bw, rate, n, float_planes=False):
+        blk = MixerDecimator(shift, out, bw).bind(StreamSig(BATCH, n, rate))
+        plan_ = blk.plan
+        if ofe.fits_block(plan_.p, plan_.q, plan_.kernel.shape[1]):
+            raise AssertionError(f"{label}: not a wide plan")
+        ta_, tb_ = (torch.from_numpy(blk.params[k]).to(dev)
+                    for k in ("table_a", "table_b"))
+        ph_ = randn(BATCH)
+        c_, s_ = torch.cos(ph_), torch.sin(ph_)
+        x_ = cplx(BATCH, n)
+        hr_, hi_ = randn(BATCH, plan_.hist), randn(BATCH, plan_.hist)
+        w_ = torch.from_numpy(plan_.kernel).to(dev)
+        mixed_ = x_ * (ta_[:, None] * tb_[None, :]).reshape(-1) \
+            * torch.complex(c_, s_)[:, None]
+        call_, layout_ = conv_decimate(planes_of(mixed_), (hr_, hi_), w_,
+                                       plan_.p)
+        what = (f"{label} (p = {plan_.p}, q = {plan_.q}, Kw = "
+                f"{plan_.kernel.shape[1]}, history {plan_.hist}, oscillator "
+                f"block {tb_.shape[0]})")
+        if float_planes:
+            args_ = (*planes(x_), *planes(ta_), *planes(tb_), c_, s_, hr_,
+                     hi_, w_, plan_.p, plan_.q)
+            kernel_, plain_ = ofe.fused_mix_decimate, \
+                ofe.fused_mix_decimate_plain
+            what, lib_layout = f"float planes, {what}", lambda r: layout_(
+                r[:2])
+            hist_of = lambda r: torch.complex(r[2], r[3])
+        else:
+            args_ = (x_, ta_, tb_, c_, s_, hr_, hi_, w_, plan_.p, plan_.q)
+            kernel_, plain_ = (ofe.fused_mix_decimate_complex,
+                               ofe.fused_mix_decimate_complex_plain)
+            lib_layout = lambda r: layout_(planes_of(r[0]))
+            hist_of = lambda r: r[1]
+        check(f"fused_mix_decimate, wide form, {what}", "", "", FIR_BOUND,
+              kernel_, plain_, args_, mix_decimate_flops(plan_, BATCH, n),
+              record=False, of="fused_mix_decimate", graphed=True,
+              library=("conv1d (FIR part only, on the mixed signal)",
+                       call_, lib_layout),
+              bytes_of=lambda r: mix_decimate_bytes(
+                  plan_, (x_, hr_, hi_, c_, s_), r, (ta_, tb_)))
+        if not torch.equal(hist_of(kernel_(*args_)),
+                           hist_of(plain_(*args_))):
+            raise AssertionError(f"#2's wide form, {label}: the new "
+                                 f"history is not the plain version's")
+
+    for label, shift, out, bw, rate, n, *_ in U_PATHS:
+        check_mix_wide(f"path {label}'s plan, {rate / 1e3:g} kHz -> "
+                       f"{out / 1e3:g} kHz at {n}", shift, out, bw, rate, n)
+    for args_ in MIX_WIDE_CHECKS:
+        check_mix_wide(*args_)
+    label, shift, out, bw, rate, n, *_ = U_PATHS[2]
+    check_mix_wide(f"path {label}'s plan", shift, out, bw, rate, n,
+                   float_planes=True)
 
     m = filt.ir_len
     prev, cur = cplx(BATCH, m), cplx(BATCH, n_mid)
@@ -3988,6 +4225,10 @@ def main() -> None:
             want=want_m)
     t0 = phase("path M", t0)
 
+    # Path U: the fused front end on #2's wide form.
+    launches_u = mixer_wide_paths(dev, tag, wrappers, graphed_rows, phase)
+    t0 = time.perf_counter()
+
     # Path N: the streaming runtime (RuntimeBlock, RuntimeGraph,
     # NativeGraph) serving A's chain, C's graph and K's chain.
     runtime = runtime_paths(dev, tag, wrappers, k_chain,
@@ -4039,11 +4280,14 @@ def main() -> None:
           f"{launches_j['decimate']} (decimate, the upsampler), K "
           f"{launches_k['decimate_phase_complex']} (the phase-mode entry), "
           f"L {launches_l['decimate']}, M {launches_m['decimate']} "
-          f"(decimate)")
+          f"(decimate), U "
+          f"{[c['fused_mix_decimate'] for c in launches_u.values()]} "
+          f"(fused_mix_decimate, its wide form)")
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     route_of = {"fused_demod_filter": "A", "fused_filter_demod_filter": "B"}
     for k in kernels:
         k["launches"] = path_of[k["name"]][k["name"]]
+        k["launches_u"] = {u: c[k["name"]] for u, c in launches_u.items()}
         if k["name"] in route_of:
             k["cluster_launches"] = routes[route_of[k["name"]]][k["name"]]
         k["on_paths_o_p"] = {

@@ -30,8 +30,8 @@ from ..ops.polyphase import plan_downsample
 from .base import Block, BoundBlock, StreamSig
 from .filters import (GridCache, _is_real_ir, design_impulse_response,
                       extend_response)
-from .transform import (_shift_param_update, fold_phase_state,
-                        start_phasor)
+from .transform import (_inner_block, _shift_param_update,
+                        fold_phase_state, start_phasor)
 
 __all__ = ["MixerDecimator", "FmDemodFilter", "FilterDemodFilter"]
 
@@ -58,13 +58,16 @@ class _BoundMixerDecimator(BoundBlock):
 
     def supported(self, sig: StreamSig) -> bool:
         """Whether the fused kernel takes ``sig``'s chunk length with this
-        plan (the port's rule; the JAX package adds a 128-lane oscillator
-        block, a TPU layout rule).  False under the c128 stream mode, as
-        in the JAX package: the kernel is float32 and has no plain form
-        in float64."""
+        plan, on its polyphase form or its wide form (the port's rule:
+        every aligned plan the decimation kernel takes; the JAX package
+        adds a 128-lane oscillator block and its super-row rule, TPU
+        layout rules).  False under the c128 stream mode, as in the JAX
+        package: the kernel is float32 and has no plain form in
+        float64."""
+        n = sig.chunk_len
         return (_nums.stream_mode() == "c64"
-                and _ofront.decimate_supported(sig.chunk_len, self.plan,
-                                               mixer=True))
+                and _ofront.decimate_supported(n, self.plan, mixer=True,
+                                               inner=_inner_block(n)))
 
     def _kernel_matrix(self, device) -> torch.Tensor:
         key = str(device)

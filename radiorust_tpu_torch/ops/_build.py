@@ -48,6 +48,7 @@ _SIGNATURES = {
     "rr_decimate": [_P, _I, _I, _P],        # DecimArgs*, R, G, stream
     "rr_mix_decimate": [_P, _I, _I, _P],
     "rr_decimate_wide": [_P, _P, _P],      # DecimArgs*, WideArgs*, stream
+    "rr_mix_decimate_wide": [_P, _P, _P],
     # DecimArgs*, WideArgs*, phase in, phase out, stream
     "rr_decimate_phase": [_P, _P, _P, _P, _P],
     "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + _PLAN

@@ -33,7 +33,9 @@ phases, as 48 kHz -> 44.1 kHz has 147) runs :func:`decimate` on the
 kernel's wide form instead (``rr_decimate_wide``), as every phase-mode
 step does: the taps re-laid to their bands (:func:`wide_layout`, once
 per taps tensor), one output a thread or lane group, the launch shaped
-by :func:`wide_config`.  The mixer form takes the first kind only.
+by :func:`wide_config`.  The mixer form does the same: a plan past one
+block runs :func:`fused_mix_decimate` on the wide form's mixer entry
+(``rr_mix_decimate_wide``), which mixes the staged chunk in place.
 """
 
 from __future__ import annotations
@@ -253,19 +255,30 @@ def wide_config(shape, p: int, windows: int, batch: int, nplanes: int):
     return best
 
 
-def decimate_supported(n: int, plan, mixer: bool = False) -> bool:
+def decimate_supported(n: int, plan, mixer: bool = False,
+                       inner: int = 1) -> bool:
     """Whether the decimation kernel takes this aligned plan at chunk
     ``n``: whole periods per chunk and a downsample layout (``s0 == 0``,
     history = window minus one period, nonzero).  Every such plan runs,
-    on the polyphase kernel or its wide form; the mixer form
-    (``mixer=True``) has no wide form and takes only plans that
-    :func:`fits_block` on two planes."""
+    on the polyphase kernel or its wide form.  The mixer form
+    (``mixer=True``, an oscillator block of ``inner`` samples) takes the
+    same plans where its index division is exact (n * inner < 2^31) and,
+    on the wide form, a block fits shared memory; a step would raise
+    where this is False."""
     kw = int(plan.kernel.shape[-1])
     p, q = plan.p, plan.q
     if not (n % p == 0 and plan.s0 == 0 and plan.hist == kw - p
             and plan.hist > 0):
         return False
-    return fits_block(p, q, kw) if mixer else True
+    if not mixer or fits_block(p, q, kw):
+        return not mixer or n * inner < 2 ** 31
+    if n * inner >= 2 ** 31:
+        return False
+    try:
+        wide_config(wide_layout(plan.kernel).shape, p, n // p, 1, 2)
+    except ValueError:
+        return False
+    return True
 
 
 def _check_layout(n, hist, kw, p):
@@ -374,24 +387,23 @@ def _first(ts):
     return ts if isinstance(ts, torch.Tensor) else ts[0]
 
 
-def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
-            mix=None, phase=None):
-    """One launch of ``rr_decimate`` / ``rr_mix_decimate`` on ``nplanes``
-    input planes: xs, hs the input and history, outs, nhs the output and
-    the new history (each a tuple of float32 planes or a complex64 tensor;
-    a real input's outputs may be complex, and the kernel then writes
-    their zero imaginary parts); mix = (table A, table B, p0 re, p0 im),
-    the tables complex64; phase = (phase in, phase out), int32 [b]: a
-    phase-mode step on the wide form (``rr_decimate_phase``)."""
+def _launch(xs, hs, outs, nhs, kernel_matrix, p, q, nplanes, mix=None,
+            phase=None):
+    """One launch of #1 or (``mix``) #2 on ``nplanes`` input planes: xs,
+    hs the input and history, outs, nhs the output and the new history
+    (each a tuple of float32 planes or a complex64 tensor; a real input's
+    outputs may be complex, and the kernel then writes their zero
+    imaginary parts); mix = (table A, table B, p0 re, p0 im), the tables
+    complex64 or plane pairs; phase = (phase in, phase out), int32 [b]: a
+    phase-mode step on the wide form (``rr_decimate_phase``).  A plan
+    that :func:`fits_block` launches ``rr_decimate`` /
+    ``rr_mix_decimate``, any other ``rr_decimate_wide`` /
+    ``rr_mix_decimate_wide``."""
     x0 = _first(xs)
     b, n = x0.shape
     hist = _first(hs).shape[-1]
     kw = kernel_matrix.shape[-1]
     wide = phase is not None or not fits_block(p, q, kw, nplanes)
-    if wide and mix is not None:
-        raise ValueError("mixer decimation geometry too large for one "
-                         f"block (p={p}, q={q}, Kw={kw}); the mixer form "
-                         f"has no wide form")
     a = _Args()
     a.x, a.x_row, a.x_step = _planes(xs, "x", nplanes)
     a.h, a.h_row, a.h_step = _planes(hs, "hist", nplanes)
@@ -399,6 +411,13 @@ def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
     a.nh, a.nh_row, a.nh_step = _planes(nhs, "new hist")
     a.b, a.n, a.hist, a.p, a.q = b, n, hist, p, q
     a.apad, a.inner, a.nplanes = _apad(kw, p), 1, nplanes
+    if mix is not None:
+        table_a, table_b, p0r, p0i = mix
+        ta, _, a.tab_step[0] = _planes(table_a, "table A")
+        tb, _, a.tab_step[1] = _planes(table_b, "table B")
+        a.tab[:] = [ta[0], ta[1], tb[0], tb[1]]
+        a.p0, _, a.p0_step = _planes((p0r, p0i), "start phasor")
+        a.inner = _first(table_b).shape[-1]
     if wide:
         _build.f32_ptr(kernel_matrix, "kernel_matrix")   # raises on others
         lay = _device_wide(kernel_matrix)
@@ -410,9 +429,11 @@ def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
                        ws, nw, xs, xlen, threads)
         stream = _build.stream_handle(x0.device)
         if phase is None:
-            err = _build.lib().rr_decimate_wide(
+            entry = ("rr_decimate_wide" if mix is None
+                     else "rr_mix_decimate_wide")
+            err = getattr(_build.lib(), entry)(
                 ctypes.addressof(a), ctypes.addressof(wa), stream)
-            _build.check(err, "rr_decimate_wide")
+            _build.check(err, entry)
             return
         err = _build.lib().rr_decimate_phase(
             ctypes.addressof(a), ctypes.addressof(wa), phase[0].data_ptr(),
@@ -421,13 +442,7 @@ def _launch(entry, xs, hs, outs, nhs, kernel_matrix, p, q, nplanes,
         return
     a.taps = _device_taps(kernel_matrix, p).data_ptr()
     r, g = launch_config(p, q, kw)
-    if mix is not None:
-        table_a, table_b, p0r, p0i = mix
-        ta, _, a.tab_step[0] = _planes(table_a, "table A")
-        tb, _, a.tab_step[1] = _planes(table_b, "table B")
-        a.tab[:] = [ta[0], ta[1], tb[0], tb[1]]
-        a.p0, _, a.p0_step = _planes((p0r, p0i), "start phasor")
-        a.inner = _first(table_b).shape[-1]
+    entry = "rr_decimate" if mix is None else "rr_mix_decimate"
     err = getattr(_build.lib(), entry)(ctypes.addressof(a), r, g,
                                        _build.stream_handle(x0.device))
     _build.check(err, entry)
@@ -469,8 +484,7 @@ def decimate(planes, hplanes, kernel_matrix, p: int, q: int):
     newh = tuple(torch.empty((b, hist), dtype=torch.float32, device=dev)
                  for _ in planes)
     decimate.launches += 1
-    _launch("rr_decimate", planes, hplanes, outs, newh, kernel_matrix, p, q,
-            nplanes)
+    _launch(planes, hplanes, outs, newh, kernel_matrix, p, q, nplanes)
     return outs, newh
 
 
@@ -507,8 +521,7 @@ def decimate_complex(x, hist, kernel_matrix, p: int, q: int,
                     device=x.device)
     nh = torch.empty((b, nh_len), dtype=torch.complex64, device=x.device)
     decimate.launches += 1
-    _launch("rr_decimate", x, hist, y, nh, kernel_matrix, p, q,
-            1 if real_input else 2)
+    _launch(x, hist, y, nh, kernel_matrix, p, q, 1 if real_input else 2)
     return y, nh
 
 
@@ -544,8 +557,8 @@ def decimate_phase_complex(x, hist, phase, kernel_matrix, p: int, q: int,
     new_phase = torch.empty_like(phase)
     decimate.launches += 1
     decimate_phase_complex.launches += 1
-    _launch("rr_decimate_phase", x, hist, y, nh, kernel_matrix, p, q,
-            1 if real_input else 2, phase=(phase, new_phase))
+    _launch(x, hist, y, nh, kernel_matrix, p, q, 1 if real_input else 2,
+            phase=(phase, new_phase))
     return y, nh, new_phase
 
 
@@ -572,9 +585,9 @@ def mix_tail(x_tail, table_a, table_b, p0r, p0i):
     """The mixed-domain planes (re, im) of the last ``h`` samples of a
     chunk, ``x_tail`` [batch, h] complex64 against the chunk's factored
     tables (complex64 [outer], [inner]) and start phasor: the history
-    ``rr_mix_decimate`` writes when h is at most the chunk, in its order
-    of operations (every product and sum rounded on its own), so that it
-    is bit for bit the kernel's.  A time shard rebuilds its left
+    the kernel (either form) writes when h is at most the chunk, in its
+    order of operations (every product and sum rounded on its own), so
+    that it is bit for bit the kernel's.  A time shard rebuilds its left
     neighbour's history with it (``parallel/time_shard.py``)."""
     h = x_tail.shape[-1]
     ar, ai = table_a.real, table_a.imag
@@ -613,7 +626,9 @@ def fused_mix_decimate(xr, xi, ar, ai, br, bi, p0r, p0i, hr, hi,
     oscillator tables ([outer], [inner], outer * inner = n);
     ``p0r/p0i``: [batch] start phasor; ``hr/hi``: [batch, hist]
     mixed-domain history; ``kernel_matrix``: [q, Kw].  Returns
-    (outr, outi, new_hr, new_hi).
+    (outr, outi, new_hr, new_hi).  On CUDA tensors one launch of
+    ``rr_mix_decimate``, or of ``rr_mix_decimate_wide`` where the plan
+    does not :func:`fits_block`.
     """
     b, n = xr.shape
     hist = hr.shape[-1]
@@ -627,9 +642,8 @@ def fused_mix_decimate(xr, xi, ar, ai, br, bi, p0r, p0i, hr, hi,
     nhr, nhi = (torch.empty((b, hist), dtype=torch.float32, device=dev)
                 for _ in range(2))
     fused_mix_decimate.launches += 1
-    _launch("rr_mix_decimate", (xr, xi), (hr, hi), (outr, outi),
-            (nhr, nhi), kernel_matrix, p, q, 2,
-            mix=((ar, ai), (br, bi), p0r, p0i))
+    _launch((xr, xi), (hr, hi), (outr, outi), (nhr, nhi), kernel_matrix, p,
+            q, 2, mix=((ar, ai), (br, bi), p0r, p0i))
     return outr, outi, nhr, nhi
 
 
@@ -665,6 +679,6 @@ def fused_mix_decimate_complex(x, table_a, table_b, p0r, p0i, hr, hi,
                     device=x.device)
     nh = torch.empty((b, hist), dtype=torch.complex64, device=x.device)
     fused_mix_decimate.launches += 1
-    _launch("rr_mix_decimate", x, (hr, hi), y, nh, kernel_matrix, p, q, 2,
+    _launch(x, (hr, hi), y, nh, kernel_matrix, p, q, 2,
             mix=(table_a, table_b, p0r, p0i))
     return y, nh

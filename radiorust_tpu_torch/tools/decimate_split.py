@@ -1,11 +1,13 @@
-"""Device time of #1's wide form and phase-mode entry at every geometry
-they run at, beside #1's polyphase form and #2 at path A's plans.
+"""Device time of #1's wide form and phase-mode entry and of #2's wide
+form at every geometry they run at, beside #1's polyphase form and #2 at
+path A's plans.
 
 For each geometry, at batch 64 on complex64 streams made from a seed:
 
 - holds the kernel's call against its plain version on the same CUDA
   tensors: max |diff| / max |ref| within the kernel checks' 1e-5, the new
-  history (and in phase mode the new phase) equal bit for bit;
+  history (and in phase mode the new phase) equal bit for bit (#2: the
+  mixed history);
 - times CUDA graphs of 1 and of 10 calls, replayed ``--reps`` times
   (CUDA events: device us a call);
 - reads the wrapper's launch counter over one eager call.
@@ -15,14 +17,20 @@ The geometries: path I (48 kHz -> 44.1 kHz at chunk 1600), 384 kHz ->
 aligned, ``rr_decimate_wide``); in phase mode (``rr_decimate_phase``,
 grid phase 0) path K's 384 kHz -> 44.1 kHz at 6144, 1.024 MHz -> 44.1
 kHz and 22.05 kHz at 16384, 8:3 at 60, 100 and 7, and the upsample 384
--> 1024 at 64; and, as references the wide kernel leaves alone,
-``decimate`` at A's tail and ``fused_mix_decimate`` at A's head.  The
+-> 1024 at 64; #2's wide form (``rr_mix_decimate_wide``) at path U's
+plans (2.048 MHz -> 240 kHz and -> 12 kHz at 16384, 48 kHz -> 44.1 kHz at
+1600), 1.024 MHz -> 200 kHz at 16384, 2.048 MHz -> 12 kHz at 1024 (a
+history longer than the chunk) and 48 kHz -> 44.1 kHz at 1760 (an
+oscillator block of 110 samples); and, as references the wide kernel
+leaves alone, ``decimate`` at A's tail and ``fused_mix_decimate`` at A's
+head.  The
 tool uses only the wrappers' public calls, so a copy of it in an older
 checkout's ``tools/`` times that checkout's kernels the same way.
 
-With ``--clocks`` it then runs the wide geometries once each on the
-development build (``-DRR_DECIM_CLOCKS``: ``_build.lib(("RR_DECIM_CLOCKS",
-))``, its own build directory), whose wide kernel stamps ``clock64()``
+With ``--clocks`` it then runs the wide geometries (#1's and #2's) once
+each on the development build (``-DRR_DECIM_CLOCKS``:
+``_build.lib(("RR_DECIM_CLOCKS",))``, its own build directory), whose
+wide kernel stamps ``clock64()``
 at each phase of each block, and prints the phases' mean cycles a block
 (``CLOCK_PHASES``), the blocks' span on %globaltimer and the blocks an
 SM ran, beside the SM clock ``nvidia-smi`` reads.
@@ -49,10 +57,30 @@ BOUND = 1e-5          # the FIR kernel checks' max |diff| / max |ref|
 BATCH = 64
 
 
+def mixer_geometries():
+    """(label, plan, chunk, input rate, shift) of #2's wide form: path
+    U's three plans, then the other checks of chip_smoke.py."""
+    from ..ops.polyphase import plan_downsample
+    u1 = plan_downsample(2.048e6, 240e3, 200e3)
+    u2 = plan_downsample(2.048e6, 12e3, 10e3)
+    u3 = plan_downsample(48e3, 44100.0, 20e3)
+    return (
+        ("U1: 2.048 MHz -> 240 kHz at 16384", u1, 16384, 2.048e6, -300e3),
+        ("U2: 2.048 MHz -> 12 kHz at 16384", u2, 16384, 2.048e6, -250e3),
+        ("U3: 48 kHz -> 44.1 kHz at 1600", u3, 1600, 48e3, -7e3),
+        ("1.024 MHz -> 200 kHz at 16384",
+         plan_downsample(1.024e6, 200e3, 150e3), 16384, 1.024e6, -250e3),
+        ("2.048 MHz -> 12 kHz at 1024 (history 6143)", u2, 1024, 2.048e6,
+         -250e3),
+        ("48 kHz -> 44.1 kHz at 1760 (oscillator block 110)", u3, 1760,
+         48e3, -7e3))
+
+
 def _geometries(batch: int = BATCH):
     """(label, kind, plan, chunk): kind "wide" (aligned, the wide form),
-    "phase" (phase mode), "polyphase" (#1 at A's tail, real input) or
-    "mixer" (#2 at A's head)."""
+    "phase" (phase mode), "polyphase" (#1 at A's tail, real input),
+    "mixer" (#2 at A's head) or "mixer wide" (#2's wide form; the
+    chunk's shift tables at its input rate)."""
     from ..blocks.base import StreamSig
     from ..models.wfm import wfm_receiver
     from ..ops.polyphase import plan_downsample, plan_upsample
@@ -82,6 +110,8 @@ def _geometries(batch: int = BATCH):
          a.blocks[3].plan, 9216),
         ("mixer (#2): A's head, 8:3 at 24576", "mixer", a.blocks[0].plan,
          24576),
+        *((f"mixer wide (#2): {label}", "mixer wide", plan, n)
+          for label, plan, n, _, _ in mixer_geometries()),
     )
 
 
@@ -107,6 +137,8 @@ def cases(dev, batch: int = BATCH):
         if not torch.equal(got, want):
             raise AssertionError(f"{label}: not bit for bit")
 
+    tables = {f"mixer wide (#2): {label}": (rate, shift)
+              for label, _, _, rate, shift in mixer_geometries()}
     out = []
     for label, kind, plan, n in _geometries(batch):
         w = torch.from_numpy(plan.kernel).to(dev)
@@ -122,8 +154,9 @@ def cases(dev, batch: int = BATCH):
             out.append((label, kind, plan, ofe.decimate_phase_complex,
                         ofe.rational_fir_phase, (x, h, ph, w, p, q),
                         compare))
-        elif kind == "mixer":
-            ta, tb, _ = _shift_tables(n, 1024000, 100000)
+        elif kind in ("mixer", "mixer wide"):
+            rate, shift = tables.get(label, (1024000, 100000))
+            ta, tb, _ = _shift_tables(n, int(rate), int(shift))
             ta, tb = (torch.from_numpy(t).to(dev) for t in (ta, tb))
             phase = torch.from_numpy(rng.standard_normal(batch).astype(
                 np.float32)).to(dev)
@@ -133,7 +166,8 @@ def cases(dev, batch: int = BATCH):
                 (batch, plan.hist)).astype(np.float32)).to(dev)
 
             def compare(got, want, label=label):
-                return max(rel(got[0], want[0]), rel(got[1], want[1]))
+                exact(label + " history", got[1], want[1])
+                return rel(got[0], want[0])
             out.append((label, kind, plan, ofe.fused_mix_decimate_complex,
                         ofe.fused_mix_decimate_complex_plain,
                         (cplx(batch, n), ta, tb, torch.cos(phase),
@@ -172,12 +206,12 @@ def _graph_us(fn, calls: int, reps: int) -> float:
 
 
 # The wide kernel's stamps (csrc/decimate.cu DW_MARK): the phase that
-# ends at each mark; 7 and 8 the block's start and end on %globaltimer
-# (ns), 9 its SM.
+# ends at each mark ("mix" is empty but for #2's wide form); 8 and 9 the
+# block's start and end on %globaltimer (ns), 10 its SM.
 CLOCK_PHASES = {1: "issue copies (bands, span)", 2: "history share",
-                3: "copies land", 4: "sums", 5: "lane-group shuffles",
-                6: "stores"}
-MARKS = 10
+                3: "copies land", 4: "mix", 5: "sums",
+                6: "lane-group shuffles", 7: "stores"}
+MARKS = 11
 
 
 def clocks(dev, reps: int, batch: int = BATCH) -> list:
@@ -196,7 +230,7 @@ def clocks(dev, reps: int, batch: int = BATCH) -> list:
     out = []
     try:
         for label, kind, plan, fn, _, fargs, _ in cases(dev, batch):
-            if kind not in ("wide", "phase"):
+            if kind not in ("wide", "phase", "mixer wide"):
                 continue
             x = fargs[0]
             lay = ofe.wide_layout(plan.kernel)
@@ -219,18 +253,18 @@ def clocks(dev, reps: int, batch: int = BATCH) -> list:
                 ["nvidia-smi", "--query-gpu=clocks.sm",
                  "--format=csv,noheader,nounits"], capture_output=True,
                 text=True, timeout=60).stdout.split()[0]
-            sms, per_sm = np.unique(st[:, 9], return_counts=True)
+            sms, per_sm = np.unique(st[:, 10], return_counts=True)
             row = {"clocked": label, "device_us": us, "blocks": blocks,
                    "threads": ofe.wide_config(lay.shape, plan.p, windows,
                                               x.shape[0], 2)[4],
                    "cycles": {CLOCK_PHASES[k]: float((st[:, k]
                                                       - st[:, k - 1]).mean())
                               for k in CLOCK_PHASES},
-                   "block_cycles_mean": float((st[:, 6] - st[:, 0]).mean()),
-                   "block_cycles_max": float((st[:, 6] - st[:, 0]).max()),
-                   "start_spread_us": float(st[:, 7].max()
-                                            - st[:, 7].min()) / 1e3,
-                   "span_us": float(st[:, 8].max() - st[:, 7].min()) / 1e3,
+                   "block_cycles_mean": float((st[:, 7] - st[:, 0]).mean()),
+                   "block_cycles_max": float((st[:, 7] - st[:, 0]).max()),
+                   "start_spread_us": float(st[:, 8].max()
+                                            - st[:, 8].min()) / 1e3,
+                   "span_us": float(st[:, 9].max() - st[:, 8].min()) / 1e3,
                    "sms_used": int(len(sms)),
                    "sms_by_blocks": {int(k): int((per_sm == k).sum())
                                      for k in np.unique(per_sm)},
@@ -259,7 +293,8 @@ def main(argv=None) -> list:
     from ..ops import frontend as ofe
     # The counter each wrapper counts its launches on.
     counters = {"phase": ofe.decimate_phase_complex,
-                "mixer": ofe.fused_mix_decimate}
+                "mixer": ofe.fused_mix_decimate,
+                "mixer wide": ofe.fused_mix_decimate}
     out = []
     for label, kind, plan, fn, plain, fargs, compare in cases(dev, batch):
         counter = counters.get(kind, ofe.decimate)

@@ -56,7 +56,7 @@ __all__ = ["PEAK_BYTES_S", "PEAK_FLOPS", "DEMOD_FLOPS", "MIX_FLOPS",
            "SLEW_FLOPS", "AGC_FLOPS", "CONFIGS", "tensors",
            "io_bytes", "bound_of", "fft_flops", "nonzero_taps",
            "decimate_flops", "decimate_phase_flops", "decimate_bytes",
-           "mix_decimate_flops",
+           "mix_decimate_flops", "mix_decimate_bytes",
            "overlap_save_flops", "filter_bank_flops", "demod_filter_flops",
            "filter_demod_filter_flops", "pfb_demod_flops", "slew_flops",
            "agc_flops", "stage_flops", "config", "analyze", "main"]
@@ -145,9 +145,21 @@ def decimate_bytes(plan, inputs, results, calls: int = 1) -> int:
 
 
 def mix_decimate_flops(plan, batch: int, n: int) -> float:
-    """#2 (``fused_mix_decimate``): the mixer on every input sample, then
-    #1 on both planes."""
+    """#2 (``fused_mix_decimate``, either form): the mixer on every input
+    sample, then #1 on both planes over the plan's nonzero taps (a wide
+    plan's rows are bands of Kw)."""
     return decimate_flops(plan, batch, n) + MIX_FLOPS * batch * n
+
+
+def mix_decimate_bytes(plan, inputs, results, tables, calls: int = 1) -> int:
+    """Bytes #2 must move in ``calls`` calls (either form): its sample
+    tensors (input, history planes, start phasor; ``inputs`` without the
+    taps or the tables) and ``results`` by :func:`io_bytes`, the plan's
+    nonzero taps once a call (:func:`decimate_bytes`), and the oscillator
+    tables ``tables`` (A and B, whatever their layout) read once a
+    call."""
+    return (decimate_bytes(plan, inputs, results, calls)
+            + calls * io_bytes(tables, ()))
 
 
 def overlap_save_flops(rows: int, n: int, bands: int = 1) -> float:

@@ -337,6 +337,46 @@ def test_decimate_bytes_at_path_k_count_the_nonzero_taps_once():
         == "bytes"
 
 
+def test_mix_decimate_counts_at_path_u1_read_the_wide_plan():
+    """#2's counts at path U1's wide plan (2.048 MHz -> 240 kHz, p = 128,
+    q = 15, Kw = 435, 64 x 16384): the operations over the plan's nonzero
+    taps (each row a band of Kw), as ``stage_flops`` of the bound block
+    reads them; the bytes those of the samples, history planes, phasor,
+    outputs and new history, the nonzero taps once and the oscillator
+    tables A and B (complex64, 128 each) once."""
+    from radiorust_tpu_torch.blocks.base import StreamSig
+    from radiorust_tpu_torch.blocks.frontend import MixerDecimator
+    from radiorust_tpu_torch.ops import frontend as tfe
+    b, n = 64, 16384
+    blk = MixerDecimator(-300e3, 240e3, 200e3).bind(
+        StreamSig(b, n, 2.048e6))
+    plan = blk.plan
+    q, kw = plan.kernel.shape
+    nz = mfu.nonzero_taps(plan)
+    assert (plan.p, q, kw, plan.hist) == (128, 15, 435, 307)
+    assert not tfe.fits_block(plan.p, q, kw) and nz < q * kw
+    want_flops = 2 * 2 * b * (n // 128) * nz + mfu.MIX_FLOPS * b * n
+    assert mfu.mix_decimate_flops(plan, b, n) == want_flops
+    assert mfu.stage_flops(blk) == want_flops
+    ta, tb = (torch.from_numpy(blk.params[k]) for k in ("table_a",
+                                                         "table_b"))
+    assert ta.shape == tb.shape == (128,)
+    x = torch.zeros((b, n), dtype=torch.complex64)
+    hr, hi = torch.zeros((b, 307)), torch.zeros((b, 307))
+    c0, s0 = torch.zeros(b), torch.zeros(b)
+    y = torch.zeros((b, n // 128 * 15), dtype=torch.complex64)
+    nh = torch.zeros((b, 307), dtype=torch.complex64)
+    want = (8 * b * n + 2 * 4 * b * 307 + 2 * 4 * b + 8 * b * 1920
+            + 8 * b * 307 + 4 * nz + 8 * (128 + 128))
+    got = mfu.mix_decimate_bytes(plan, (x, hr, hi, c0, s0), (y, nh),
+                                 (ta, tb))
+    assert got == want
+    assert mfu.mix_decimate_bytes(plan, (x, hr, hi, c0, s0), (y, nh),
+                                  (ta, tb), calls=2) == want + 4 * nz \
+        + 8 * 256
+    assert mfu.bound_of(want, want_flops)[1] == "bytes"
+
+
 def test_chip_smoke_takes_the_model_from_mfu():
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     own = set()

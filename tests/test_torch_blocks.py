@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.experimental.pallas as pl
 import jax.numpy as jnp
 
@@ -31,6 +32,7 @@ from radiorust_tpu_torch.blocks import resampling as tres
 from radiorust_tpu_torch.blocks import transform as ttr
 from radiorust_tpu_torch.convert import tree_to_torch
 from radiorust_tpu_torch.ops import _build
+from radiorust_tpu_torch.ops import frontend as _ofront
 
 
 @pytest.fixture(autouse=True)
@@ -190,6 +192,80 @@ def test_mixer_decimator_matches_and_retunes():
         np.testing.assert_array_equal(tp[k], jp[k])
     for k in js:
         np.testing.assert_array_equal(ts[k], js[k])
+
+
+# The JAX package's MixerDecimator plans that the port runs on the wide
+# form of its mixer kernel: (output rate, bandwidth, input rate, chunk),
+# each at a chunk the JAX package takes (a 128-sample oscillator block and
+# its super-row rule).  2.048 Msps -> 12 and 8 kHz carry 6143 history
+# samples, more than a chunk of 1024.
+WIDE_MIXER_PLANS = {
+    "2.048 Msps to 240 kHz": (240e3, 200e3, 2.048e6, 2048),
+    "1.024 Msps to 200 kHz": (200e3, 150e3, 1.024e6, 2048),
+    "2.048 Msps to 12 kHz": (12e3, 10e3, 2.048e6, 1024),
+    "2.048 Msps to 8 kHz": (8e3, 6e3, 2.048e6, 1024),
+    "48 kHz to 44.1 kHz": (44100.0, 20e3, 48e3, 1280),
+    "96 kHz to 44.1 kHz": (44100.0, 20e3, 96e3, 1280),
+    "192 kHz to 44.1 kHz": (44100.0, 20e3, 192e3, 1280),
+}
+
+
+def _retuned_run(lib, chain, xs, params, state, new_shift):
+    """Two chunks, a phase-continuous retune of every block that has one
+    (numpy trees), then the third chunk; the outputs stacked."""
+    from radiorust_tpu_torch.convert import tree_to_numpy
+    if lib is jbase:
+        run = lambda p, s, x: jbase.scan(chain, p, s, jnp.asarray(x))
+        host = lambda t: jax.tree.map(np.asarray, t)
+    else:
+        run = lambda p, s, x: tbase.scan(chain, tree_to_torch(p, "cpu"),
+                                         tree_to_torch(s, "cpu"),
+                                         torch.from_numpy(x))
+        host = tree_to_numpy
+    st, y1 = run(params, state, xs[:2])
+    ps, ss = list(params), list(host(st))
+    for i, blk in enumerate(chain.blocks):
+        if hasattr(blk, "retune"):
+            ps[i], ss[i] = blk.retune(ps[i], ss[i], new_shift)
+    _, y2 = run(tuple(ps), tuple(ss), xs[2:])
+    return np.concatenate([np.asarray(y1), np.asarray(y2)])
+
+
+@pytest.mark.parametrize("name,tail", [
+    *((name, False) for name in WIDE_MIXER_PLANS),
+    ("2.048 Msps to 240 kHz", True), ("2.048 Msps to 12 kHz", True),
+    ("48 kHz to 44.1 kHz", True)])
+def test_mixer_decimator_wide_plans_match_and_retune(name, tail):
+    """The plans the port's mixer runs on its wide form bind in both
+    packages and agree (the port's plain version, the JAX package's
+    Pallas kernel in interpret mode) over 3 chunks at batch 2 with a
+    retune after the second, within the FIR outputs' 5e-5; with
+    ``tail`` the slice as a whole, ``Chain(MixerDecimator,
+    GainControl)``.  The input is a narrow FM walk at ``bw / 40`` a
+    sample, shifted by an eighth of the bandwidth (then by 3/16): it
+    stays in the passband, so the output carries the signal."""
+    out, bw, rate, n = WIDE_MIXER_PLANS[name]
+    shift, sig = bw / 8, (2, n, rate)
+    rng = np.random.default_rng(11)
+    walk = rng.standard_normal((2, 3 * n)) * (2 * np.pi * bw / 40 / rate)
+    xs = np.exp(1j * np.cumsum(walk, -1)).astype(np.complex64).reshape(
+        2, 3, n).transpose(1, 0, 2).copy()
+    specs = lambda L, T: [L.MixerDecimator(shift, out, bw)] + (
+        [T.GainControl(0.5)] if tail else [])
+    jb = jbase.Chain(*specs(jfrontend, jtr)).bind(jbase.StreamSig(*sig))
+    tb = tbase.Chain(*specs(tfrontend, ttr)).bind(tbase.StreamSig(*sig))
+    mix = tb.blocks[0]
+    assert not _ofront.fits_block(mix.plan.p, mix.plan.q,
+                                  mix.plan.kernel.shape[-1])
+    sig_of = lambda s: (s.batch, s.chunk_len, s.sample_rate)
+    assert sig_of(tb.out_sig) == sig_of(jb.out_sig)
+    want = _retuned_run(jbase, jb, xs, jb.params, jb.init_state(),
+                        1.5 * shift)
+    got = _retuned_run(tbase, tb, xs, jb.params, jb.init_state(),
+                       1.5 * shift)
+    assert got.shape == want.shape == (3, 2, mix.out_sig.chunk_len)
+    assert np.abs(want[1:]).mean() > 0.2     # the signal passed
+    np.testing.assert_allclose(got, want, atol=5e-5)
 
 
 def test_fused_blocks_reject_geometries_their_kernel_does_not_take():

@@ -448,7 +448,7 @@ def _wide_plan(name):
 
 
 def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
-               shape_batch=None):
+               shape_batch=None, osc=None, pairs=None):
     """One launch of ``decimate_wide_kernel``: xs_in [b, NP, n], hs_in
     [b, NP, hist] float32, W [q, Kw]; cfg = (ws, nw, xs, xlen, threads,
     smem) or None for the wrapper's ``wide_config`` at batch b (at
@@ -462,9 +462,19 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
     block's share of the history copy.  ``phase`` [b] int32: phase mode
     (``rr_decimate_phase``), hist = Kw - 1, M = ceil(n / p) windows from
     p - 1 - phase[0], windows from v = (phase[0] + n) // p on written as
-    zeros.  Returns (y [b, NP, M q], new hist), and in phase mode the new
-    phase too."""
+    zeros.  ``osc`` = (A re, A im, B re, B im, p0 re [b], p0 im [b]):
+    the mixer form (``rr_mix_decimate_wide``): once the span has landed,
+    each staged chunk sample is mixed in place at its oscillator index
+    (the multiply-shift division), and the history share mixes what it
+    copies from the chunk.  ``pairs`` = (base, row): x is a complex64
+    tensor read in place whose stream s starts at element base + s row
+    of 8 bytes from a 16-byte boundary; the staged row then starts one
+    position in where the span's first sample sits at an odd 8-byte
+    phase (the 16-byte shift), within the row's spare position.
+    Returns (y [b, NP, M q], new hist), and in phase mode the new phase
+    too."""
     b, NP, n = xs_in.shape
+    assert osc is None or (NP == 2 and phase is None)
     hist = hs_in.shape[-1]
     kw = W.shape[-1]
     if phase is None:
@@ -494,20 +504,30 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
         ulo, width, u0, unz = (int(c) for c in lay.zband[z])
         assert width <= wmax and unz <= un
         T = taps[u0 * ls:(u0 + unz) * ls]
-        # The span: buf[P0 + k p + i] to X[k xs + i].
+        # The span: buf[P0 + k p + i] to X[sh + k xs + i].
         buf = np.concatenate([hs_in[s], xs_in[s]], axis=-1)
         X = np.full((NP, xlen + 1), np.nan, np.float32)
         P0 = start + m0 * p + ulo
+        sh = 0 if pairs is None else (pairs[0] + s * pairs[1] + P0 - hist) % 2
         one_run = xs == p
         runs = (1 if one_run else mt) if width else 0
         rlen = (mt - 1) * p + width if one_run else width
         for k in range(runs):
             j = P0 + k * p + np.arange(rlen)
             assert phase is not None or (j < hist + n).all()
-            at = k * xs + np.arange(rlen)
-            assert at.max() < xlen
+            at = sh + k * xs + np.arange(rlen)
+            assert at.max() <= xlen and at.max() - sh < xlen
             X[:, at] = np.where(j < hist + n,
                                 buf[:, np.minimum(j, hist + n - 1)], 0.0)
+        if osc is not None:   # the chunk's staged samples, mixed in place
+            e = np.arange(runs * rlen)
+            k, i = e // rlen, e % rlen
+            j = P0 + k * p + i - hist
+            ok = (j >= 0) & (j < n)
+            at = sh + k[ok] * xs + i[ok]
+            a = divm(j[ok], len(osc[2]))
+            X[:, at] = _mix(X[:, at].T, a, j[ok] - a * len(osc[2]),
+                            (*osc[:4], osc[4][s], osc[5][s])).T
         # [threads, nw]: each thread's windows.
         k_of = wsl[:, None] + np.arange(nw)[None, :] * ws_n
         live = (rr < nr) & (wsl < ws_n) & (wsl < mt)
@@ -517,7 +537,7 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
         tb = np.where(live, lay.rows[r, 2] - u0, 0)
         assert (tb >= 0).all() and (tb < unz).all()
         acc = np.zeros((NP, threads, nw), np.float32)
-        xo = np.minimum(k_of, mt - 1) * xs + off[:, None]
+        xo = sh + np.minimum(k_of, mt - 1) * xs + off[:, None]
         for u0 in range(0, int(ln.max(initial=0)), g):
             u = u0 + gl
             act = u < ln
@@ -543,6 +563,12 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
         per = -(-hist // nb)
         i = np.arange(bi * per, min(hist, (bi + 1) * per))
         nh[s][:, i] = buf[:, n + i]
+        if osc is not None:   # those from the chunk, mixed on their way
+            sel = i[n + i >= hist]
+            k = n + sel - hist
+            a = divm(k, len(osc[2]))
+            nh[s][:, sel] = _mix(buf[:, hist + k].T, a, k - a * len(osc[2]),
+                                 (*osc[:4], osc[4][s], osc[5][s])).T
     assert not np.isnan(y).any() and not np.isnan(nh).any()
     if phase is None:
         return y, nh
@@ -586,7 +612,8 @@ def test_wide_model_matches_plain(case):
     kw = W.shape[-1]
     assert tfe.decimate_supported(n, plan)
     assert not tfe.fits_block(p, q, kw, NP)
-    assert not tfe.decimate_supported(n, plan, mixer=True)
+    # The mixer form takes the plan too, on the same wide kernel.
+    assert tfe.decimate_supported(n, plan, mixer=True)
     rng = np.random.default_rng(n + kw + NP + b)
     xs = rng.standard_normal((b, NP, n)).astype(np.float32)
     hs = rng.standard_normal((b, NP, plan.hist)).astype(np.float32)
@@ -597,6 +624,99 @@ def test_wide_model_matches_plain(case):
     assert got.shape == want.shape
     assert _rel(got, want) <= REL, case
     np.testing.assert_array_equal(got_h, want_h)
+
+
+# The mixer form's plans past one block (rr_mix_decimate_wide): (input
+# rate, output rate, bandwidth), chunk, streams, the launch shape's batch
+# (None: the streams' own), pairs = (base, row) of the complex64 chunk
+# read in place.  U1-U3 of chip_smoke.py (2.048 MHz -> 240 kHz: p = 128,
+# q = 15, Kw = 435; -> 12 kHz: p = 512, q = 3, Kw = 6655, 8-lane groups;
+# 48 kHz -> 44.1 kHz at 1600, a 100-sample oscillator block), the other
+# plans of the JAX package's MixerDecimator the polyphase form does not
+# take, a chunk shorter than the history (6143 samples, partly the old
+# mixed history), an oscillator block of 110 (not a multiple of 4), and
+# a chunk whose rows sit at an odd 8-byte phase (the 16-byte shift).
+WIDE_MIX_CASES = {
+    "U1: 2.048M to 240k at 16384": ((2.048e6, 240e3, 200e3), 16384, 1, 64,
+                                    (0, 16384)),
+    "U2: 2.048M to 12k at 16384": ((2.048e6, 12e3, 10e3), 16384, 1, 64,
+                                   (0, 16384)),
+    "U3: 48k to 44.1k at 1600": ((48e3, 44100.0, 20e3), 1600, 2, 64,
+                                 (0, 1600)),
+    "1.024M to 200k at 16384": ((1.024e6, 200e3, 150e3), 16384, 1, 64,
+                                (0, 16384)),
+    "2.048M to 8k at 16384": ((2.048e6, 8e3, 6e3), 16384, 1, 64,
+                              (0, 16384)),
+    "96k to 44.1k at 1280": ((96e3, 44100.0, 20e3), 1280, 2, 64, (0, 1280)),
+    "192k to 44.1k at 1280": ((192e3, 44100.0, 20e3), 1280, 2, None,
+                              (0, 1280)),
+    "short chunk: 2.048M to 12k at 1024": ((2.048e6, 12e3, 10e3), 1024, 2,
+                                           64, (0, 1024)),
+    "inner 110: 48k to 44.1k at 1760": ((48e3, 44100.0, 20e3), 1760, 3,
+                                        None, (0, 1760)),
+    "odd 8-byte phase: 48k to 44.1k at 1600": ((48e3, 44100.0, 20e3), 1600,
+                                               3, 64, (1, 1601)),
+}
+
+
+def _mix_oscillator(n, b, rng):
+    """Tables of a shift at 2.048 MHz (the block's factoring of n) and a
+    random start phasor a stream."""
+    from radiorust_tpu_torch.blocks.transform import _inner_block
+    ta, tb, _ = _shift_tables(n, 2048000, -300000)
+    assert len(tb) == _inner_block(n)
+    ph = rng.standard_normal(b)
+    return (ta.real.copy(), ta.imag.copy(), tb.real.copy(), tb.imag.copy(),
+            np.cos(ph).astype(np.float32), np.sin(ph).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", list(WIDE_MIX_CASES))
+def test_wide_mixer_model_matches_plain(case):
+    """The wide form's mixer entry: the staged span mixed in place after
+    the wait (through the 16-byte shift, at the multiply-shift division's
+    oscillator indices), the history share mixed on its way out, against
+    ``fused_mix_decimate_plain``; the new history bit for bit.  The
+    wrapper takes the plan (``decimate_supported``) and, on CPU tensors,
+    is the plain version (no launch)."""
+    rates, n, b, shape_batch, pairs = WIDE_MIX_CASES[case]
+    plan = plan_downsample(*rates)
+    p, q, W = plan.p, plan.q, plan.kernel
+    kw = W.shape[-1]
+    rng = np.random.default_rng(n + kw + b)
+    osc = _mix_oscillator(n, b, rng)
+    assert not tfe.fits_block(p, q, kw)
+    assert tfe.decimate_supported(n, plan, mixer=True, inner=len(osc[2]))
+    xs = rng.standard_normal((b, 2, n)).astype(np.float32)
+    hs = rng.standard_normal((b, 2, plan.hist)).astype(np.float32)
+    got, got_h = wide_model(xs, hs, W, p, q, shape_batch=shape_batch,
+                            osc=osc, pairs=pairs)
+    want, want_h = _plain(xs, hs, W, p, q, osc)
+    assert got.shape == want.shape == (b, 2, n // p * q)
+    assert _rel(got, want) <= REL, case
+    np.testing.assert_array_equal(got_h, want_h)
+    t = torch.from_numpy
+    before = tfe.fused_mix_decimate.launches
+    y, nh = tfe.fused_mix_decimate_complex(
+        t(xs[:, 0] + 1j * xs[:, 1]), t(osc[0] + 1j * osc[1]),
+        t(osc[2] + 1j * osc[3]), t(osc[4]), t(osc[5]), t(hs[:, 0]),
+        t(hs[:, 1]), t(W), p, q)
+    assert tfe.fused_mix_decimate.launches == before
+    np.testing.assert_array_equal(np.stack([y.real, y.imag], 1), want)
+    np.testing.assert_array_equal(np.stack([nh.real, nh.imag], 1), want_h)
+
+
+def test_mixer_limits_refuse_at_bind():
+    """The mixer form's limits are the wrapper's rule at bind: the
+    oscillator index division exact (n inner < 2^31) on either form; a
+    chunk that is not a whole number of periods on neither."""
+    wide = plan_downsample(2.048e6, 240e3, 200e3)
+    poly = PLANS["A head"][0]
+    for plan in (wide, poly):
+        n = plan.p * 2 ** 14
+        assert tfe.decimate_supported(n, plan, mixer=True, inner=128)
+        assert not tfe.decimate_supported(n, plan, mixer=True,
+                                          inner=2 ** 31 // n + 1)
+        assert not tfe.decimate_supported(n + 1, plan, mixer=True)
 
 
 def _all_wide_geometries():
@@ -811,15 +931,17 @@ def test_phase_wrapper_on_cpu_is_the_plain_version(name):
 
 def test_decimate_split_runs_the_plain_versions_on_the_cpu(capsys):
     """``tools/decimate_split.py`` on the CPU: every geometry of #1's wide
-    form and phase-mode entry, and #1's polyphase form and #2 at A, each
-    held against its plain version (here the wrapper is the plain
-    version: no launch, no time), one JSON line each and the card line
-    last."""
+    form and phase-mode entry, #1's polyphase form and #2 at A, and #2's
+    wide form at path U's plans and its other checks, each held against
+    its plain version (here the wrapper is the plain version: no launch,
+    no time), one JSON line each and the card line last."""
     import json
 
     from radiorust_tpu_torch.tools import decimate_split
     rows = decimate_split.main(["--device", "cpu", "--batch", "2"])
-    assert len(rows) == 12
+    assert len(rows) == 18
+    assert [r["geometry"].split(":")[0] for r in rows[12:15]] == [
+        "mixer wide (#2)"] * 3
     assert {r["launches"] for r in rows} == {0}
     assert all(r["rel"] == 0.0 and r["us_graph_10"] is None for r in rows)
     kinds = [r["geometry"].split(":")[0] for r in rows]

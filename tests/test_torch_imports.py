@@ -342,19 +342,74 @@ def test_mixer_decimator_supported_matches_the_jax_package():
         # The method reads the chunk length of the signature it is given.
         assert not got.supported(StreamSig(sig[0], 3 * got.plan.p + 1,
                                            sig[2]))
-    # Both refuse a plan of 147 phases at 1.024 MHz to 44.1 kHz.
-    sig = (2, 327680, 1024000.0)
-    assert bind(MixerDecimator, StreamSig, 44100.0, 18e3, sig) is None
-    assert bind(JMix, JSig, 44100.0, 18e3, sig) is None
-    with pytest.raises(ValueError, match="FreqShifter \\+ Downsampler"):
-        MixerDecimator(0.0, 44100.0, 18e3).bind(StreamSig(*sig))
-    # The documented divergences (ROADMAP.md, "Known divergences"): the
-    # port takes chunks off the JAX package's 128-sample oscillator
-    # block; its mixer form has no wide form, so it refuses the 147-phase
-    # plans the JAX package's Pallas kernel takes.
-    for sig in ((2, 1000, 1024000.0), (2, 24000, 1024000.0)):
-        assert bind(MixerDecimator, StreamSig, 384e3, 200e3, sig)
-        assert bind(JMix, JSig, 384e3, 200e3, sig) is None
-    sig = (2, 12800, 48000.0)
+    # Both refuse a chunk that is not a whole number of periods (1000
+    # samples of 160 at 48 kHz to 44.1 kHz), and a chunk of 8 x 3^14
+    # samples at 8:3, where the port's oscillator index division is not
+    # exact (n x 108 >= 2^31) and the JAX package's oscillator block is
+    # not 128 samples; there the port says what to use instead.
+    sig = (2, 1000, 48000.0)
     assert bind(MixerDecimator, StreamSig, 44100.0, 20e3, sig) is None
-    assert bind(JMix, JSig, 44100.0, 20e3, sig) is not None
+    assert bind(JMix, JSig, 44100.0, 20e3, sig) is None
+    sig = (1, 8 * 3 ** 14, 1024000.0)
+    assert bind(MixerDecimator, StreamSig, 384e3, 200e3, sig) is None
+    assert bind(JMix, JSig, 384e3, 200e3, sig) is None
+    with pytest.raises(ValueError, match="FreqShifter \\+ Downsampler"):
+        MixerDecimator(0.0, 384e3, 200e3).bind(StreamSig(*sig))
+    # Plans of more than 16 output phases run on the mixer's wide form:
+    # the port binds 48 kHz to 44.1 kHz (147 phases) where the JAX
+    # package's Pallas kernel does, to the same output signature.
+    sig = (2, 12800, 48000.0)
+    got, want = (bind(MixerDecimator, StreamSig, 44100.0, 20e3, sig),
+                 bind(JMix, JSig, 44100.0, 20e3, sig))
+    assert got is not None and want is not None
+    assert got.out_sig.chunk_len == want.out_sig.chunk_len
+    # The documented divergence (ROADMAP.md, "Known divergences"): the
+    # port takes chunks off the JAX package's 128-sample oscillator block
+    # and super-row rule: 8:3 at 1000 and 24000, and 1.024 MHz to 44.1
+    # kHz (441 phases, p = 10240) at 327680, which the JAX package's
+    # super-row rule refuses.
+    for out, bw, sig in ((384e3, 200e3, (2, 1000, 1024000.0)),
+                         (384e3, 200e3, (2, 24000, 1024000.0)),
+                         (44100.0, 18e3, (2, 327680, 1024000.0))):
+        assert bind(MixerDecimator, StreamSig, out, bw, sig)
+        assert bind(JMix, JSig, out, bw, sig) is None
+
+
+def test_mixer_decimator_binds_every_plan_the_jax_package_binds():
+    """Every MixerDecimator plan of ordinary SDR front ends that the JAX
+    package binds, the port binds too, at the same output length (the
+    plans past 16 output phases or one block's shared memory on the
+    mixer's wide form); and path U3's chunk of 1600 at 48 kHz, which
+    only the port takes (the JAX package's oscillator block rule)."""
+    from radiorust_tpu.blocks.base import StreamSig as JSig
+    from radiorust_tpu.blocks.frontend import MixerDecimator as JMix
+
+    from radiorust_tpu_torch.blocks.base import StreamSig
+    from radiorust_tpu_torch.blocks.frontend import MixerDecimator
+
+    def bind(cls, sig_cls, out, bw, sig):
+        try:
+            return cls(-7e3, out, bw).bind(sig_cls(*sig))
+        except ValueError:
+            return None
+
+    plans = ((2.048e6, 240e3, 200e3), (1.024e6, 200e3, 150e3),
+             (2.048e6, 12e3, 10e3), (2.048e6, 8e3, 6e3),
+             (48e3, 44100.0, 20e3), (96e3, 44100.0, 20e3),
+             (192e3, 44100.0, 20e3))
+    chunks = (128, 256, 512, 640, 1024, 1280, 1600, 2048, 4096, 12800,
+              16384)
+    jax_binds = 0
+    for rate, out, bw in plans:
+        for n in chunks:
+            want = bind(JMix, JSig, out, bw, (2, n, rate))
+            if want is None:
+                continue
+            jax_binds += 1
+            got = bind(MixerDecimator, StreamSig, out, bw, (2, n, rate))
+            assert got is not None, (rate, out, n)
+            assert got.out_sig.chunk_len == want.out_sig.chunk_len
+    assert jax_binds >= 30
+    sig = (64, 1600, 48000.0)
+    assert bind(MixerDecimator, StreamSig, 44100.0, 20e3, sig) is not None
+    assert bind(JMix, JSig, 44100.0, 20e3, sig) is None

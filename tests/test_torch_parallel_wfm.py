@@ -40,14 +40,23 @@ def test_time_sharded_fused_wfm(name):
     np.testing.assert_array_equal(got, seq)
 
 
-def test_time_sharded_fused_frontend_only():
+# (shift, output rate, bandwidth, input rate): A's 8:3 head (the
+# polyphase form), and path U1's 2.048 MHz -> 240 kHz (p = 128, q = 15,
+# Kw = 435: the mixer's wide form, a 307-sample history).
+FRONTENDS = {"8:3": (-57000.0, 384000.0, 200000.0, RATE),
+             "U1 wide": (-300e3, 240e3, 200e3, 2.048e6)}
+
+
+@pytest.mark.parametrize("plan", list(FRONTENDS))
+def test_time_sharded_fused_frontend_only(plan):
     """MixerDecimator alone on random IQ: the rebuilt mixed history is the
-    kernel's own (bit for bit on the CPU)."""
+    kernel's own (bit for bit on the CPU), on either form's plan."""
     n = 2048
+    shift, out, bw, rate = FRONTENDS[plan]
     xs = make_iq(STEPS * D, 2, n, seed=5)
     got, want, seq = both(
-        lambda L: L.Chain(L.MixerDecimator(-57000.0, 384000.0, 200000.0)),
-        (2, n, RATE), xs)
+        lambda L: L.Chain(L.MixerDecimator(shift, out, bw)),
+        (2, n, rate), xs)
     np.testing.assert_allclose(got, want, atol=ATOL)
     np.testing.assert_array_equal(got, seq)
 
