@@ -16,7 +16,11 @@
    upsample (3:64), and its phase-mode entry chunk after chunk at path
    K's plan, 8:3 at 60, 100 and 7, 384 -> 1024 at 64 and 1.024 MHz to
    44.1 and 22.05 kHz (#1's bytes: ``decimate_bytes``, the plan's
-   nonzero taps once, whatever taps tensor the kernel reads); #3 and #4 also at
+   nonzero taps once, whatever taps tensor the kernel reads); #2's wide
+   form (``csrc/mix_decimate_wide.cu``) at path U's three plans and
+   ``MIX_WIDE_CHECKS``, its mixed history bit for bit, each plan's route
+   (the tensor cores in a 3xTF32 split, or FMA) and useful share printed
+   first; #3 and #4 also at
    the geometries of paths E-G, at column lengths n1 = 77 and, #3, n1 =
    768, and (#4 at K = 3) at the five transforms past 128-point rows or
    768 rows: m = n = 1000, 1001, 65536, 98304 and m = 6144, n = 98304,
@@ -171,9 +175,9 @@
 of the kernels: #8's (``-DRR_SCAN_CLOCKS``: the serial tiled walk the
 segments replaced, the bare step chain and the segmented kernel's walks
 and passes, on random input and on E audio's keyer envelopes), then #1's
-wide form and phase-mode entry (``-DRR_DECIM_CLOCKS``,
-``tools/decimate_split.py``: a block's copies, sums, shuffles, stores and
-history share at each wide geometry).
+wide form and phase-mode entry and #2's wide form (``-DRR_DECIM_CLOCKS``,
+``tools/decimate_split.py``: a block's copies, history, mix, sums or
+product, shuffles or reduction, stores at each wide geometry).
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
@@ -1090,7 +1094,9 @@ def mixer_wide_paths(dev, tag, wrappers, graphed_rows, phase) -> dict:
     against the chain on CPU tensors and against FreqShifter +
     Downsampler (#1's wide form) on the card, both within CPU_ATOL from
     ``valid_from``; us per chunk step eager and graphed into
-    ``graphed_rows``.  Returns {path: launches}."""
+    ``graphed_rows``, and with --profile the graphed step's device time
+    by kernel, its glue (``GainControl``'s PyTorch kernels) and its idle
+    share.  Returns {path: launches}."""
     from radiorust_tpu_torch.blocks.base import (Chain, StreamSig,
                                                  make_scan, scan)
     from radiorust_tpu_torch.blocks.frontend import MixerDecimator
@@ -1193,8 +1199,14 @@ def mixer_wide_paths(dev, tag, wrappers, graphed_rows, phase) -> dict:
         run(params_u, state0, xs_t)
         step_ms = cuda_ms(lambda: run(params_u, state0, xs_t), reps=3) / T
         msps = BATCH * n / (step_ms * 1e-3) / 1e6
+        busy = (profile_chain(lambda: run(params_u, state0, xs_t), T,
+                              f"graphed path {label} {tag}")
+                if "--profile" in sys.argv[1:] else None)
+        idle = ("not measured" if busy is None
+                else f"{100 * (1.0 - busy / (step_ms * 1e3)):.1f}%")
         print(f"graphed path {label}: {step_ms * 1e3:.1f} us per chunk step "
-              f"(eager {eager_ms * 1e3:.1f}), {msps:.1f} Msamples/s, "
+              f"(eager {eager_ms * 1e3:.1f}), {msps:.1f} Msamples/s, idle "
+              f"{idle}, "
               f"{run.captures} captures (a params tree each), the last "
               f"{run.capture_ms:.1f} ms; wrapper counts at capture "
               f"{at_capture}; vs eager max|diff|={diff:.3e}, bit for bit: "
@@ -1205,7 +1217,7 @@ def mixer_wide_paths(dev, tag, wrappers, graphed_rows, phase) -> dict:
         graphed_rows[label] = dict(
             us_per_step=step_ms * 1e3, eager_us_per_step=eager_ms * 1e3,
             msamples_s=msps, capture_ms=run.capture_ms,
-            captures=run.captures, max_abs_diff=diff)
+            captures=run.captures, max_abs_diff=diff, busy_us=busy)
         run.free()
         del run, ys_g, st_g, xs_t
         t0 = phase(f"path {label}", t0)
@@ -2714,8 +2726,9 @@ def main() -> None:
 
     if "--clocks" in sys.argv[1:]:
         slew_clocks(dev, randn)
-        # #1's wide form and phase-mode entry: a block's phases at each
-        # geometry (tools/decimate_split.py, -DRR_DECIM_CLOCKS).
+        # #1's wide form and phase-mode entry and #2's wide form: a
+        # block's phases at each geometry (tools/decimate_split.py,
+        # -DRR_DECIM_CLOCKS).
         from radiorust_tpu_torch.tools.decimate_split import clocks
         clocks(dev, reps=20)
         return
@@ -2760,7 +2773,7 @@ def main() -> None:
     def check(name, source, replaces, bound_, kernel, plain, args, flops,
               outputs=None, record=True, of=None, absolute=False,
               plain_timing=(3, 20), graphed=False, library=None,
-              inputs=None, calls=1, bytes_of=None):
+              inputs=None, calls=1, bytes_of=None, extra=None):
         """Kernel vs plain on the same CUDA tensors: max |diff| /
         max |ref| within ``bound_`` (max |diff| if ``absolute``);
         ``flops``: the operations the function needs on these inputs,
@@ -2776,7 +2789,8 @@ def main() -> None:
         the bound and ``flops`` are per call.  ``bytes_of(result)``: the
         bytes the calls must move, where not ``io_bytes`` of ``inputs``
         and the result (#1: ``decimate_bytes``, the plan's nonzero taps
-        in place of a taps tensor)."""
+        in place of a taps tensor).  ``extra``: fields added to the
+        check's row (a geometry run by another kernel names it)."""
         res = kernel(*args)
         want_res = plain(*args)
         got = res if outputs is None else outputs(res)
@@ -2817,7 +2831,7 @@ def main() -> None:
         row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
                    device_ms=device_ms, device10_ms=device10_ms,
-                   library_rel=lib_rel)
+                   library_rel=lib_rel, **(extra or {}))
         if record:
             kernels.append(dict(name=name, route="cuda", source=source,
                                 replaces=replaces, **row, geometries=[]))
@@ -2923,16 +2937,30 @@ def main() -> None:
           library=("conv1d (FIR part only, on the mixed signal)", call,
                    lambda r: layout(r[:2])))
 
-    # #2's wide form (rr_mix_decimate_wide) at path U's plans and beside
-    # them, the tables of the block bound there: within FIR_BOUND, the
-    # mixed history bit for bit; the yardstick conv1d of the FIR part on
-    # the signal mixed beforehand; bytes with the tables
-    # (mix_decimate_bytes).  U3's plan also through the float planes.
+    # #2's wide form (rr_mix_decimate_wide, csrc/mix_decimate_wide.cu) at
+    # path U's plans and beside them, the tables of the block bound there:
+    # its route and useful share first; within FIR_BOUND, the mixed
+    # history bit for bit; the yardstick conv1d of the FIR part on the
+    # signal mixed beforehand; bytes with the tables (mix_decimate_bytes).
+    # U3's plan also through the float planes.  Its rows name the kernel.
+    mix_wide_src = "radiorust_tpu_torch/csrc/mix_decimate_wide.cu"
+
     def check_mix_wide(label, shift, out, bw, rate, n, float_planes=False):
         blk = MixerDecimator(shift, out, bw).bind(StreamSig(BATCH, n, rate))
         plan_ = blk.plan
         if ofe.fits_block(plan_.p, plan_.q, plan_.kernel.shape[1]):
             raise AssertionError(f"{label}: not a wide plan")
+        lay_ = ofe.mix_wide_layout(plan_.kernel, plan_.p)
+        inner_ = blk.params["table_b"].shape[0]
+        sh_ = ofe.mix_wide_config(lay_.shape, plan_.p, n // plan_.p, BATCH,
+                                  inner_, n // inner_, plan_.hist)
+        route_ = ("tensor cores, 3xTF32" if lay_.route == "mma"
+                  else "FMA over the bands")
+        print(f"#2's wide form, {label}: route {lay_.route} ({route_}), "
+              f"{100 * lay_.useful:.1f}% of the multiplies it runs meet a "
+              f"nonzero tap (the tensor-core product {100 * lay_.dense:.1f}"
+              f"%); {sh_.tm} windows a tile, {sh_.tiles} tiles a stream, "
+              f"{sh_.threads} threads, {sh_.smem} B of shared memory")
         ta_, tb_ = (torch.from_numpy(blk.params[k]).to(dev)
                     for k in ("table_a", "table_b"))
         ph_ = randn(BATCH)
@@ -2967,7 +2995,10 @@ def main() -> None:
               library=("conv1d (FIR part only, on the mixed signal)",
                        call_, lib_layout),
               bytes_of=lambda r: mix_decimate_bytes(
-                  plan_, (x_, hr_, hi_, c_, s_), r, (ta_, tb_)))
+                  plan_, (x_, hr_, hi_, c_, s_), r, (ta_, tb_)),
+              extra=dict(kernel="mix_decimate_wide_kernel",
+                         source=mix_wide_src, sums=lay_.route,
+                         useful=lay_.useful))
         if not torch.equal(hist_of(kernel_(*args_)),
                            hist_of(plain_(*args_))):
             raise AssertionError(f"#2's wide form, {label}: the new "

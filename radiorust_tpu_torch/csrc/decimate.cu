@@ -3,8 +3,9 @@
 // Replaces two TPU kernels of radiorust_tpu/ops/pallas_frontend.py:
 //   rr_decimate      <- pallas_decimate      (:181, body _make_decim_kernel :138)
 //   rr_mix_decimate  <- fused_mix_decimate   (:241, body _make_kernel :42)
-// and, at plans past one block of rr_decimate, their wide forms
-// rr_decimate_wide and rr_mix_decimate_wide (decimate_wide_kernel below).
+// and, at plans past one block of rr_decimate, #1's wide form
+// rr_decimate_wide (decimate_wide_kernel below; #2's wide form,
+// rr_mix_decimate_wide, is mix_decimate_wide.cu).
 //
 // What it computes, per stream s, over buf = [hist || x] (hist = Kw - p):
 //   y[s, m*q + r] = sum_{u < Kw} W[r, u] * buf[s, m*p + u]
@@ -66,12 +67,6 @@
 // There each kernel row W[r] is a band of nonzero taps [lo_r, lo_r +
 // L_r) of Kw: a downsample plan's rows are the prototype at q offsets (L
 // = 12 of 171, 233 of 10472), an upsample plan's its q phases (36 of 38).
-// Its mixer form (rr_mix_decimate_wide) replaces fused_mix_decimate
-// (pallas_frontend.py:241) at those plans: 2.048 MHz -> 240 kHz (p = 128,
-// q = 15, Kw = 435), -> 12 kHz (p = 512, q = 3, Kw = 6655, a history of
-// 6143 samples), 48 kHz -> 44.1 kHz.  The span is staged raw, and its
-// chunk samples are mixed in place in shared memory once the copies land;
-// the history's are mixed already.
 // It also runs phase mode, a chunk of C samples that is not a whole
 // number of periods.  The JAX package computes that with XLA's
 // convolution on a slice at a traced offset (radiorust_tpu/ops/
@@ -129,42 +124,18 @@
 //   - Every block copies its share of the new history from the sources,
 //     bit for bit, while its copies land; one block a stream writes the
 //     new phase.
-//   - The mixer form mixes after the wait: each staged position of the
-//     chunk, buf[P0 + k p + i] at X[k xs + i] (X already carries the
-//     16-byte shift), is x[j] with j = P0 + k p + i - hist, times osc[j] =
-//     A[j / inner] B[j mod inner] (the multiply-shift division of the
-//     polyphase form) and the stream's p0, in the TPU kernel's order of
-//     operations; its share of the new history is mixed the same way on
-//     its way out, so it equals the plain version's bit for bit.  Every
-//     phase block of a tile mixes the same span again (ceil(q / nr) times).
 // Plain float32 FMA; no tensor cores (operations do not bound it).
 //
 // A development build (-DRR_DECIM_CLOCKS, rr_decim_clocks) stamps each
 // block's phases (kWideMarks a block): clock64() at its start, after the
 // copies are issued, after its share of the history, once the copies
-// land, after the mix (the mixer form; else at once), after the sums, the
-// shuffles and the stores; %globaltimer at its start and end; its SM.
+// land, after the sums, the shuffles and the stores; %globaltimer at its
+// start and end; its SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Element (s, i) of a plane k lives at ptr[k][s * row + i * step] (floats).
-struct DecimArgs {
-  const float* x[2];
-  int64_t x_row, x_step;
-  const float* h[2];
-  int64_t h_row, h_step;
-  float* y[2];
-  int64_t y_row, y_step;
-  float* nh[2];
-  int64_t nh_row, nh_step;
-  const float* taps;     // [q][p][apad]
-  const float* tab[4];   // mixer only: tables A re, A im, B re, B im
-  int64_t tab_step[2];   // of A and of B
-  const float* p0[2];    // mixer only: start phasor re, im
-  int64_t p0_step;
-  int32_t b, n, hist, p, q, apad, inner, nplanes;
-};
+#include "decimate.cuh"
 
 // The wide launch's shape (ops/frontend.py wide_config and _WideArgs).
 struct WideArgs {
@@ -219,11 +190,6 @@ __device__ __forceinline__ int skew(int k) {
   return k + k / R;
 }
 
-// floor(x / d) for 0 <= x < 2^31 / d, with m = ceil(2^32 / d) from the
-// host: x m / 2^32 is at most x (d - 1) / (d 2^32) < 1 / d above x / d.
-__device__ __forceinline__ int divm(int x, uint64_t m) {
-  return (int)(((uint64_t)x * m) >> 32);
-}
 
 __device__ __forceinline__ void split4(const float4& a, float (&v)[4]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
@@ -275,18 +241,6 @@ __device__ __forceinline__ void load_osc(const Mixer& o, int a, int b,
   t[6] = i4.x; t[7] = i4.y; t[8] = i4.z; t[9] = i4.w;
 }
 
-// x * (A * B) * p0 in the TPU kernel's order of operations.  __fmul_rn /
-// __fadd_rn: no FMA contraction, the rounding of the reference's separate
-// multiplies and adds.
-__device__ __forceinline__ void mix(float ar, float ai, float br, float bi,
-                                    float pr, float pi, float& v0, float& v1) {
-  const float oscr = __fsub_rn(__fmul_rn(ar, br), __fmul_rn(ai, bi));
-  const float osci = __fadd_rn(__fmul_rn(ar, bi), __fmul_rn(ai, br));
-  const float mr0 = __fsub_rn(__fmul_rn(v0, oscr), __fmul_rn(v1, osci));
-  const float mi0 = __fadd_rn(__fmul_rn(v0, osci), __fmul_rn(v1, oscr));
-  v0 = __fsub_rn(__fmul_rn(mr0, pr), __fmul_rn(mi0, pi));
-  v1 = __fadd_rn(__fmul_rn(mr0, pi), __fmul_rn(mi0, pr));
-}
 
 // Samples i0 .. i0 + 3 of a quad (those in [lo, hi)) to buffer positions
 // i + off; with mx, mixed first (t: the quad's load_osc entries where
@@ -331,12 +285,6 @@ __device__ __forceinline__ void put_quad(const Span& sp, int i0, int lo, int hi,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void cp_async16(T* dst, const T* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
 
 // Stages the history samples [hlo, hhi) (at positions i) and the input
 // samples [xlo, xhi) (at positions hist + i) of one tile: their quads run
@@ -513,10 +461,7 @@ __global__ void __launch_bounds__(kMaxThreads) decimate_kernel(
   }
 }
 
-constexpr int kWideThreads = 256;   // the most threads of a wide block
-constexpr int kWideNW = 8;          // the most windows a thread keeps
-constexpr int kWideMarks = 11;      // clock stamps a block (development)
-constexpr size_t kSmemMax = 232448; // 227 KB, a block's most on an H100
+constexpr int kWideMarks = 10;      // clock stamps a block (development)
 
 #ifdef RR_DECIM_CLOCKS
 #define DW_STAMP(clk, k, v)                                               \
@@ -548,18 +493,6 @@ long long* wide_clocks = nullptr;
 long long* const wide_clocks = nullptr;
 #endif
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-               "l"(src));
-}
-
 // count complex64 elements src[0, count) to dst[0, count), read in place
 // as (re, im) pairs, by the block's threads: 16 bytes at a time where
 // source and destination share their 16-byte phase, else 8.
@@ -578,15 +511,6 @@ __device__ __forceinline__ void copy_pairs(float2* dst, const float2* src,
   if (((count - head) & 1) && tid == nt - 1)
     cp_async8(dst + count - 1, src + count - 1);
 }
-
-// One source of buf (the history or the chunk) of one stream: plane k
-// of element e at p[k][e * step]; pairs: a complex64 row read in place.
-struct Row {
-  const float* p0;
-  const float* p1;
-  int64_t step;
-  bool pairs;
-};
 
 // count elements of a source from element e0 to X[d0, d0 + count) (NP
 // floats a position).
@@ -630,33 +554,17 @@ __device__ __forceinline__ void stage_run(float* X, int D, int64_t J,
   }
 }
 
-// Floats of a wide block's taps: un bands of ls, shifted by up to 3 to
-// the source's 16-byte phase, rounded up to a 16-byte boundary.
-__host__ __device__ __forceinline__ int wide_tap_floats(int un, int ls) {
-  return (un * ls + 3 + 3) & ~3;
-}
-
-// Chunk sample k (0 <= k < n) of a stream: x * osc[k] * p0, osc[k] =
-// A[k / inner] B[k mod inner].
-__device__ __forceinline__ void mix_at(const Mixer& o, int k, float& v0,
-                                       float& v1) {
-  const int a = divm(k, o.mi), b = k - a * o.inner;
-  mix(__ldg(o.ar + a * o.sa), __ldg(o.ai + a * o.sa), __ldg(o.br + b * o.sb),
-      __ldg(o.bi + b * o.sb), o.pr, o.pi, v0, v1);
-}
-
 // grid (ceil(q / nr), ceil(M / tm), batch) with tm = WS NW; block
 // W.threads.  Shared: the taps, then the staged span, xlen + 1
 // positions of NP floats (one spare for the 16-byte shift).  Phase mode:
 // A.hist = Kw - 1, M = ceil(n / p) windows from p - 1 - phase_in[0];
-// else A.hist = Kw - p, M = n / p from 0.  MIX (two planes, aligned):
-// the chunk mixed by A.tab and A.p0, mi = ceil(2^32 / inner).
-template <bool MIX, int NP, int NW>
+// else A.hist = Kw - p, M = n / p from 0.
+template <int NP, int NW>
 __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
     DecimArgs A, WideArgs W, int phase_mode, const int* __restrict__ phase_in,
-    int* __restrict__ phase_out, uint64_t mi, long long* clk) {
+    int* __restrict__ phase_out, long long* clk) {
   extern __shared__ __align__(16) float smem[];
-  DW_TIME(clk, 8);
+  DW_TIME(clk, 7);
   DW_MARK(clk, 0);
   const int z = blockIdx.x, tile = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -676,11 +584,6 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
               A.h_step, NP == 2 && A.h_step == 2 && A.h[1] == A.h[0] + 1};
   const Row x{A.x[0] + s * A.x_row, NP == 2 ? A.x[1] + s * A.x_row : nullptr,
               A.x_step, NP == 2 && A.x_step == 2 && A.x[1] == A.x[0] + 1};
-  Mixer mx{};
-  if (MIX)
-    mx = Mixer{A.tab[0], A.tab[1], A.tab[2], A.tab[3], A.tab_step[0],
-               A.tab_step[1], A.inner, 0, mi,
-               __ldg(A.p0[0] + s * A.p0_step), __ldg(A.p0[1] + s * A.p0_step)};
 
   // The rows' bands, at the source's 16-byte phase: 16 bytes a copy.
   const int64_t t0 = (int64_t)u0 * W.ls;
@@ -712,7 +615,6 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
   DW_MARK(clk, 1);
   // This block's share of the new history buf[n, n + hist), copied from
   // its sources while the copies land: four loads in flight a thread.
-  // The mixer form mixes what comes from the chunk.
   {
     const int nb = gridDim.x * gridDim.y, bi = tile * gridDim.x + z;
     const int per = (hist + nb - 1) / nb;
@@ -733,8 +635,6 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = i0 + e * nt;
-        if (MIX && i < i1 && (int64_t)n + i >= hist)
-          mix_at(mx, (int)((int64_t)n + i - hist), v0[e], v1[e]);
         if (i < i1) {
           nh0[i * A.nh_step] = v0[e];
           if (nh1) nh1[i * A.nh_step] = v1[e];
@@ -748,21 +648,6 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
   DW_MARK(clk, 3);
-  // The mixer form: the chunk's staged samples mixed in place.
-  if (MIX && width > 0) {
-    float2* X2 = reinterpret_cast<float2*>(X);
-    for (int e = tid; e < runs * rlen; e += nt) {
-      const int k = e / rlen, i = e - k * rlen;
-      const int64_t j = P0 + (int64_t)k * p + i - hist;
-      if (j >= 0 && j < n) {
-        float2 v = X2[k * W.xs + i];
-        mix_at(mx, (int)j, v.x, v.y);
-        X2[k * W.xs + i] = v;
-      }
-    }
-    __syncthreads();
-  }
-  DW_MARK(clk, 4);
 
   // Lane g of a group of G, phase r, windows ws + j WS.
   const int G = W.g;
@@ -799,14 +684,14 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
       }
     }
   }
-  DW_MARK(clk, 5);
+  DW_MARK(clk, 4);
   for (int o = G >> 1; o > 0; o >>= 1)
 #pragma unroll
     for (int j = 0; j < NW; ++j)
 #pragma unroll
       for (int pl = 0; pl < NP; ++pl)
         acc[j][pl] += __shfl_xor_sync(0xffffffffu, acc[j][pl], o);
-  DW_MARK(clk, 6);
+  DW_MARK(clk, 5);
 
   float* y0 = A.y[0] + s * A.y_row;
   float* y1 = A.y[1] ? A.y[1] + s * A.y_row : nullptr;
@@ -830,9 +715,9 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
       }
     }
   }
-  DW_MARK(clk, 7);
-  DW_TIME(clk, 9);
-  DW_SM(clk, 10);
+  DW_MARK(clk, 6);
+  DW_TIME(clk, 8);
+  DW_SM(clk, 9);
 }
 
 // Shared bytes of a wide launch; ops/frontend.py::_wide_smem mirrors it.
@@ -841,22 +726,22 @@ size_t wide_smem_bytes(int np, int un, int ls, int xlen) {
          ((size_t)wide_tap_floats(un, ls) + (size_t)np * (xlen + 1));
 }
 
-template <bool MIX, int NP, int NW>
+template <int NP, int NW>
 int launch_wide_nw(const DecimArgs& a, const WideArgs& w, int phase_mode,
-                   const int* phase_in, int* phase_out, uint64_t mi,
-                   dim3 grid, size_t smem, cudaStream_t stream) {
+                   const int* phase_in, int* phase_out, dim3 grid,
+                   size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decimate_wide_kernel<MIX, NP, NW>,
+        decimate_wide_kernel<NP, NW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  decimate_wide_kernel<MIX, NP, NW><<<grid, w.threads, smem, stream>>>(
-      a, w, phase_mode, phase_in, phase_out, mi, wide_clocks);
+  decimate_wide_kernel<NP, NW><<<grid, w.threads, smem, stream>>>(
+      a, w, phase_mode, phase_in, phase_out, wide_clocks);
   return (int)cudaGetLastError();
 }
 
-template <bool MIX, int NP>
+template <int NP>
 int launch_wide(const DecimArgs& a, const WideArgs& w, int phase_mode,
                 const int* phase_in, int* phase_out, cudaStream_t stream) {
   const int M = phase_mode ? (a.n + a.p - 1) / a.p : a.n / a.p;
@@ -872,27 +757,20 @@ int launch_wide(const DecimArgs& a, const WideArgs& w, int phase_mode,
     return (int)cudaErrorInvalidValue;
   if (phase_mode && (!phase_in || !phase_out || a.hist < 1))
     return (int)cudaErrorInvalidValue;
-  // The mixer: aligned, two planes, tables and phasor given, and the
-  // multiply-shift division exact below 2^31 / inner.
-  if (MIX && (phase_mode || NP != 2 || a.inner < 1 ||
-              (int64_t)a.n * a.inner >= (1LL << 31) || !a.tab[0] ||
-              !a.tab[2] || !a.p0[0] || !a.p0[1]))
-    return (int)cudaErrorInvalidValue;
-  const uint64_t mi = MIX ? ((1ULL << 32) + a.inner - 1) / a.inner : 0;
   const size_t smem = wide_smem_bytes(NP, w.un, w.ls, w.xlen);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const int tm = w.ws * w.nw, tiles = (M + tm - 1) / tm;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((a.q + w.nr - 1) / w.nr, tiles, a.b);
   switch (w.nw) {
-    case 1: return launch_wide_nw<MIX, NP, 1>(a, w, phase_mode, phase_in, phase_out, mi, grid, smem, stream);
-    case 2: return launch_wide_nw<MIX, NP, 2>(a, w, phase_mode, phase_in, phase_out, mi, grid, smem, stream);
-    case 3: return launch_wide_nw<MIX, NP, 3>(a, w, phase_mode, phase_in, phase_out, mi, grid, smem, stream);
-    case 4: return launch_wide_nw<MIX, NP, 4>(a, w, phase_mode, phase_in, phase_out, mi, grid, smem, stream);
-    case 5: return launch_wide_nw<MIX, NP, 5>(a, w, phase_mode, phase_in, phase_out, mi, grid, smem, stream);
-    case 6: return launch_wide_nw<MIX, NP, 6>(a, w, phase_mode, phase_in, phase_out, mi, grid, smem, stream);
-    case 7: return launch_wide_nw<MIX, NP, 7>(a, w, phase_mode, phase_in, phase_out, mi, grid, smem, stream);
-    default: return launch_wide_nw<MIX, NP, 8>(a, w, phase_mode, phase_in, phase_out, mi, grid, smem, stream);
+    case 1: return launch_wide_nw<NP, 1>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 2: return launch_wide_nw<NP, 2>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 3: return launch_wide_nw<NP, 3>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 4: return launch_wide_nw<NP, 4>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 5: return launch_wide_nw<NP, 5>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 6: return launch_wide_nw<NP, 6>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    case 7: return launch_wide_nw<NP, 7>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
+    default: return launch_wide_nw<NP, 8>(a, w, phase_mode, phase_in, phase_out, grid, smem, stream);
   }
 }
 
@@ -973,9 +851,9 @@ int rr_decimate_wide(const DecimArgs* args, const WideArgs* wide,
   const DecimArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (a.nplanes == 1)
-    return launch_wide<false, 1>(a, *wide, 0, nullptr, nullptr, st);
+    return launch_wide<1>(a, *wide, 0, nullptr, nullptr, st);
   if (a.nplanes == 2)
-    return launch_wide<false, 2>(a, *wide, 0, nullptr, nullptr, st);
+    return launch_wide<2>(a, *wide, 0, nullptr, nullptr, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -988,21 +866,10 @@ int rr_decimate_phase(const DecimArgs* args, const WideArgs* wide,
   const DecimArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   if (a.nplanes == 1)
-    return launch_wide<false, 1>(a, *wide, 1, phase_in, phase_out, st);
+    return launch_wide<1>(a, *wide, 1, phase_in, phase_out, st);
   if (a.nplanes == 2)
-    return launch_wide<false, 2>(a, *wide, 1, phase_in, phase_out, st);
+    return launch_wide<2>(a, *wide, 1, phase_in, phase_out, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// The mixer form on the wide kernel (see the head of this file): the
-// mixer arguments of rr_mix_decimate (tables, start phasor, inner), the
-// shape as for rr_decimate_wide; two planes, n inner < 2^31.
-int rr_mix_decimate_wide(const DecimArgs* args, const WideArgs* wide,
-                         void* stream) {
-  const DecimArgs& a = *args;
-  if (a.nplanes != 2) return (int)cudaErrorInvalidValue;
-  return launch_wide<true, 2>(a, *wide, 0, nullptr, nullptr,
-                              (cudaStream_t)stream);
 }
 
 #ifdef RR_DECIM_CLOCKS

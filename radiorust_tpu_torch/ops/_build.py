@@ -48,7 +48,7 @@ _SIGNATURES = {
     "rr_decimate": [_P, _I, _I, _P],        # DecimArgs*, R, G, stream
     "rr_mix_decimate": [_P, _I, _I, _P],
     "rr_decimate_wide": [_P, _P, _P],      # DecimArgs*, WideArgs*, stream
-    "rr_mix_decimate_wide": [_P, _P, _P],
+    "rr_mix_decimate_wide": [_P, _P, _P],  # DecimArgs*, MixWideArgs*, stream
     # DecimArgs*, WideArgs*, phase in, phase out, stream
     "rr_decimate_phase": [_P, _P, _P, _P, _P],
     "rr_overlap_save": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + _PLAN
@@ -78,6 +78,7 @@ _DEV_SIGNATURES = {
     "rr_slew_clocks": [_P] * 9 + [_I] * 3 + [_P, _P],   # RR_SCAN_CLOCKS
     "rr_cluster_clocks": [_P],                            # RR_OS_CLOCKS
     "rr_decim_clocks": [_P],                              # RR_DECIM_CLOCKS
+    "rr_mix_wide_clocks": [_P],                           # RR_DECIM_CLOCKS
 }
 
 _libs = {}

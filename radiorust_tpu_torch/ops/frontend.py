@@ -13,8 +13,9 @@ call :func:`decimate_complex` and :func:`fused_mix_decimate_complex`,
 which launch the same kernels on complex64 tensors in place: the kernel
 reads their (re, im) pairs at element stride 2, through pointers (no view
 is made), and writes complex64 outputs and histories, so no plane is
-split or merged around it.  On CUDA tensors every wrapper launches the
-hand-written kernel of ``csrc/decimate.cu`` and counts the launch in
+split or merged around it.  On CUDA tensors every wrapper launches a
+hand-written kernel of ``csrc/decimate.cu`` (#2's wide form:
+``csrc/mix_decimate_wide.cu``) and counts the launch in
 ``decimate.launches`` or ``fused_mix_decimate.launches``; on CPU tensors
 it runs the plain PyTorch version beside it (``*_plain``).  A counter counts
 where a wrapper is called: under a captured CUDA graph (``jit_step``,
@@ -34,8 +35,13 @@ kernel's wide form instead (``rr_decimate_wide``), as every phase-mode
 step does: the taps re-laid to their bands (:func:`wide_layout`, once
 per taps tensor), one output a thread or lane group, the launch shaped
 by :func:`wide_config`.  The mixer form does the same: a plan past one
-block runs :func:`fused_mix_decimate` on the wide form's mixer entry
-(``rr_mix_decimate_wide``), which mixes the staged chunk in place.
+block runs :func:`fused_mix_decimate` on #2's wide form
+(``rr_mix_decimate_wide``, ``csrc/mix_decimate_wide.cu``), which mixes
+each staged sample once and sums by the route :func:`mix_wide_route`
+picks from the plan: a 3xTF32 product on the tensor cores where the
+bands are dense, FMA over the bands where they are sparse
+(:func:`mix_wide_layout`, once per taps tensor; the launch shaped by
+:func:`mix_wide_config`).
 """
 
 from __future__ import annotations
@@ -58,13 +64,15 @@ __all__ = ["decimate", "decimate_plain", "fused_mix_decimate",
            "fused_mix_decimate_complex_plain", "mix_tail",
            "decimate_supported",
            "relay_taps", "launch_config", "fits_block", "wide_config",
-           "wide_layout", "WideLayout"]
+           "wide_layout", "WideLayout", "mix_wide_route", "mix_wide_layout",
+           "MixWideLayout", "mix_wide_config", "MixWideShape",
+           "mma_fragments"]
 
 # Shared memory one block may take and threads a block may have
 # (kMaxThreads in csrc/decimate.cu) on an H100.
 _SMEM_LIMIT = 227 * 1024
 _MAX_THREADS = 512
-# The wide form (kWideThreads, kWideNW in csrc/decimate.cu): at most 256
+# The wide form (kWideThreads, kWideNW in csrc/decimate.cuh): at most 256
 # threads a block and 8 windows a thread; bands of _WIDE_LONG taps or more
 # are split over lane groups of _WIDE_GROUP; a call aims at _WIDE_FILL
 # blocks (two on each of the H100's 132 SMs) before it takes more windows
@@ -74,6 +82,22 @@ _WIDE_NW = 8
 _WIDE_LONG = 128
 _WIDE_GROUP = 8
 _WIDE_FILL = 264
+# #2's wide form (csrc/mix_decimate_wide.cu).  The tensor-core route takes
+# a plan with one phase block, p a whole number of 8-deep k-steps, its
+# (period, phase) columns within one warp's _MMA_TILES n-tiles of 8, and
+# at least _MMA_USEFUL of the product's multiplies on nonzero taps.  Its
+# tiles hold 16 mt span rows (mt <= _MMA_MT), its warps one m-tile each
+# over a k-range (_MMA_WARPS in all); the tile length minimises the
+# blocks a wave of _SMS SMs runs times the rows each stages and
+# multiplies (16 mt, plus _MMA_BLOCK_ROWS of a block's fixed work).
+# _TABLE_RESERVE: the oscillator tables' room the route keeps.
+_MMA_TILES = 8
+_MMA_USEFUL = 0.25
+_MMA_MT = 4
+_MMA_WARPS = 8
+_MMA_BLOCK_ROWS = 8
+_SMS = 132
+_TABLE_RESERVE = 4096
 
 
 def _apad(kw: int, p: int) -> int:
@@ -255,6 +279,224 @@ def wide_config(shape, p: int, windows: int, batch: int, nplanes: int):
     return best
 
 
+def _r4(floats: int) -> int:
+    return (floats + 3) & ~3
+
+
+def _mma_pitch(p: int) -> int:
+    """Span row pitch of the tensor-core route, in (re, im) pairs: p
+    rounded up to 4 mod 16, so that a warp's 8-byte A-fragment loads
+    (rows g, columns t4, g < 8, t4 < 4, a half warp at a time) fall in
+    distinct banks."""
+    return p + (4 - p) % 16
+
+
+def _mma_zpitch(nt: int) -> int:
+    """Row pitch of the partial Z, in floats: 8 nt rounded up to 8 mod
+    32, so that a warp's 8-byte fragment stores fall in distinct
+    banks."""
+    return 8 * nt + (8 - 8 * nt) % 32
+
+
+def _mix_wide_smem(mma: bool, p: int, srows: int, pitch: int, xlen: int,
+                   zpitch: int, ksplit: int, nt: int, inner: int,
+                   tab_a: int, un: int, ls: int) -> int:
+    """Shared bytes of #2's wide launch (``Regions`` in
+    csrc/mix_decimate_wide.cu): the span (mma: srows rows of pitch
+    pairs, the k-ranges' partial Z over it; FMA: xlen pairs) and a spare
+    pair, the taps (mma: B's fragments; FMA: the bands), the B table, the
+    tile's A-table entries."""
+    pairs = srows * pitch if mma else xlen
+    span = _r4(max(2 * (pairs + 1), ksplit * 2 * srows * zpitch))
+    taps = p // 8 * nt * 64 if mma else (un * ls + 6) & ~3
+    return 4 * (span + taps + _r4(2 * inner) + _r4(2 * tab_a))
+
+
+def _mma_ksplit(mt: int, p: int) -> int:
+    """k-ranges of the tensor-core route: one warp an m-tile and k-range,
+    _MMA_WARPS in all, at most one k-range a k-step."""
+    return max(1, min(_MMA_WARPS // mt, p // 8))
+
+
+def mma_fragments(kernel_matrix: np.ndarray, p: int, ulo: int,
+                  periods: int, nt: int) -> np.ndarray:
+    """The tensor-core route's taps: B[c, a q + r] = W[r, ulo + a p + c]
+    (zero past Kw and past periods q columns) in mma.m16n8k8's B-fragment
+    order, [p / 8, nt, 32, 2] float32: k-step ks, n-tile j, lane l holds
+    (B[8 ks + t4, 8 j + g], B[8 ks + t4 + 4, 8 j + g]), g = l / 4, t4 = l
+    mod 4."""
+    w = np.asarray(kernel_matrix, dtype=np.float32)
+    q, kw = w.shape
+    bt = np.zeros((p, 8 * nt), np.float32)
+    c = np.arange(p)
+    for a in range(periods):
+        u = ulo + a * p + c
+        ok = u < kw
+        bt[ok, a * q:(a + 1) * q] = w[:, u[ok]].T
+    lane = np.arange(32)
+    g, t4 = lane >> 2, lane & 3
+    ks = np.arange(p // 8)[:, None, None]
+    j = np.arange(nt)[None, :, None]
+    return np.stack([bt[8 * ks + t4, 8 * j + g],
+                     bt[8 * ks + t4 + 4, 8 * j + g]], -1)
+
+
+@dataclass(frozen=True, eq=False)
+class MixWideLayout:
+    """#2's wide form's taps, re-laid once per taps tensor: ``route``
+    ("mma", the tensor cores, or "fma") by :func:`mix_wide_route`;
+    ``wide`` the band layout (:func:`wide_layout`: the joint band both
+    routes stage from, the FMA route's bands and rows); ``taps`` what the
+    route reads (mma: :func:`mma_fragments`; fma: ``wide.taps``);
+    ``periods`` span rows a window reaches, ceil(width / p); ``nt``
+    n-tiles of 8 (a q + r) columns; ``useful`` the share of the
+    multiplies the route runs that meet a nonzero tap, ``dense`` that of
+    the tensor-core product."""
+    route: str
+    wide: WideLayout
+    taps: object
+    periods: int
+    nt: int
+    useful: float
+    dense: float
+
+    @property
+    def shape(self):
+        """What :func:`mix_wide_config` reads: (route, periods, nt, g,
+        ls, nr, un, wmax, blocks of phases)."""
+        return (self.route, self.periods, self.nt) + self.wide.shape
+
+
+def mix_wide_route(kernel_matrix: np.ndarray, p: int,
+                   lay: WideLayout | None = None):
+    """(route, periods, nt, useful, dense) of #2's wide form at a plan,
+    decided by the plan alone.  The tensor-core product multiplies p
+    columns of a period by 8 nt (a, r) columns a window, nt = ceil(periods
+    q / 8); ``dense`` is the share of those multiplies that meet a nonzero
+    tap.  "mma" where the plan has one phase block, p % 8 == 0, nt <=
+    8, dense >= 1/4 and the smallest tile fits shared memory (2.048 MHz
+    -> 240 kHz: 56%; -> 12 kHz: 90%; 1.024 MHz -> 200 kHz: 43%); else
+    "fma" (48 kHz -> 44.1 kHz: 12 taps of 171 over 147 phases, 4%), whose
+    ``useful`` is the nonzero taps over the band lanes a window runs."""
+    w = np.asarray(kernel_matrix, dtype=np.float32)
+    q = w.shape[0]
+    lay = lay or wide_layout(w)
+    periods = max(1, -(-lay.wmax // p))
+    nt = -(-periods * q // 8)
+    nnz = int(np.count_nonzero(w))
+    dense = nnz / (p * 8 * nt)
+    mt = -(-periods // 16)
+    fits = (mt <= _MMA_MT and _mix_wide_smem(
+        True, p, 16 * mt, _mma_pitch(p), 0, _mma_zpitch(nt),
+        _mma_ksplit(mt, p), nt, 0, 0, 0, 0) + _TABLE_RESERVE <= _SMEM_LIMIT)
+    if (len(lay.zband) == 1 and p % 8 == 0 and nt <= _MMA_TILES
+            and dense >= _MMA_USEFUL and fits):
+        return "mma", periods, nt, dense, dense
+    lanes = int((-(-lay.rows[:, 1] // lay.g) * lay.g).sum())
+    return "fma", periods, nt, nnz / max(lanes, 1), dense
+
+
+def mix_wide_layout(kernel_matrix: np.ndarray, p: int) -> MixWideLayout:
+    """#2's wide form's layout of a [q, Kw] taps matrix (host numpy) at
+    p: the route, and the taps as that route reads them."""
+    w = np.asarray(kernel_matrix, dtype=np.float32)
+    lay = wide_layout(w)
+    route, periods, nt, useful, dense = mix_wide_route(w, p, lay)
+    taps = (mma_fragments(w, p, int(lay.zband[0, 0]), periods, nt)
+            if route == "mma" else lay.taps)
+    return MixWideLayout(route, lay, taps, periods, nt, useful, dense)
+
+
+@dataclass(frozen=True)
+class MixWideShape:
+    """A launch of #2's wide form (``MixWideArgs`` of
+    csrc/mix_decimate_wide.cu): ``tm`` windows a tile (``tiles`` a
+    stream), the span's row ``pitch`` in pairs and ``xlen`` positions,
+    ``tab_a`` A-table entries a block stages, ``threads``, ``smem``
+    bytes; mma: ``srows`` = 16 ``mt`` span rows, ``ksplit`` k-ranges,
+    ``zpitch``; fma: ``ws`` windows across a block's threads, ``nw`` in
+    each thread's registers."""
+    mma: bool
+    tm: int
+    tiles: int
+    pitch: int
+    xlen: int
+    tab_a: int
+    threads: int
+    smem: int
+    srows: int = 0
+    mt: int = 0
+    ksplit: int = 0
+    zpitch: int = 0
+    ws: int = 0
+    nw: int = 0
+
+
+def _tab_a(xlen: int, inner: int, outer: int) -> int:
+    """A-table entries a span of xlen positions reads, at most."""
+    return min(outer, (xlen - 1) // inner + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def mix_wide_config(shape, p: int, windows: int, batch: int, inner: int,
+                    outer: int, hist: int) -> MixWideShape:
+    """The launch of #2's wide form at the layout's ``shape``
+    (:attr:`MixWideLayout.shape`) for ``windows`` = n / p windows a
+    stream, ``batch`` streams, an oscillator of ``outer`` x ``inner``
+    entries and a history of ``hist``.  mma: the tile of mt = 1 .. 4
+    m-tiles (16 mt span rows, at most 16 mt - periods + 1 windows) that
+    minimises ceil(blocks / 132) (16 mt + 8), within shared memory (B's
+    fragments in it too), its windows spread evenly over the tiles;
+    ksplit = min(8 / mt, p / 8) k-ranges, one warp an m-tile and
+    k-range.  fma: as :func:`wide_config`, the span one run.  Raises
+    where no shape fits a block or the kernel's index divisions would
+    not be exact."""
+    route, periods, nt, g, ls, nr, un, wmax, zb = shape
+    best = None
+    if route == "mma":
+        pitch, zpitch = _mma_pitch(p), _mma_zpitch(nt)
+        for mt in range(1, _MMA_MT + 1):
+            tm = min(windows, 16 * mt - periods + 1)
+            if tm < 1:
+                continue
+            tiles = -(-windows // tm)
+            tm = -(-windows // tiles)   # balanced tiles
+            xlen = (tm - 1) * p + wmax
+            tab_a = _tab_a(xlen, inner, outer)
+            ksplit = _mma_ksplit(mt, p)
+            smem = _mix_wide_smem(True, p, 16 * mt, pitch, xlen, zpitch,
+                                  ksplit, nt, inner, tab_a, 0, 0)
+            if smem > _SMEM_LIMIT:
+                break
+            cost = -(-batch * tiles // _SMS) * (16 * mt + _MMA_BLOCK_ROWS)
+            if best is None or cost < best[0]:
+                best = (cost, MixWideShape(
+                    True, tm, tiles, pitch, xlen, tab_a, 32 * mt * ksplit,
+                    smem, 16 * mt, mt, ksplit, zpitch))
+            if tm == windows:
+                break
+    else:
+        ws = max(1, min(_WIDE_THREADS // (nr * g), windows))
+        threads = -(-nr * g * ws // 32) * 32
+        for nw in range(1, _WIDE_NW + 1):
+            if nw > 1 and (nw - 1) * ws >= windows:
+                break
+            xlen = (ws * nw - 1) * p + wmax
+            tab_a = _tab_a(xlen, inner, outer)
+            smem = _mix_wide_smem(False, p, 0, p, xlen, 0, 0, 0, inner,
+                                  tab_a, un, ls)
+            if smem > _SMEM_LIMIT:
+                break
+            tiles = -(-windows // (ws * nw))
+            if best is None or batch * tiles * zb >= _WIDE_FILL:
+                best = (0, MixWideShape(False, ws * nw, tiles, p, xlen,
+                                        tab_a, threads, smem, ws=ws, nw=nw))
+    if best is None or (best[1].xlen + hist + p) * p >= 2 ** 31:
+        raise ValueError(f"#2's wide form: no block fits p={p}, shape "
+                         f"{shape}, oscillator block {inner}")
+    return best[1]
+
+
 def decimate_supported(n: int, plan, mixer: bool = False,
                        inner: int = 1) -> bool:
     """Whether the decimation kernel takes this aligned plan at chunk
@@ -275,7 +517,8 @@ def decimate_supported(n: int, plan, mixer: bool = False,
     if n * inner >= 2 ** 31:
         return False
     try:
-        wide_config(wide_layout(plan.kernel).shape, p, n // p, 1, 2)
+        mix_wide_config(mix_wide_layout(plan.kernel, p).shape, p, n // p, 1,
+                        inner, n // inner, plan.hist)
     except ValueError:
         return False
     return True
@@ -327,6 +570,21 @@ def _device_wide(kernel_matrix: torch.Tensor) -> WideLayout:
     return _cached(kernel_matrix, "wide", build)
 
 
+def _device_mix_wide(kernel_matrix: torch.Tensor, p: int) -> MixWideLayout:
+    """:func:`mix_wide_layout` of this taps tensor on its device, built
+    once per tensor (one read of the taps to the host, in an eager step
+    before any capture)."""
+    def build(w):
+        lay = mix_wide_layout(w.detach().cpu().numpy(), p)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            w.device)
+        wide = WideLayout(None, put(lay.wide.rows), put(lay.wide.zband),
+                          *lay.wide.shape[:-1])
+        return MixWideLayout(lay.route, wide, put(lay.taps), lay.periods,
+                             lay.nt, lay.useful, lay.dense)
+    return _cached(kernel_matrix, ("mix wide", p), build)
+
+
 _PAIR = ctypes.c_void_p * 2
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
@@ -340,8 +598,18 @@ class _WideArgs(ctypes.Structure):
                 ("xs", _I32), ("xlen", _I32), ("threads", _I32)]
 
 
+class _MixWideArgs(ctypes.Structure):
+    """``MixWideArgs`` of csrc/mix_decimate_wide.cu, field for field."""
+    _fields_ = [("taps", ctypes.c_void_p), ("rows", ctypes.c_void_p),
+                ("zband", ctypes.c_void_p)] + [
+                    (f, _I32) for f in (
+                        "mma", "tm", "pitch", "xlen", "srows", "tab_a",
+                        "threads", "mt", "ksplit", "nt", "periods", "zpitch",
+                        "ls", "g", "nr", "un", "ws", "nw")]
+
+
 class _Args(ctypes.Structure):
-    """``DecimArgs`` of csrc/decimate.cu, field for field."""
+    """``DecimArgs`` of csrc/decimate.cuh, field for field."""
     _fields_ = [("x", _PAIR), ("x_row", _I64), ("x_step", _I64),
                 ("h", _PAIR), ("h_row", _I64), ("h_step", _I64),
                 ("y", _PAIR), ("y_row", _I64), ("y_step", _I64),
@@ -398,7 +666,7 @@ def _launch(xs, hs, outs, nhs, kernel_matrix, p, q, nplanes, mix=None,
     phase-mode step on the wide form (``rr_decimate_phase``).  A plan
     that :func:`fits_block` launches ``rr_decimate`` /
     ``rr_mix_decimate``, any other ``rr_decimate_wide`` /
-    ``rr_mix_decimate_wide``."""
+    ``rr_mix_decimate_wide`` (shaped by :func:`mix_wide_config`)."""
     x0 = _first(xs)
     b, n = x0.shape
     hist = _first(hs).shape[-1]
@@ -418,6 +686,22 @@ def _launch(xs, hs, outs, nhs, kernel_matrix, p, q, nplanes, mix=None,
         a.tab[:] = [ta[0], ta[1], tb[0], tb[1]]
         a.p0, _, a.p0_step = _planes((p0r, p0i), "start phasor")
         a.inner = _first(table_b).shape[-1]
+    if wide and mix is not None:
+        _build.f32_ptr(kernel_matrix, "kernel_matrix")   # raises on others
+        lay = _device_mix_wide(kernel_matrix, p)
+        sh = mix_wide_config(lay.shape, p, n // p, b, a.inner,
+                             n // a.inner, hist)
+        wl = lay.wide
+        wa = _MixWideArgs(
+            lay.taps.data_ptr(), wl.rows.data_ptr(), wl.zband.data_ptr(),
+            int(sh.mma), sh.tm, sh.pitch, sh.xlen, sh.srows, sh.tab_a,
+            sh.threads, sh.mt, sh.ksplit, lay.nt, lay.periods, sh.zpitch,
+            wl.ls, wl.g, wl.nr, wl.un, sh.ws, sh.nw)
+        err = _build.lib().rr_mix_decimate_wide(
+            ctypes.addressof(a), ctypes.addressof(wa),
+            _build.stream_handle(x0.device))
+        _build.check(err, "rr_mix_decimate_wide")
+        return
     if wide:
         _build.f32_ptr(kernel_matrix, "kernel_matrix")   # raises on others
         lay = _device_wide(kernel_matrix)
@@ -429,11 +713,9 @@ def _launch(xs, hs, outs, nhs, kernel_matrix, p, q, nplanes, mix=None,
                        ws, nw, xs, xlen, threads)
         stream = _build.stream_handle(x0.device)
         if phase is None:
-            entry = ("rr_decimate_wide" if mix is None
-                     else "rr_mix_decimate_wide")
-            err = getattr(_build.lib(), entry)(
+            err = _build.lib().rr_decimate_wide(
                 ctypes.addressof(a), ctypes.addressof(wa), stream)
-            _build.check(err, entry)
+            _build.check(err, "rr_decimate_wide")
             return
         err = _build.lib().rr_decimate_phase(
             ctypes.addressof(a), ctypes.addressof(wa), phase[0].data_ptr(),
@@ -627,8 +909,9 @@ def fused_mix_decimate(xr, xi, ar, ai, br, bi, p0r, p0i, hr, hi,
     ``p0r/p0i``: [batch] start phasor; ``hr/hi``: [batch, hist]
     mixed-domain history; ``kernel_matrix``: [q, Kw].  Returns
     (outr, outi, new_hr, new_hi).  On CUDA tensors one launch of
-    ``rr_mix_decimate``, or of ``rr_mix_decimate_wide`` where the plan
-    does not :func:`fits_block`.
+    ``rr_mix_decimate``, or of ``rr_mix_decimate_wide`` (#2's wide form,
+    on the route :func:`mix_wide_route` picks) where the plan does not
+    :func:`fits_block`.
     """
     b, n = xr.shape
     hist = hr.shape[-1]

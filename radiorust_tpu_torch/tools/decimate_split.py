@@ -27,13 +27,20 @@ head.  The
 tool uses only the wrappers' public calls, so a copy of it in an older
 checkout's ``tools/`` times that checkout's kernels the same way.
 
+#2's wide form's rows also give its route (``ops/frontend.py
+mix_wide_route``: "mma", a 3xTF32 product on the tensor cores, or "fma"),
+the share of the route's multiplies that meet a nonzero tap, the tensor-
+core product's share, and the launch's tile (``mix_wide_config``).
+
 With ``--clocks`` it then runs the wide geometries (#1's and #2's) once
 each on the development build (``-DRR_DECIM_CLOCKS``:
 ``_build.lib(("RR_DECIM_CLOCKS",))``, its own build directory), whose
-wide kernel stamps ``clock64()``
+wide kernels stamp ``clock64()``
 at each phase of each block, and prints the phases' mean cycles a block
-(``CLOCK_PHASES``), the blocks' span on %globaltimer and the blocks an
-SM ran, beside the SM clock ``nvidia-smi`` reads.
+(``CLOCK_PHASES``; #2's wide form ``MIX_PHASES`` by route: copies,
+history, mix, product or sums, reduction or shuffles, stores), the
+blocks' span on %globaltimer and the blocks an SM ran, beside the SM
+clock ``nvidia-smi`` reads.
 
     python -m radiorust_tpu_torch.tools.decimate_split [--device cuda]
         [--reps 50] [--batch 64] [--clocks]
@@ -205,13 +212,34 @@ def _graph_us(fn, calls: int, reps: int) -> float:
     return start.elapsed_time(end) * 1e3 / (reps * calls)
 
 
-# The wide kernel's stamps (csrc/decimate.cu DW_MARK): the phase that
-# ends at each mark ("mix" is empty but for #2's wide form); 8 and 9 the
-# block's start and end on %globaltimer (ns), 10 its SM.
+# #1's wide kernel's stamps (csrc/decimate.cu DW_MARK): the phase that
+# ends at each mark; 7 and 8 the block's start and end on %globaltimer
+# (ns), 9 its SM.
 CLOCK_PHASES = {1: "issue copies (bands, span)", 2: "history share",
-                3: "copies land", 4: "mix", 5: "sums",
-                6: "lane-group shuffles", 7: "stores"}
-MARKS = 11
+                3: "copies land", 4: "sums", 5: "lane-group shuffles",
+                6: "stores"}
+MARKS = 10
+# #2's wide kernel's (csrc/mix_decimate_wide.cu MW_MARK), 6-8 by route;
+# 9 and 10 the block's start and end, 11 its SM.
+_MIX_COMMON = {1: "issue copies (span, taps, tables)",
+               2: "history from the sources", 3: "copies land", 4: "mix",
+               5: "history from the span"}
+MIX_PHASES = {
+    "mma": {**_MIX_COMMON, 6: "product", 7: "partial-Z reduction",
+            8: "diagonal sums and stores"},
+    "fma": {**_MIX_COMMON, 6: "sums", 7: "lane-group shuffles",
+            8: "stores"}}
+MIX_MARKS = 12
+
+
+def mix_wide_shape(plan, n: int, batch: int):
+    """(layout, launch shape) of #2's wide form at this plan and chunk."""
+    from ..blocks.transform import _inner_block
+    from ..ops import frontend as ofe
+    lay = ofe.mix_wide_layout(plan.kernel, plan.p)
+    inner = _inner_block(n)
+    return lay, ofe.mix_wide_config(lay.shape, plan.p, n // plan.p, batch,
+                                    inner, n // inner, plan.hist)
 
 
 def clocks(dev, reps: int, batch: int = BATCH) -> list:
@@ -233,38 +261,48 @@ def clocks(dev, reps: int, batch: int = BATCH) -> list:
             if kind not in ("wide", "phase", "mixer wide"):
                 continue
             x = fargs[0]
-            lay = ofe.wide_layout(plan.kernel)
             windows = (-(-x.shape[1] // plan.p) if kind == "phase"
                        else x.shape[1] // plan.p)
-            ws, nw, *_ = ofe.wide_config(lay.shape, plan.p, windows,
-                                         x.shape[0], 2)
-            blocks = (len(lay.zband) * -(-windows // (ws * nw))
-                      * x.shape[0])
+            if kind == "mixer wide":
+                lay, sh = mix_wide_shape(plan, x.shape[1], x.shape[0])
+                blocks = len(lay.wide.zband) * sh.tiles * x.shape[0]
+                threads, marks = sh.threads, MIX_MARKS
+                phases = MIX_PHASES[lay.route]
+                stamp = dev_lib.rr_mix_wide_clocks
+            else:
+                lay = ofe.wide_layout(plan.kernel)
+                ws, nw, _, _, threads, _ = ofe.wide_config(
+                    lay.shape, plan.p, windows, x.shape[0], 2)
+                blocks = (len(lay.zband) * -(-windows // (ws * nw))
+                          * x.shape[0])
+                marks, phases = MARKS, CLOCK_PHASES
+                stamp = dev_lib.rr_decim_clocks
             fn(*fargs)
             us = _graph_us(lambda: fn(*fargs), 10, reps)
-            clk = torch.zeros(blocks * MARKS, dtype=torch.int64, device=dev)
+            clk = torch.zeros(blocks * marks, dtype=torch.int64, device=dev)
             torch.cuda.synchronize()
-            dev_lib.rr_decim_clocks(clk.data_ptr())
+            stamp(clk.data_ptr())
             fn(*fargs)
             torch.cuda.synchronize()
-            dev_lib.rr_decim_clocks(None)
-            st = clk.view(blocks, MARKS).cpu().numpy()
+            stamp(None)
+            st = clk.view(blocks, marks).cpu().numpy()
+            last = max(phases)
             sm_mhz = subprocess.run(
                 ["nvidia-smi", "--query-gpu=clocks.sm",
                  "--format=csv,noheader,nounits"], capture_output=True,
                 text=True, timeout=60).stdout.split()[0]
-            sms, per_sm = np.unique(st[:, 10], return_counts=True)
+            sms, per_sm = np.unique(st[:, last + 3], return_counts=True)
+            t0, t1 = st[:, last + 1], st[:, last + 2]
             row = {"clocked": label, "device_us": us, "blocks": blocks,
-                   "threads": ofe.wide_config(lay.shape, plan.p, windows,
-                                              x.shape[0], 2)[4],
-                   "cycles": {CLOCK_PHASES[k]: float((st[:, k]
-                                                      - st[:, k - 1]).mean())
-                              for k in CLOCK_PHASES},
-                   "block_cycles_mean": float((st[:, 7] - st[:, 0]).mean()),
-                   "block_cycles_max": float((st[:, 7] - st[:, 0]).max()),
-                   "start_spread_us": float(st[:, 8].max()
-                                            - st[:, 8].min()) / 1e3,
-                   "span_us": float(st[:, 9].max() - st[:, 8].min()) / 1e3,
+                   "threads": threads,
+                   "cycles": {phases[k]: float((st[:, k]
+                                                - st[:, k - 1]).mean())
+                              for k in phases},
+                   "block_cycles_mean": float((st[:, last]
+                                               - st[:, 0]).mean()),
+                   "block_cycles_max": float((st[:, last] - st[:, 0]).max()),
+                   "start_spread_us": float(t0.max() - t0.min()) / 1e3,
+                   "span_us": float(t1.max() - t0.min()) / 1e3,
                    "sms_used": int(len(sms)),
                    "sms_by_blocks": {int(k): int((per_sm == k).sum())
                                      for k in np.unique(per_sm)},
@@ -306,6 +344,12 @@ def main(argv=None) -> list:
                "kw": int(plan.kernel.shape[1]), "rel": rel, "bound": BOUND,
                "launches": launches, "us_graph_1": None,
                "us_graph_10": None}
+        if kind == "mixer wide":
+            lay, sh = mix_wide_shape(plan, fargs[0].shape[1],
+                                     fargs[0].shape[0])
+            row.update(route=lay.route, useful=lay.useful, dense=lay.dense,
+                       tile=dict(tm=sh.tm, tiles=sh.tiles, mt=sh.mt,
+                                 threads=sh.threads, smem=sh.smem))
         if on_card:
             row["us_graph_1"] = _graph_us(lambda: fn(*fargs), 1, reps)
             row["us_graph_10"] = _graph_us(lambda: fn(*fargs), 10, reps)

@@ -10,12 +10,14 @@ vectorised over threads and blocks, shared memory as flat float32 arrays
 that start as NaN, so a read of a position nothing staged shows), fed the
 same re-laid taps, and is held against the plain versions
 ``decimate_plain`` / ``fused_mix_decimate_plain`` at every plan the port
-binds.  ``wide_model`` does the same for the wide form and phase mode
+binds.  ``wide_model`` does the same for #1's wide form and phase mode
 (``decimate_wide_kernel``: band taps from
 :func:`~radiorust_tpu_torch.ops.frontend.wide_layout`, one output a
 thread or lane group, the launch shape of ``wide_config``) against
-``decimate_plain`` and ``rational_fir_phase``.  Nothing here needs a
-GPU.
+``decimate_plain`` and ``rational_fir_phase``, and ``mix_wide_model``
+(``tests/torch_mix_wide.py``) for #2's wide form
+(``csrc/mix_decimate_wide.cu``) against ``fused_mix_decimate_plain``.
+Nothing here needs a GPU.
 """
 
 import numpy as np
@@ -30,6 +32,7 @@ from radiorust_tpu_torch.models.wfm import wfm_receiver
 from radiorust_tpu_torch.ops import frontend as tfe
 from radiorust_tpu_torch.ops.polyphase import (plan_downsample,
                                                plan_upsample)
+from torch_mix_wide import mix_wide_model
 
 REL = 1e-5          # model vs plain, max |diff| / max |ref| (FIR_BOUND)
 LANES = 32
@@ -448,7 +451,7 @@ def _wide_plan(name):
 
 
 def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
-               shape_batch=None, osc=None, pairs=None):
+               shape_batch=None):
     """One launch of ``decimate_wide_kernel``: xs_in [b, NP, n], hs_in
     [b, NP, hist] float32, W [q, Kw]; cfg = (ws, nw, xs, xlen, threads,
     smem) or None for the wrapper's ``wide_config`` at batch b (at
@@ -462,19 +465,9 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
     block's share of the history copy.  ``phase`` [b] int32: phase mode
     (``rr_decimate_phase``), hist = Kw - 1, M = ceil(n / p) windows from
     p - 1 - phase[0], windows from v = (phase[0] + n) // p on written as
-    zeros.  ``osc`` = (A re, A im, B re, B im, p0 re [b], p0 im [b]):
-    the mixer form (``rr_mix_decimate_wide``): once the span has landed,
-    each staged chunk sample is mixed in place at its oscillator index
-    (the multiply-shift division), and the history share mixes what it
-    copies from the chunk.  ``pairs`` = (base, row): x is a complex64
-    tensor read in place whose stream s starts at element base + s row
-    of 8 bytes from a 16-byte boundary; the staged row then starts one
-    position in where the span's first sample sits at an odd 8-byte
-    phase (the 16-byte shift), within the row's spare position.
-    Returns (y [b, NP, M q], new hist), and in phase mode the new phase
-    too."""
+    zeros.  Returns (y [b, NP, M q], new hist), and in phase mode the
+    new phase too."""
     b, NP, n = xs_in.shape
-    assert osc is None or (NP == 2 and phase is None)
     hist = hs_in.shape[-1]
     kw = W.shape[-1]
     if phase is None:
@@ -508,26 +501,16 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
         buf = np.concatenate([hs_in[s], xs_in[s]], axis=-1)
         X = np.full((NP, xlen + 1), np.nan, np.float32)
         P0 = start + m0 * p + ulo
-        sh = 0 if pairs is None else (pairs[0] + s * pairs[1] + P0 - hist) % 2
         one_run = xs == p
         runs = (1 if one_run else mt) if width else 0
         rlen = (mt - 1) * p + width if one_run else width
         for k in range(runs):
             j = P0 + k * p + np.arange(rlen)
             assert phase is not None or (j < hist + n).all()
-            at = sh + k * xs + np.arange(rlen)
-            assert at.max() <= xlen and at.max() - sh < xlen
+            at = k * xs + np.arange(rlen)
+            assert at.max() < xlen
             X[:, at] = np.where(j < hist + n,
                                 buf[:, np.minimum(j, hist + n - 1)], 0.0)
-        if osc is not None:   # the chunk's staged samples, mixed in place
-            e = np.arange(runs * rlen)
-            k, i = e // rlen, e % rlen
-            j = P0 + k * p + i - hist
-            ok = (j >= 0) & (j < n)
-            at = sh + k[ok] * xs + i[ok]
-            a = divm(j[ok], len(osc[2]))
-            X[:, at] = _mix(X[:, at].T, a, j[ok] - a * len(osc[2]),
-                            (*osc[:4], osc[4][s], osc[5][s])).T
         # [threads, nw]: each thread's windows.
         k_of = wsl[:, None] + np.arange(nw)[None, :] * ws_n
         live = (rr < nr) & (wsl < ws_n) & (wsl < mt)
@@ -537,7 +520,7 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
         tb = np.where(live, lay.rows[r, 2] - u0, 0)
         assert (tb >= 0).all() and (tb < unz).all()
         acc = np.zeros((NP, threads, nw), np.float32)
-        xo = sh + np.minimum(k_of, mt - 1) * xs + off[:, None]
+        xo = np.minimum(k_of, mt - 1) * xs + off[:, None]
         for u0 in range(0, int(ln.max(initial=0)), g):
             u = u0 + gl
             act = u < ln
@@ -563,12 +546,6 @@ def wide_model(xs_in, hs_in, W, p, q, cfg=None, phase=None,
         per = -(-hist // nb)
         i = np.arange(bi * per, min(hist, (bi + 1) * per))
         nh[s][:, i] = buf[:, n + i]
-        if osc is not None:   # those from the chunk, mixed on their way
-            sel = i[n + i >= hist]
-            k = n + sel - hist
-            a = divm(k, len(osc[2]))
-            nh[s][:, sel] = _mix(buf[:, hist + k].T, a, k - a * len(osc[2]),
-                                 (*osc[:4], osc[4][s], osc[5][s])).T
     assert not np.isnan(y).any() and not np.isnan(nh).any()
     if phase is None:
         return y, nh
@@ -612,7 +589,7 @@ def test_wide_model_matches_plain(case):
     kw = W.shape[-1]
     assert tfe.decimate_supported(n, plan)
     assert not tfe.fits_block(p, q, kw, NP)
-    # The mixer form takes the plan too, on the same wide kernel.
+    # The mixer form takes the plan too, on its own wide kernel.
     assert tfe.decimate_supported(n, plan, mixer=True)
     rng = np.random.default_rng(n + kw + NP + b)
     xs = rng.standard_normal((b, NP, n)).astype(np.float32)
@@ -630,8 +607,9 @@ def test_wide_model_matches_plain(case):
 # rate, output rate, bandwidth), chunk, streams, the launch shape's batch
 # (None: the streams' own), pairs = (base, row) of the complex64 chunk
 # read in place.  U1-U3 of chip_smoke.py (2.048 MHz -> 240 kHz: p = 128,
-# q = 15, Kw = 435; -> 12 kHz: p = 512, q = 3, Kw = 6655, 8-lane groups;
-# 48 kHz -> 44.1 kHz at 1600, a 100-sample oscillator block), the other
+# q = 15, Kw = 435, and -> 12 kHz: p = 512, q = 3, Kw = 6655, on the
+# tensor cores; 48 kHz -> 44.1 kHz at 1600, a 100-sample oscillator
+# block, by FMA), the other
 # plans of the JAX package's MixerDecimator the polyphase form does not
 # take, a chunk shorter than the history (6143 samples, partly the old
 # mixed history), an oscillator block of 110 (not a multiple of 4), and
@@ -672,12 +650,13 @@ def _mix_oscillator(n, b, rng):
 
 @pytest.mark.parametrize("case", list(WIDE_MIX_CASES))
 def test_wide_mixer_model_matches_plain(case):
-    """The wide form's mixer entry: the staged span mixed in place after
-    the wait (through the 16-byte shift, at the multiply-shift division's
-    oscillator indices), the history share mixed on its way out, against
-    ``fused_mix_decimate_plain``; the new history bit for bit.  The
-    wrapper takes the plan (``decimate_supported``) and, on CPU tensors,
-    is the plain version (no launch)."""
+    """#2's wide form (``mix_wide_model``: the span in rows of a period,
+    each staged chunk sample mixed once through the 16-byte shift at the
+    strided runs' multiply-shift indices, the history from the span,
+    the sums on the plan's route, 3xTF32 on the tensor cores or FMA)
+    against ``fused_mix_decimate_plain``; the new history bit for bit.
+    The wrapper takes the plan (``decimate_supported``) and, on CPU
+    tensors, is the plain version (no launch)."""
     rates, n, b, shape_batch, pairs = WIDE_MIX_CASES[case]
     plan = plan_downsample(*rates)
     p, q, W = plan.p, plan.q, plan.kernel
@@ -688,8 +667,8 @@ def test_wide_mixer_model_matches_plain(case):
     assert tfe.decimate_supported(n, plan, mixer=True, inner=len(osc[2]))
     xs = rng.standard_normal((b, 2, n)).astype(np.float32)
     hs = rng.standard_normal((b, 2, plan.hist)).astype(np.float32)
-    got, got_h = wide_model(xs, hs, W, p, q, shape_batch=shape_batch,
-                            osc=osc, pairs=pairs)
+    got, got_h = mix_wide_model(xs, hs, W, p, q, osc,
+                                shape_batch=shape_batch, pairs=pairs)
     want, want_h = _plain(xs, hs, W, p, q, osc)
     assert got.shape == want.shape == (b, 2, n // p * q)
     assert _rel(got, want) <= REL, case
