@@ -2997,8 +2997,7 @@ def main() -> None:
               bytes_of=lambda r: mix_decimate_bytes(
                   plan_, (x_, hr_, hi_, c_, s_), r, (ta_, tb_)),
               extra=dict(kernel="mix_decimate_wide_kernel",
-                         source=mix_wide_src, sums=lay_.route,
-                         useful=lay_.useful))
+                         source=mix_wide_src, sums=lay_.route))
         if not torch.equal(hist_of(kernel_(*args_)),
                            hist_of(plain_(*args_))):
             raise AssertionError(f"#2's wide form, {label}: the new "

@@ -586,19 +586,7 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
               A.x_step, NP == 2 && A.x_step == 2 && A.x[1] == A.x[0] + 1};
 
   // The rows' bands, at the source's 16-byte phase: 16 bytes a copy.
-  const int64_t t0 = (int64_t)u0 * W.ls;
-  const int ta = (int)(t0 & 3);
-  float* T = smem + ta;
-  {
-    const float* src = W.taps + t0;
-    const int count = un * W.ls;
-    const int head = min((4 - ta) & 3, count), nv = (count - head) >> 2;
-    for (int i = tid; i < head; i += nt) cp_async4(T + i, src + i);
-    for (int i = tid; i < nv; i += nt)
-      cp_async16(T + head + 4 * i, src + head + 4 * i);
-    for (int i = head + 4 * nv + tid; i < count; i += nt)
-      cp_async4(T + i, src + i);
-  }
+  const float* T = stage_bands(smem, W.taps, u0, un, W.ls, tid, nt);
   // The span: one run where windows overlap (xs == p), else one a window.
   // A complex64 chunk's pairs land at their source's 16-byte phase.
   const int64_t P0 = start + (int64_t)m0 * p + ulo;
@@ -649,72 +637,14 @@ __global__ void __launch_bounds__(kWideThreads) decimate_wide_kernel(
   __syncthreads();
   DW_MARK(clk, 3);
 
-  // Lane g of a group of G, phase r, windows ws + j WS.
-  const int G = W.g;
-  const int g = tid % G, rr = (tid / G) % W.nr, ws = tid / (G * W.nr);
-  const int r = r0 + rr;
-  const bool live = rr < nr && ws < W.ws && ws < mt;
-  int off = 0, len = 0, band = u0;
-  if (live) {
-    off = __ldg(W.rows + 3 * r) - ulo;
-    len = __ldg(W.rows + 3 * r + 1);
-    band = __ldg(W.rows + 3 * r + 2);
-  }
-  int xo[NW];
-#pragma unroll
-  for (int j = 0; j < NW; ++j)
-    xo[j] = min(ws + j * W.ws, mt - 1) * W.xs + off;
-  float acc[NW][NP];
-#pragma unroll
-  for (int j = 0; j < NW; ++j)
-#pragma unroll
-    for (int pl = 0; pl < NP; ++pl) acc[j][pl] = 0.f;
-  const float* tr = T + (band - u0) * W.ls;
-#pragma unroll 4
-  for (int u = g; u < len; u += G) {
-    const float w = tr[u];
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      if (NP == 2) {
-        const float2 xv = reinterpret_cast<const float2*>(X)[xo[j] + u];
-        acc[j][0] = fmaf(w, xv.x, acc[j][0]);
-        acc[j][1] = fmaf(w, xv.y, acc[j][1]);
-      } else {
-        acc[j][0] = fmaf(w, X[xo[j] + u], acc[j][0]);
-      }
-    }
-  }
+  // The sums over the bands (decimate.cuh BandSums), the lane groups'
+  // shuffles, the stores.
+  BandSums<NP, NW> sums(W, X, T, r0, nr, ulo, u0, mt, W.xs);
   DW_MARK(clk, 4);
-  for (int o = G >> 1; o > 0; o >>= 1)
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-#pragma unroll
-      for (int pl = 0; pl < NP; ++pl)
-        acc[j][pl] += __shfl_xor_sync(0xffffffffu, acc[j][pl], o);
+  sums.reduce(W.g);
   DW_MARK(clk, 5);
-
-  float* y0 = A.y[0] + s * A.y_row;
-  float* y1 = A.y[1] ? A.y[1] + s * A.y_row : nullptr;
-  const bool pairs = y1 == y0 + 1 && A.y_step == 2;
-  if (live && g == 0) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const int k = ws + j * W.ws;
-      if (k < mt) {
-        const int m = m0 + k;
-        const bool done = m < v;   // phase mode: later windows are zeros
-        const float v0 = done ? acc[j][0] : 0.f;
-        const float v1 = NP == 2 && done ? acc[j][NP - 1] : 0.f;
-        const int64_t at = ((int64_t)m * q + r) * A.y_step;
-        if (pairs) {
-          *reinterpret_cast<float2*>(y0 + at) = make_float2(v0, v1);
-        } else {
-          y0[at] = v0;
-          if (y1) y1[at] = v1;   // a real input's imaginary part is 0
-        }
-      }
-    }
-  }
+  sums.store(A.y[0] + s * A.y_row, A.y[1] ? A.y[1] + s * A.y_row : nullptr,
+             A.y_step, m0, mt, q, v);
   DW_MARK(clk, 6);
   DW_TIME(clk, 8);
   DW_SM(clk, 9);

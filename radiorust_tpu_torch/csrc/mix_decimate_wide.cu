@@ -62,7 +62,8 @@
 //     FMA, where the bands are sparse (48 kHz -> 44.1 kHz: 12 taps of 171
 //     a row over 147 phases; a dense product would be ~4% useful): one
 //     output a thread or lane group over its band, the bands in shared
-//     memory, as #1's wide form (decimate.cu decimate_wide_kernel).
+//     memory, as #1's wide form (decimate.cuh BandSums, which
+//     decimate.cu decimate_wide_kernel runs too).
 //
 // A development build (-DRR_DECIM_CLOCKS, rr_mix_wide_clocks) stamps each
 // block's phases (kMixMarks a block): clock64() at its start, after the
@@ -354,70 +355,6 @@ __device__ __forceinline__ void sum_out(const float (&acc)[2][NT][4],
   }
 }
 
-// The FMA route (sparse bands): lane g of a group of G, phase r0 + rr,
-// windows ws + j WS (j < NW in registers), over row r's band in T; the
-// span is one run (pitch p).
-template <int NW>
-__device__ __forceinline__ void sums_fma(const float2* X, const float* T,
-                                         const MixWideArgs& W, int p, int q,
-                                         int mt, int r0, int nr, int ulo,
-                                         int u0, float* y0, float* y1,
-                                         int64_t y_step, int64_t m0,
-                                         long long* clk) {
-  const int tid = threadIdx.x, G = W.g;
-  const int g = tid % G, rr = (tid / G) % W.nr, ws = tid / (G * W.nr);
-  const int r = r0 + rr;
-  const bool live = rr < nr && ws < W.ws && ws < mt;
-  int off = 0, len = 0, band = u0;
-  if (live) {
-    off = __ldg(W.rows + 3 * r) - ulo;
-    len = __ldg(W.rows + 3 * r + 1);
-    band = __ldg(W.rows + 3 * r + 2);
-  }
-  int xo[NW];
-#pragma unroll
-  for (int j = 0; j < NW; ++j) xo[j] = min(ws + j * W.ws, mt - 1) * p + off;
-  float acc[NW][2];
-#pragma unroll
-  for (int j = 0; j < NW; ++j) acc[j][0] = acc[j][1] = 0.f;
-  const float* tr = T + (band - u0) * W.ls;
-#pragma unroll 4
-  for (int u = g; u < len; u += G) {
-    const float w = tr[u];
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const float2 xv = X[xo[j] + u];
-      acc[j][0] = fmaf(w, xv.x, acc[j][0]);
-      acc[j][1] = fmaf(w, xv.y, acc[j][1]);
-    }
-  }
-  MW_MARK(clk, 6);
-  for (int o = G >> 1; o > 0; o >>= 1)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      acc[j][0] += __shfl_xor_sync(0xffffffffu, acc[j][0], o);
-      acc[j][1] += __shfl_xor_sync(0xffffffffu, acc[j][1], o);
-    }
-  MW_MARK(clk, 7);
-  const bool pairs = y1 == y0 + 1 && y_step == 2;
-  if (live && g == 0) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const int k = ws + j * W.ws;
-      if (k < mt) {
-        const int64_t at = ((m0 + k) * q + r) * y_step;
-        if (pairs) {
-          *reinterpret_cast<float2*>(y0 + at) =
-              make_float2(acc[j][0], acc[j][1]);
-        } else {
-          y0[at] = acc[j][0];
-          y1[at] = acc[j][1];
-        }
-      }
-    }
-  }
-}
-
 // grid (ceil(q / nr), ceil(M / tm), batch), block W.threads; NT > 0: the
 // tensor-core route with NT n-tiles, else the FMA route with NW windows a
 // thread.  mi = ceil(2^32 / inner), mp = ceil(2^32 / p).
@@ -465,19 +402,9 @@ __global__ void __launch_bounds__(kWideThreads) mix_decimate_wide_kernel(
     const float4* src = reinterpret_cast<const float4*>(W.taps);
     for (int i = tid; i < reg.taps / 4; i += nt)
       cp_async16(reinterpret_cast<float4*>(T) + i, src + i);
-  } else {
-    // The rows' bands, at the source's 16-byte phase.
-    const int64_t t0 = (int64_t)u0 * W.ls;
-    const int ta = (int)(t0 & 3);
-    const float* src = W.taps + t0;
-    const int count = __ldg(W.zband + 4 * z + 3) * W.ls;
-    const int head = min((4 - ta) & 3, count), nv = (count - head) >> 2;
-    T += ta;
-    for (int i = tid; i < head; i += nt) cp_async4(T + i, src + i);
-    for (int i = tid; i < nv; i += nt)
-      cp_async16(T + head + 4 * i, src + head + 4 * i);
-    for (int i = head + 4 * nv + tid; i < count; i += nt)
-      cp_async4(T + i, src + i);
+  } else {   // the rows' bands, at the source's 16-byte phase
+    T = stage_bands(T, W.taps, u0, __ldg(W.zband + 4 * z + 3), W.ls, tid,
+                    nt);
   }
   // The oscillator entries of the span's chunk samples [jlo, jhi): all
   // of B, A from a_lo.
@@ -587,9 +514,13 @@ __global__ void __launch_bounds__(kWideThreads) mix_decimate_wide_kernel(
     __syncthreads();   // every warp is done with the span: Z goes over it
     sum_out<NT>(acc, smem, W, sl, q, mt, y0, y1, A.y_step,
                 (int64_t)m0 * q * A.y_step, clk);
-  } else {
-    sums_fma<NW>(X, T, W, p, q, mt, r0, nr, ulo, u0, y0, y1, A.y_step, m0,
-                 clk);
+  } else {   // one run at pitch p
+    BandSums<2, NW> sums(W, reinterpret_cast<const float*>(X), T, r0, nr,
+                         ulo, u0, mt, p);
+    MW_MARK(clk, 6);
+    sums.reduce(W.g);
+    MW_MARK(clk, 7);
+    sums.store(y0, y1, A.y_step, m0, mt, q, M);
   }
   MW_MARK(clk, 8);
   MW_TIME(clk, 10);
@@ -630,17 +561,23 @@ int rr_mix_decimate_wide(const DecimArgs* args, const MixWideArgs* wide,
       (int64_t)(w.xlen + a.hist + a.p) * a.p >= (1LL << 31) ||
       !a.tab[0] || !a.tab[1] || !a.tab[2] || !a.tab[3] || !a.p0[0] ||
       !a.p0[1] || !a.x[1] || !a.h[1] || !a.y[1] || !a.nh[1] ||
-      w.tm < 1 || w.tab_a < 0 || w.threads < 32 || w.threads % 32 ||
+      w.tm < 1 || w.threads < 32 || w.threads % 32 ||
       w.threads > kWideThreads || w.xlen < 1)
+    return (int)cudaErrorInvalidValue;
+  // Table A's entries a span of xlen positions reads: at most (xlen - 1)
+  // / inner + 2, and no more than the chunk's ceil(n / inner).
+  const int in_chunk = (a.n - 1) / a.inner + 1;
+  const int in_span = (w.xlen - 1) / a.inner + 2;
+  if (w.tab_a < (in_chunk < in_span ? in_chunk : in_span))
     return (int)cudaErrorInvalidValue;
   if (w.mma) {
     // All q phases in one block; the span's rows within 16 mt; Z's
-    // columns within nt n-tiles; one m-tile x k-range a warp.
+    // columns within nt n-tiles; one warp each m-tile x k-range.
     if (a.p % 8 || w.nt < 1 || w.nt > 8 || w.mt < 1 || w.ksplit < 1 ||
         w.srows != 16 * w.mt || w.tm + w.periods - 1 > w.srows ||
         w.periods * a.q > 8 * w.nt || w.xlen > w.srows * a.p ||
         w.pitch < a.p || w.pitch % 2 || w.zpitch < 8 * w.nt ||
-        w.zpitch % 2 || w.threads < 32 * w.mt * w.ksplit || w.nr < a.q)
+        w.zpitch % 2 || w.threads != 32 * w.mt * w.ksplit || w.nr < a.q)
       return (int)cudaErrorInvalidValue;
   } else {
     const int64_t lanes = (int64_t)w.g * w.nr * w.ws;

@@ -85,19 +85,19 @@ _WIDE_FILL = 264
 # #2's wide form (csrc/mix_decimate_wide.cu).  The tensor-core route takes
 # a plan with one phase block, p a whole number of 8-deep k-steps, its
 # (period, phase) columns within one warp's _MMA_TILES n-tiles of 8, and
-# at least _MMA_USEFUL of the product's multiplies on nonzero taps.  Its
-# tiles hold 16 mt span rows (mt <= _MMA_MT), its warps one m-tile each
-# over a k-range (_MMA_WARPS in all); the tile length minimises the
-# blocks a wave of _SMS SMs runs times the rows each stages and
-# multiplies (16 mt, plus _MMA_BLOCK_ROWS of a block's fixed work).
-# _TABLE_RESERVE: the oscillator tables' room the route keeps.
+# at least _MMA_USEFUL of the product's multiplies on nonzero taps (a
+# threshold set between the plans timed on both routes, 43% and more on
+# the tensor cores, 4% by FMA: no plan between was timed).  Its tiles
+# hold 16 mt span rows (mt <= _MMA_MT), its warps one m-tile each over a
+# k-range (_MMA_WARPS in all); the tile length minimises the blocks a
+# wave of _SMS SMs runs times the rows each stages and multiplies (16 mt,
+# plus _MMA_BLOCK_ROWS of a block's fixed work).
 _MMA_TILES = 8
 _MMA_USEFUL = 0.25
 _MMA_MT = 4
 _MMA_WARPS = 8
 _MMA_BLOCK_ROWS = 8
 _SMS = 132
-_TABLE_RESERVE = 4096
 
 
 def _apad(kw: int, p: int) -> int:
@@ -250,33 +250,49 @@ def _wide_smem(nplanes: int, un: int, ls: int, xlen: int) -> int:
     return 4 * (((un * ls + 6) & ~3) + nplanes * (xlen + 1))
 
 
-@functools.lru_cache(maxsize=None)
-def wide_config(shape, p: int, windows: int, batch: int, nplanes: int):
-    """(ws, nw, xs, xlen, threads, smem) of a wide launch of ``windows``
-    windows a stream (n / p aligned, ceil(n / p) in phase mode) at the
-    layout's ``shape`` (:attr:`WideLayout.shape`): ws windows across a
-    block's threads, nw in each thread's registers (tm = ws nw a tile),
-    the span's stride and length, threads a block and shared bytes.  nw
-    is the largest that still gives :data:`_WIDE_FILL` blocks (else 1,
-    the most blocks).  Raises where no shape fits a block."""
-    g, ls, nr, un, wmax, zb = shape
+def _band_tile(g: int, nr: int, zb: int, windows: int, batch: int,
+               span):
+    """The FMA sums' tile (#1's wide form, #2's FMA route): ws windows
+    across a block's threads (nr phases of g lanes), nw in each thread's
+    registers, tm = ws nw a tile; nw the largest that still gives
+    :data:`_WIDE_FILL` blocks (else 1, the most blocks).  ``span(tm)``:
+    the launch's fields that depend on tm, the last its shared bytes.
+    (ws, nw, threads, span(tm)), or None where no tile fits a block."""
     ws = max(1, min(_WIDE_THREADS // (nr * g), windows))
     threads = -(-nr * g * ws // 32) * 32
     best = None
     for nw in range(1, _WIDE_NW + 1):
         if nw > 1 and (nw - 1) * ws >= windows:
             break
-        xs, xlen = _wide_span(p, wmax, ws * nw)
-        smem = _wide_smem(nplanes, un, ls, xlen)
-        if smem > _SMEM_LIMIT:
+        got = span(ws * nw)
+        if got[-1] > _SMEM_LIMIT:
             break
         blocks = batch * -(-windows // (ws * nw)) * zb
         if best is None or blocks >= _WIDE_FILL:
-            best = (ws, nw, xs, xlen, threads, smem)
+            best = (ws, nw, threads, got)
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def wide_config(shape, p: int, windows: int, batch: int, nplanes: int):
+    """(ws, nw, xs, xlen, threads, smem) of a wide launch of ``windows``
+    windows a stream (n / p aligned, ceil(n / p) in phase mode) at the
+    layout's ``shape`` (:attr:`WideLayout.shape`): ws windows across a
+    block's threads, nw in each thread's registers (tm = ws nw a tile,
+    :func:`_band_tile`), the span's stride and length, threads a block
+    and shared bytes.  Raises where no shape fits a block."""
+    g, ls, nr, un, wmax, zb = shape
+
+    def span(tm):
+        xs, xlen = _wide_span(p, wmax, tm)
+        return xs, xlen, _wide_smem(nplanes, un, ls, xlen)
+
+    best = _band_tile(g, nr, zb, windows, batch, span)
     if best is None:
         raise ValueError(f"wide decimation: no block fits p={p}, "
                          f"shape {shape} in shared memory")
-    return best
+    ws, nw, threads, (xs, xlen, smem) = best
+    return ws, nw, xs, xlen, threads, smem
 
 
 def _r4(floats: int) -> int:
@@ -374,8 +390,9 @@ def mix_wide_route(kernel_matrix: np.ndarray, p: int,
     columns of a period by 8 nt (a, r) columns a window, nt = ceil(periods
     q / 8); ``dense`` is the share of those multiplies that meet a nonzero
     tap.  "mma" where the plan has one phase block, p % 8 == 0, nt <=
-    8, dense >= 1/4 and the smallest tile fits shared memory (2.048 MHz
-    -> 240 kHz: 56%; -> 12 kHz: 90%; 1.024 MHz -> 200 kHz: 43%); else
+    8, dense >= 1/4 and :func:`_mma_tile` fits its smallest tile (one
+    window, a one-entry oscillator) in shared memory (2.048 MHz -> 240
+    kHz: 56%; -> 12 kHz: 90%; 1.024 MHz -> 200 kHz: 43%); else
     "fma" (48 kHz -> 44.1 kHz: 12 taps of 171 over 147 phases, 4%), whose
     ``useful`` is the nonzero taps over the band lanes a window runs."""
     w = np.asarray(kernel_matrix, dtype=np.float32)
@@ -385,12 +402,9 @@ def mix_wide_route(kernel_matrix: np.ndarray, p: int,
     nt = -(-periods * q // 8)
     nnz = int(np.count_nonzero(w))
     dense = nnz / (p * 8 * nt)
-    mt = -(-periods // 16)
-    fits = (mt <= _MMA_MT and _mix_wide_smem(
-        True, p, 16 * mt, _mma_pitch(p), 0, _mma_zpitch(nt),
-        _mma_ksplit(mt, p), nt, 0, 0, 0, 0) + _TABLE_RESERVE <= _SMEM_LIMIT)
     if (len(lay.zband) == 1 and p % 8 == 0 and nt <= _MMA_TILES
-            and dense >= _MMA_USEFUL and fits):
+            and dense >= _MMA_USEFUL and _mma_tile(
+                p, periods, nt, lay.wmax, 1, 1, 1, 1) is not None):
         return "mma", periods, nt, dense, dense
     lanes = int((-(-lay.rows[:, 1] // lay.g) * lay.g).sum())
     return "fma", periods, nt, nnz / max(lanes, 1), dense
@@ -437,64 +451,68 @@ def _tab_a(xlen: int, inner: int, outer: int) -> int:
     return min(outer, (xlen - 1) // inner + 2)
 
 
+def _mma_tile(p: int, periods: int, nt: int, wmax: int, windows: int,
+              batch: int, inner: int, outer: int):
+    """The tensor-core route's launch, or None where no tile fits shared
+    memory: the tile of mt = 1 .. 4 m-tiles (16 mt span rows, at most 16
+    mt - periods + 1 windows) that minimises ceil(blocks / 132) (16 mt +
+    8), B's fragments and the tables in shared memory too, its windows
+    spread evenly over the tiles; ksplit = min(8 / mt, p / 8) k-ranges,
+    one warp an m-tile and k-range."""
+    pitch, zpitch = _mma_pitch(p), _mma_zpitch(nt)
+    best = None
+    for mt in range(1, _MMA_MT + 1):
+        tm = min(windows, 16 * mt - periods + 1)
+        if tm < 1:
+            continue
+        tiles = -(-windows // tm)
+        tm = -(-windows // tiles)   # balanced tiles
+        xlen = (tm - 1) * p + wmax
+        tab_a = _tab_a(xlen, inner, outer)
+        ksplit = _mma_ksplit(mt, p)
+        smem = _mix_wide_smem(True, p, 16 * mt, pitch, xlen, zpitch,
+                              ksplit, nt, inner, tab_a, 0, 0)
+        if smem > _SMEM_LIMIT:
+            break
+        cost = -(-batch * tiles // _SMS) * (16 * mt + _MMA_BLOCK_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, MixWideShape(
+                True, tm, tiles, pitch, xlen, tab_a, 32 * mt * ksplit,
+                smem, 16 * mt, mt, ksplit, zpitch))
+        if tm == windows:
+            break
+    return None if best is None else best[1]
+
+
 @functools.lru_cache(maxsize=None)
 def mix_wide_config(shape, p: int, windows: int, batch: int, inner: int,
                     outer: int, hist: int) -> MixWideShape:
     """The launch of #2's wide form at the layout's ``shape``
     (:attr:`MixWideLayout.shape`) for ``windows`` = n / p windows a
     stream, ``batch`` streams, an oscillator of ``outer`` x ``inner``
-    entries and a history of ``hist``.  mma: the tile of mt = 1 .. 4
-    m-tiles (16 mt span rows, at most 16 mt - periods + 1 windows) that
-    minimises ceil(blocks / 132) (16 mt + 8), within shared memory (B's
-    fragments in it too), its windows spread evenly over the tiles;
-    ksplit = min(8 / mt, p / 8) k-ranges, one warp an m-tile and
-    k-range.  fma: as :func:`wide_config`, the span one run.  Raises
-    where no shape fits a block or the kernel's index divisions would
-    not be exact."""
+    entries and a history of ``hist``.  mma: :func:`_mma_tile`.  fma:
+    :func:`_band_tile`, the span one run.  Raises where no shape fits a
+    block or the kernel's index divisions would not be exact."""
     route, periods, nt, g, ls, nr, un, wmax, zb = shape
-    best = None
     if route == "mma":
-        pitch, zpitch = _mma_pitch(p), _mma_zpitch(nt)
-        for mt in range(1, _MMA_MT + 1):
-            tm = min(windows, 16 * mt - periods + 1)
-            if tm < 1:
-                continue
-            tiles = -(-windows // tm)
-            tm = -(-windows // tiles)   # balanced tiles
+        best = _mma_tile(p, periods, nt, wmax, windows, batch, inner, outer)
+    else:
+        def span(tm):
             xlen = (tm - 1) * p + wmax
             tab_a = _tab_a(xlen, inner, outer)
-            ksplit = _mma_ksplit(mt, p)
-            smem = _mix_wide_smem(True, p, 16 * mt, pitch, xlen, zpitch,
-                                  ksplit, nt, inner, tab_a, 0, 0)
-            if smem > _SMEM_LIMIT:
-                break
-            cost = -(-batch * tiles // _SMS) * (16 * mt + _MMA_BLOCK_ROWS)
-            if best is None or cost < best[0]:
-                best = (cost, MixWideShape(
-                    True, tm, tiles, pitch, xlen, tab_a, 32 * mt * ksplit,
-                    smem, 16 * mt, mt, ksplit, zpitch))
-            if tm == windows:
-                break
-    else:
-        ws = max(1, min(_WIDE_THREADS // (nr * g), windows))
-        threads = -(-nr * g * ws // 32) * 32
-        for nw in range(1, _WIDE_NW + 1):
-            if nw > 1 and (nw - 1) * ws >= windows:
-                break
-            xlen = (ws * nw - 1) * p + wmax
-            tab_a = _tab_a(xlen, inner, outer)
-            smem = _mix_wide_smem(False, p, 0, p, xlen, 0, 0, 0, inner,
-                                  tab_a, un, ls)
-            if smem > _SMEM_LIMIT:
-                break
-            tiles = -(-windows // (ws * nw))
-            if best is None or batch * tiles * zb >= _WIDE_FILL:
-                best = (0, MixWideShape(False, ws * nw, tiles, p, xlen,
-                                        tab_a, threads, smem, ws=ws, nw=nw))
-    if best is None or (best[1].xlen + hist + p) * p >= 2 ** 31:
+            return xlen, tab_a, _mix_wide_smem(False, p, 0, p, xlen, 0, 0, 0,
+                                               inner, tab_a, un, ls)
+
+        tile = _band_tile(g, nr, zb, windows, batch, span)
+        best = None
+        if tile is not None:
+            ws, nw, threads, (xlen, tab_a, smem) = tile
+            best = MixWideShape(False, ws * nw, -(-windows // (ws * nw)), p,
+                                xlen, tab_a, threads, smem, ws=ws, nw=nw)
+    if best is None or (best.xlen + hist + p) * p >= 2 ** 31:
         raise ValueError(f"#2's wide form: no block fits p={p}, shape "
                          f"{shape}, oscillator block {inner}")
-    return best[1]
+    return best
 
 
 def decimate_supported(n: int, plan, mixer: bool = False,

@@ -93,6 +93,34 @@ def test_route_rule(name):
         assert lay.taps.shape == (p // 8, nt, LANES, 2)
 
 
+# Plans made up to sit on either side of the route's quarter: (q, Kw, p,
+# route).  Every tap nonzero, one period or two, one n-tile of columns.
+THRESHOLD = {
+    "q 2, one period, dense 1/4": (2, 64, 64, "mma"),
+    "q 2, one period, dense under 1/4": (2, 63, 64, "fma"),
+    "q 1, two periods, dense under 1/4": (1, 120, 64, "fma"),
+    "q 2, two periods, dense 47%": (2, 120, 64, "mma"),
+    "q 1, p 4096, dense 1/4, no tile fits": (1, 8192, 4096, "fma"),
+}
+
+
+@pytest.mark.parametrize("name", list(THRESHOLD))
+def test_route_threshold(name):
+    """The route's own limits, where they alone decide: a quarter of the
+    product's multiplies on nonzero taps takes the tensor cores, less
+    takes FMA; a plan whose smallest tensor-core tile (one window, a
+    one-entry oscillator) does not fit shared memory takes FMA."""
+    q, kw, p, route = THRESHOLD[name]
+    W = np.random.default_rng(7).uniform(0.5, 1.0, (q, kw)).astype(
+        np.float32)
+    got, periods, nt, _, dense = tfe.mix_wide_route(W, p)
+    assert got == route
+    assert nt == 1 and periods == -(-kw // p)
+    assert dense == pytest.approx(q * kw / (p * 8))
+    fits = tfe._mma_tile(p, periods, nt, kw, 1, 1, 1, 1) is not None
+    assert (dense >= tfe._MMA_USEFUL and fits) == (route == "mma")
+
+
 @pytest.mark.parametrize("name", [k for k, v in GEOMETRIES.items()
                                   if v[2] == "mma"])
 def test_mma_fragments_hold_each_tap_once(name):
@@ -139,7 +167,9 @@ def test_launch_shapes_fit(batch):
         g, ls, nr, un, wmax, zb = lay.wide.shape
         assert sh.smem <= tfe._SMEM_LIMIT == 232448, name
         assert LANES <= sh.threads <= tfe._WIDE_THREADS, name
-        assert sh.threads % LANES == 0 and sh.tab_a >= 0
+        assert sh.threads % LANES == 0
+        assert sh.tab_a >= min(-(-n // _inner_block(n)),
+                               (sh.xlen - 1) // _inner_block(n) + 2)
         assert sh.tiles == -(-M // sh.tm) <= 65535 and batch <= 65535
         assert sh.xlen >= (sh.tm - 1) * p + wmax
         assert (sh.xlen + plan.hist + p) * p < 2 ** 31
