@@ -21,12 +21,16 @@
    ``MIX_WIDE_CHECKS``, its mixed history bit for bit, each plan's route
    (the tensor cores in a 3xTF32 split, or FMA) and useful share printed
    first; #3 and #4 also at
-   the geometries of paths E-G, at column lengths n1 = 77 and, #3, n1 =
-   768, and (#4 at K = 3) at the five transforms past 128-point rows or
-   768 rows: m = n = 1000, 1001, 65536, 98304 and m = 6144, n = 98304,
-   and at the three whose column passes a one-column strip (the
-   device-memory column route): m = n = 10001, a prime N = 19373,
-   m = 1, n = 19373 and m = n = 10003; #5 and #6 (``DEMOD_ROUTES``) by
+   the geometries of paths E-G and ``FILTER_PATHS`` (J, K, M's real
+   pairs, L, batch 1, an odd number of transforms, 16- and two-point
+   rows), at column lengths n1 = 77 and, #3, n1 = 768, and (#4 at K = 3)
+   at the five transforms past 128-point rows or 768 rows: m = n = 1000,
+   1001, 65536, 98304 and m = 6144, n = 98304, and at the three whose
+   column passes a one-column strip (the device-memory column route): m
+   = n = 10001, a prime N = 19373, m = 1, n = 19373 and m = n = 10003,
+   #3 each by the route stated beside it and asserted on its
+   ``cluster_launches`` counter (one cluster launch a call up to n1 = 96
+   rows, the stage route past them; #4 has one route); #5 and #6 (``DEMOD_ROUTES``) by
    their cluster route (one launch a call, asserted on their
    ``cluster_launches`` counters) at A's and B's geometry, a history off
    whole rows, an odd n1, two-point rows and the largest transform each
@@ -56,7 +60,8 @@
    the port never calls it.
 3. Drives its paths (A-G 16 chunks each), with every launch counter set to
    0 just before and read just after, and checks that each kernel of the
-   path was launched (every #5 and #6 launch by the cluster route), that
+   path was launched (every #5 and #6 launch by the cluster route, and
+   every #3 launch by the route ``PATH_ROUTES`` states for the path), that
    the output is finite and right, and that the first streams equal the
    same path run on CPU tensors:
 
@@ -244,6 +249,35 @@ SLEW_ATOL = 0.0       # #8 kernel vs plain, max |diff|: bit for bit
 # (m, n) of the overlap-save transforms past 128-point rows or 768 rows.
 FAULT_GEOMETRIES = ((1000, 1000), (1001, 1001), (65536, 65536),
                     (98304, 98304), (6144, 98304))
+# (label, m, n, batch, bands, #3's route) of #3's and #4's checks at the
+# other geometries the paths bind them at: J's 1536, K's 12288 and M's
+# real pairs there (batch / 2), L's 2048, path O's batch 1 (A's, C's
+# bank), an odd number of transforms (F's 2048 at 3), and the cluster
+# route's 16-point rows (1520 = 95 x 16) and two-point rows (190 = 95 x
+# 2: a cluster of 2).  The route is stated, not derived from the rule
+# (ops/filter.py filter_cluster_size: the cluster route up to n1 = 96
+# rows); #4 (bands > 1) has one route.
+FILTER_PATHS = (
+    ("path J's geometry", 768, 768, BATCH, 1, "cluster"),
+    ("path K's geometry", 6144, 6144, BATCH, 1, "cluster"),
+    ("path M's geometry, real pairs", 6144, 6144, BATCH // 2, 1,
+     "cluster"),
+    ("path L's geometry", 1024, 1024, BATCH, 1, "cluster"),
+    ("A's geometry at batch 1 (path O)", 6144, 9216, 1, 1, "stage"),
+    ("C's geometry at batch 1 (path O)", 6144, 9216, 1, 3, None),
+    ("F's geometry, 3 transforms", 1024, 1024, 3, 1, "cluster"),
+    ("G's geometry, 3 streams", 1024, 1024, 3, 2, None),
+    ("16-point rows", 760, 760, 8, 1, "cluster"),
+    ("two-point rows", 95, 95, 3, 1, "cluster"))
+# The route of #3's launches on each path that drives it here, stated
+# rather than derived from the rule, so that a change of the rule shows:
+# the cluster route at E's 64 x 128, F's and L's 16 x 128, J's 12 x 128,
+# K's and M's 96 x 128 grids; the stage route at A's and C's 120 x 128
+# and H's 768 x 256.  The paths N-T run several models, and #3 by both
+# routes; they state none.
+PATH_ROUTES = {"A": "stage", "C": "stage", "E": "cluster", "F": "cluster",
+               "H": "stage", "J": "cluster", "K": "cluster", "L": "cluster",
+               "M": "cluster"}
 # (m, n, batch) of the transforms whose column passes a one-column strip:
 # Filter at chunk 10001 (20002 = 10001 x 2: generic passes of 73 and 137),
 # a prime N = 19373 (one 19373-point generic pass, 155 kflop a sample: a
@@ -1225,8 +1259,8 @@ def mixer_wide_paths(dev, tag, wrappers, graphed_rows, phase) -> dict:
 
 
 def zero_counts(wrappers) -> None:
-    """Every launch counter at 0 (and #5's and #6's cluster-route
-    counters), once the card has finished."""
+    """Every launch counter at 0 (and the cluster-route counters of #3, #5
+    and #6), once the card has finished."""
     torch.cuda.synchronize()
     for w in wrappers:
         w.launches = 0
@@ -1236,7 +1270,7 @@ def zero_counts(wrappers) -> None:
 
 def cluster_counts(wrappers) -> dict:
     """{wrapper name: launches by the cluster route} of the wrappers that
-    have one (#5, #6)."""
+    have one (#3, #5, #6)."""
     return {w.__name__: w.cluster_launches for w in wrappers
             if hasattr(w, "cluster_launches")}
 
@@ -1256,22 +1290,30 @@ def routed(wrapper, cluster: bool, run, label: str):
                              f"cluster route")
 
 
-def read_counts(wrappers, label, want=()) -> dict:
+def read_counts(wrappers, label, want=(), route=None) -> dict:
     """{wrapper name: launches} once the card has finished; fails unless
     each of ``want`` (wrappers or their names) was launched on ``label``,
-    and unless every launch of #5 and #6 took the cluster route (every
-    geometry a path binds is one it takes)."""
+    unless every launch of #5 and #6 took the cluster route (every
+    geometry a path binds is one it takes), and, where ``route`` is given
+    (``PATH_ROUTES``), unless every launch of #3 took that route."""
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
     names = [w if isinstance(w, str) else w.__name__ for w in want]
     missing = [n for n in names if launches[n] < 1]
     if missing:
         raise AssertionError(f"{label}: {missing} not launched")
-    staged = [n for n, c in cluster_counts(wrappers).items()
-              if c != launches[n]]
+    routes = cluster_counts(wrappers)
+    staged = [n for n in ("fused_demod_filter", "fused_filter_demod_filter")
+              if routes[n] != launches[n]]
     if staged:
         raise AssertionError(f"{label}: {staged} launched by the stage "
                              f"route")
+    os_ = "fused_overlap_save"
+    if route is not None and routes[os_] != (launches[os_]
+                                             if route == "cluster" else 0):
+        raise AssertionError(f"{label}: {routes[os_]} of {launches[os_]} "
+                             f"launches of {os_} by the cluster route, "
+                             f"where the path takes the {route} route")
     return launches
 
 
@@ -1316,7 +1358,7 @@ def _cloned(obj):
 
 class _Tap:
     """A kernel wrapper's stand-in under :func:`tapped`: it records the
-    wrapper's eager calls, and its ``launches`` (and #5's and #6's
+    wrapper's eager calls, and its ``launches`` (and #3-#6's
     ``cluster_launches``) are the wrapper's own counters, which the
     wrapper counts on through its module's name."""
 
@@ -2845,6 +2887,20 @@ def main() -> None:
     grid_planes = lambda r: planes(ofl.response_grid(
         torch.from_numpy(r).to(dev)))
 
+    def filter_check(name, source, replaces, kernel, plain, args, flops,
+                     route, **kw):
+        """#3's or #4's ``check``; #3's through ``routed``: every launch
+        by ``route`` ("cluster" or "stage", stated by the caller), which
+        the check's row names.  #4 (``route`` None) has one route."""
+        run = lambda: check(  # noqa: E731
+            name, source, replaces, FILTER_BOUND, kernel, plain, args, flops,
+            extra=dict(filter_route=route or "stage"), **kw)
+        if route is None:
+            return run()
+        N = args[0].shape[1] + args[2].shape[1]
+        routed(kernel, route == "cluster", run,
+               f"{name}, N = {N} ({route} route)")
+
     # #1 and #2 as the blocks call them, on complex64 tensors in place,
     # at every plan the paths bind, then through the float-plane
     # signatures of the JAX functions.
@@ -3016,13 +3072,14 @@ def main() -> None:
     prev, cur = cplx(BATCH, m), cplx(BATCH, n_mid)
     call, layout = conv_overlap_save(
         prev, cur, torch.from_numpy(filt.params["response"]).to(dev))
-    check("fused_overlap_save", "radiorust_tpu_torch/csrc/overlap_save.cu",
-          "radiorust_tpu/ops/pallas_filter.py:547", FILTER_BOUND,
-          ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
-          (*planes(prev), *planes(cur),
-           *grid_planes(filt.params["response"])),
-          overlap_save_flops(BATCH, m + n_mid), graphed=True,
-          library=("conv1d", call, layout))
+    filter_check("fused_overlap_save",
+                 "radiorust_tpu_torch/csrc/overlap_save.cu",
+                 "radiorust_tpu/ops/pallas_filter.py:547",
+                 ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
+                 (*planes(prev), *planes(cur),
+                  *grid_planes(filt.params["response"])),
+                 overlap_save_flops(BATCH, m + n_mid), "stage", graphed=True,
+                 library=("conv1d", call, layout))
 
     # FM at the mid-chain rate, continuous across [history || chunk]:
     # where the filtered signal has a magnitude, its demod is not chaotic.
@@ -3074,13 +3131,15 @@ def main() -> None:
         torch.complex(mpx_prev, torch.zeros_like(mpx_prev)),
         torch.complex(mpx_cur, torch.zeros_like(mpx_cur)),
         torch.from_numpy(responses).to(dev))
-    check("fused_filter_bank", "radiorust_tpu_torch/csrc/overlap_save.cu",
-          "radiorust_tpu/ops/pallas_filter.py:632", FILTER_BOUND,
-          ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
-          (mpx_prev, torch.zeros_like(mpx_prev), mpx_cur,
-           torch.zeros_like(mpx_cur), *grid_planes(responses)),
-          filter_bank_flops(BATCH, responses.shape[-1], len(responses)),
-          graphed=True, library=("conv1d", call, layout))
+    filter_check("fused_filter_bank",
+                 "radiorust_tpu_torch/csrc/overlap_save.cu",
+                 "radiorust_tpu/ops/pallas_filter.py:632",
+                 ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
+                 (mpx_prev, torch.zeros_like(mpx_prev), mpx_cur,
+                  torch.zeros_like(mpx_cur), *grid_planes(responses)),
+                 filter_bank_flops(BATCH, responses.shape[-1],
+                                   len(responses)), None,
+                 graphed=True, library=("conv1d", call, layout))
 
     chd = bound_ch.blocks[0]
     ch_x = torch.from_numpy(channel_fm(1, CH_BATCH, chd.hist_len + CH_CHUNK)
@@ -3381,21 +3440,21 @@ def main() -> None:
                   if type(b).__name__ == "_BoundFilterBank")
     for label, filt, rows in (("E", filt_e, BATCH), ("F", filt_f, BATCH // 2)):
         m, n = filt.ir_len, filt.in_sig.chunk_len
-        check(f"fused_overlap_save at path {label}'s geometry (m = n = {n}, "
-              f"n1 = {(m + n) // 128}, batch {rows})", "", "", FILTER_BOUND,
-              ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
-              (randn(rows, m), randn(rows, m), randn(rows, n),
-               randn(rows, n), *grid_planes(filt.params["response"])),
-              overlap_save_flops(rows, m + n), record=False,
-              of="fused_overlap_save", graphed=True)
+        filter_check(f"fused_overlap_save at path {label}'s geometry (m = n "
+                     f"= {n}, n1 = {(m + n) // 128}, batch {rows})", "", "",
+                     ofl.fused_overlap_save, ofl.fused_overlap_save_plain,
+                     (randn(rows, m), randn(rows, m), randn(rows, n),
+                      randn(rows, n), *grid_planes(filt.params["response"])),
+                     overlap_save_flops(rows, m + n), "cluster",
+                     record=False, of="fused_overlap_save", graphed=True)
     m, n = bank_g.ir_len, bank_g.in_sig.chunk_len
-    check(f"fused_filter_bank at path G's geometry (K = "
-          f"{bank_g.num_outputs}, N = {m + n})", "", "", FILTER_BOUND,
-          ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
-          (randn(BATCH, m), randn(BATCH, m), randn(BATCH, n),
-           randn(BATCH, n), *grid_planes(bank_g.params["responses"])),
-          filter_bank_flops(BATCH, m + n, bank_g.num_outputs), record=False,
-          of="fused_filter_bank", graphed=True)
+    filter_check(f"fused_filter_bank at path G's geometry (K = "
+                 f"{bank_g.num_outputs}, N = {m + n})", "", "",
+                 ofl.fused_filter_bank, ofl.fused_filter_bank_plain,
+                 (randn(BATCH, m), randn(BATCH, m), randn(BATCH, n),
+                  randn(BATCH, n), *grid_planes(bank_g.params["responses"])),
+                 filter_bank_flops(BATCH, m + n, bank_g.num_outputs), None,
+                 record=False, of="fused_filter_bank", graphed=True)
 
     # The FFT's other column plans, on random responses: n1 = 77 = 7 * 11
     # (two generic prime passes) and n1 = 768 (the widest shared-memory
@@ -3404,23 +3463,35 @@ def main() -> None:
         return planes(ofl.response_grid(torch.complex(randn(bands, N),
                                                       randn(bands, N))))
 
-    for n1, rows in ((77, 8), (768, 4)):
+    def filter_geometry(what, m, n, rows, bands, route):
+        """#3 (one band, by ``route``) or #4 at a geometry on random
+        responses, listed under its kernel's entry."""
+        gr, gi = random_grids(bands, m + n)
+        bank = bands > 1
+        name = ("fused_filter_bank" if bank else "fused_overlap_save")
+        filter_check(f"{name} (K = {bands}) at {what}" if bank
+                     else f"{name} at {what}", "", "", getattr(ofl, name),
+                     getattr(ofl, f"{name}_plain"),
+                     (randn(rows, m), randn(rows, m), randn(rows, n),
+                      randn(rows, n), *((gr, gi) if bank else (gr[0], gi[0]))),
+                     (filter_bank_flops(rows, m + n, bands) if bank
+                      else overlap_save_flops(rows, m + n)),
+                     None if bank else route, record=False, of=name,
+                     graphed=True)
+
+    for n1, rows, route in ((77, 8, "cluster"), (768, 4, "stage")):
         n = 64 * n1
-        gr, gi = random_grids(1, 2 * n)
-        check(f"fused_overlap_save at n1 = {n1} (m = n = {n}, batch "
-              f"{rows})", "", "", FILTER_BOUND, ofl.fused_overlap_save,
-              ofl.fused_overlap_save_plain,
-              (*(randn(rows, n) for _ in range(4)), gr[0], gi[0]),
-              overlap_save_flops(rows, 2 * n), record=False,
-              of="fused_overlap_save",
-              graphed=True)
+        filter_geometry(f"n1 = {n1} (m = n = {n}, batch {rows})", n, n, rows,
+                        1, route)
     n = 64 * 77
-    check(f"fused_filter_bank at n1 = 77 (K = 2, m = n = {n}, batch 8)", "",
-          "", FILTER_BOUND, ofl.fused_filter_bank,
-          ofl.fused_filter_bank_plain,
-          (*(randn(8, n) for _ in range(4)), *random_grids(2, 2 * n)),
-          filter_bank_flops(8, 2 * n, 2), record=False, of="fused_filter_bank",
-          graphed=True)
+    filter_geometry(f"n1 = 77 (m = n = {n}, batch 8)", n, n, 8, 2, None)
+
+    # #3 and #4 at the other geometries the paths bind them at
+    # (FILTER_PATHS: J, K, M's real pairs, L, batch 1 as path O binds
+    # them, an odd number of transforms, the cluster route's short rows).
+    for label, m, n, rows, bands, route in FILTER_PATHS:
+        filter_geometry(f"{label} (m = {m}, n = {n}, batch {rows})", m, n,
+                        rows, bands, route)
 
     # #3 and #4 (K = 3) at the transforms past the 128-point rows or 768
     # rows: Filter at chunk 1000 (2000 = 125 x 16) and 1001 (2002 = 1001 x
@@ -3432,21 +3503,9 @@ def main() -> None:
         n1, n2 = ofl.kernel_factors(m + n)
         cols = ofl.strip_cols(n1, n2)
         for bands in (1, 3):
-            gr, gi = random_grids(bands, m + n)
-            bank = bands > 1
-            check(f"{'fused_filter_bank (K = 3)' if bank else 'fused_overlap_save'}"
-                  f" at m = {m}, n = {n} (n1 = {n1}, n2 = {n2}, "
-                  f"{cols}-column strips, batch {rows})", "", "",
-                  FILTER_BOUND,
-                  ofl.fused_filter_bank if bank else ofl.fused_overlap_save,
-                  (ofl.fused_filter_bank_plain if bank
-                   else ofl.fused_overlap_save_plain),
-                  (randn(rows, m), randn(rows, m), randn(rows, n),
-                   randn(rows, n), *((gr, gi) if bank else (gr[0], gi[0]))),
-                  (filter_bank_flops(rows, m + n, bands) if bank
-                   else overlap_save_flops(rows, m + n)), record=False,
-                  of="fused_filter_bank" if bank else "fused_overlap_save",
-                  graphed=True)
+            filter_geometry(f"m = {m}, n = {n} (n1 = {n1}, n2 = {n2}, "
+                            f"{cols}-column strips, batch {rows})", m, n,
+                            rows, bands, "stage")
 
     # #3, #4 (K = 3), #5 and #6 past a one-column strip: the column
     # launches take the device-memory route (before, the blocks raised on
@@ -3454,20 +3513,9 @@ def main() -> None:
     for m, n, rows in STRIP_FAULTS:
         n1, n2 = ofl.kernel_factors(m + n)
         for bands in (1, 3):
-            gr, gi = random_grids(bands, m + n)
-            bank = bands > 1
-            check(f"{'fused_filter_bank (K = 3)' if bank else 'fused_overlap_save'}"
-                  f" at m = {m}, n = {n} (n1 = {n1}, n2 = {n2}, columns in "
-                  f"device memory, batch {rows})", "", "", FILTER_BOUND,
-                  ofl.fused_filter_bank if bank else ofl.fused_overlap_save,
-                  (ofl.fused_filter_bank_plain if bank
-                   else ofl.fused_overlap_save_plain),
-                  (randn(rows, m), randn(rows, m), randn(rows, n),
-                   randn(rows, n), *((gr, gi) if bank else (gr[0], gi[0]))),
-                  (filter_bank_flops(rows, m + n, bands) if bank
-                   else overlap_save_flops(rows, m + n)), record=False,
-                  of="fused_filter_bank" if bank else "fused_overlap_save",
-                  graphed=True)
+            filter_geometry(f"m = {m}, n = {n} (n1 = {n1}, n2 = {n2}, "
+                            f"columns in device memory, batch {rows})", m, n,
+                            rows, bands, "stage")
     # #5 and #6 at the other geometries of each route (DEMOD_ROUTES): the
     # cluster route at a history off whole rows, an odd n1, two-point rows
     # (C = 2) and the largest transform it takes; the stage route past
@@ -3569,11 +3617,13 @@ def main() -> None:
 
     def drive(label, run, want, chunks=T):
         """Run a path with every launch counter at 0 just before and read
-        just after; fail unless each kernel of ``want`` was launched (and
-        #5 and #6 by the cluster route)."""
+        just after; fail unless each kernel of ``want`` was launched (#5
+        and #6 by the cluster route, #3 by the route ``PATH_ROUTES``
+        states for the path)."""
         zero_counts(wrappers)
         out = run()
-        launches = read_counts(wrappers, f"path {label}", want)
+        launches = read_counts(wrappers, f"path {label}", want,
+                               PATH_ROUTES.get(label.split()[0]))
         routes[label] = cluster_counts(wrappers)
         print(f"path {label} launches over {chunks} chunks: {launches}; by "
               f"the cluster route: {routes[label]}")
@@ -3635,7 +3685,8 @@ def main() -> None:
         zero_counts(wrappers)
         got = run(params, state0, xs)
         at_capture = read_counts(wrappers, f"graphed path {label} (at "
-                                 f"capture)", want)
+                                 f"capture)", want,
+                                 PATH_ROUTES.get(label.split()[0]))
         pairs = list(zip(tensors(got), tensors(eager)))
         if len(pairs) != len(tensors(eager)) or not pairs:
             raise AssertionError(f"graphed path {label}: other outputs")
@@ -4314,12 +4365,16 @@ def main() -> None:
           f"{[c['fused_mix_decimate'] for c in launches_u.values()]} "
           f"(fused_mix_decimate, its wide form)")
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
-    route_of = {"fused_demod_filter": "A", "fused_filter_demod_filter": "B"}
+    # Where the cluster route's launches are read: #3's at K (A's 120 x
+    # 128, where ``launches`` is read, takes the stage route).
+    route_of = {"fused_overlap_save": "K", "fused_demod_filter": "A",
+                "fused_filter_demod_filter": "B"}
     for k in kernels:
         k["launches"] = path_of[k["name"]][k["name"]]
         k["launches_u"] = {u: c[k["name"]] for u, c in launches_u.items()}
         if k["name"] in route_of:
             k["cluster_launches"] = routes[route_of[k["name"]]][k["name"]]
+            k["cluster_launches_path"] = route_of[k["name"]]
         k["on_paths_o_p"] = {
             "O": [e for e, r in examples.items() if k["name"] in r["launches"]],
             "P": [m for m, r in validated.items()

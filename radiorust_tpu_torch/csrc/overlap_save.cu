@@ -40,12 +40,14 @@
 // samples (carried sample: the last *filtered* sample, which it also
 // emits), then the pair-packed deemphasis filter.
 //
-// Two routes, chosen by the geometry alone (ops/filter.py cluster_size,
+// Two routes, chosen by the geometry alone (ops/filter.py
+// filter_cluster_size for #3, cluster_size for #5 and #6, the latter
 // mirrored by cluster_bytes here); neither gives way to the other.
 //
-// The stage route (#3 and #4 always; #5 and #6 where the cluster route
-// does not fit): three launches over a [X, N] complex scratch (two float
-// planes) that the wrapper allocates, each touching device memory once per
+// The stage route (#4 always; #3 past the cluster route's longest column,
+// n1 = 96; #5 and #6 where the cluster route does not fit): three launches
+// over a [X, N] complex scratch (two float planes) that the wrapper
+// allocates, each touching device memory once per
 // sample; #5 adds the demod_pack launch before them, #6 runs #3's three,
 // demod_pack and #5's three over a [b, n] filtered buffer.
 //
@@ -93,7 +95,34 @@
 // 128) and even 512 rows spread over 128 blocks.  Plain float32 FMA: no
 // tensor cores, TF32 or library FFT.
 //
-// The cluster route (#5 and #6): one launch a call, one thread block
+// The cluster route of #3: one launch a call, one thread block cluster of
+// C = min(4, n2) blocks a stream (grid (C, X)), block r owning the strip
+// of W = n2 / C columns r W .. r W + W - 1 of the stream's grid, staged
+// from [prev || cur] by 16-byte cp.async copies: no scratch.  It is one
+// cluster_filter (below) and the output rows; its arithmetic is the stage
+// route's, operation for operation.  A stream a cluster, and not #6's
+// stream pair in a cluster of 8: the receive chain's 64 streams make 256
+// blocks either way, but a stream a cluster leaves no odd stream to mask
+// (path O runs batch 1, F and M pair real streams into X = b / 2).  At
+// A's 120 x 128 grid (W = 32) a block takes 63.4 KB, three an SM
+// (registers capped for three): cluster launches place blocks on 124 of
+// the 132 SMs, and the card holds 92 clusters of 4 at once, so batch 64
+// runs in one wave.  Yet one wave of 256 blocks is 16 warps an SM, and
+// each block's passes are the stage route's, issue- and latency-bound
+// there: measured on an H100 80GB HBM3 at 700 W (tools/filter_split.py
+// --crossover, 64 streams of 6144 + 128 n1 - 6144), the one launch is
+// faster than the stage route's three on short columns (n1 = 64: 14.5
+// against 16.7 us) and not on long ones (A's n1 = 120: 28.1 against
+// 28.1; 144: 39.3 against 35.8), the crossover between n1 = 96 (23.2
+// against 23.8) and 100 (25.2 against 25.0).  So the wrapper's rule
+// takes it up to n1 = 96 rows (ops/filter.py filter_cluster_size); the
+// kernel itself runs any geometry whose block share, filter_cluster_bytes
+// = 4 * (4 n1 W + 2 n1 + 2 n2), fits.  #4 keeps the stage route, which
+// runs its K bands' inverses side by side across the card: a cluster
+// form with the bands in turn was a K-fold latency chain a block (74.0
+// against 52.4 us at C).
+//
+// The cluster route of #5 and #6: one launch a call, one thread block
 // cluster of C = min(8, n2) blocks per stream pair (grid (C, b / 2)), and
 // the pair's grids stay in the cluster's shared memory from the input
 // load to the output store: no scratch, no demod_pack, no [b, n] filtered
@@ -136,10 +165,11 @@
 // (19 against 16 us a block).  Unrolled column passes and prefetched
 // row tables spilled at that cap and were slower.
 //
-// The rule that picks it: a block's share, cluster_bytes(n1, n2, merged)
-// = 4 * ((4 or 8) * n1 * W + 2 * n1 + 2 * n2), within the 227 KB a block
-// may use at the portable C <= 8 (at n2 = 128, #5 up to n1 = 876 and #6
-// up to 445; at n2 = 256, #5 up to 443 and #6 never), checked against
+// The rule that picks it for #5 and #6: a block's share,
+// cluster_bytes(n1, n2, merged) = 4 * ((4 or 8) * n1 * W + 2 * n1 + 2 *
+// n2), within the 227 KB a block may use at the portable C <= 8 (at n2 =
+// 128, #5 up to n1 = 876 and #6 up to 445; at n2 = 256, #5 up to 443 and
+// #6 never); for #3, n1 <= 96.  Each is checked against
 // cudaOccupancyMaxActiveClusters once per kernel and size; a launch that
 // fails returns its error and the wrapper raises.
 
@@ -147,6 +177,7 @@
 
 #include <cooperative_groups.h>
 
+#include <cstddef>
 #include <cstdint>
 #include <initializer_list>
 #include <map>
@@ -197,7 +228,7 @@ Plan make_plan(const float* tables, const int* radix, int npass, int n2,
 
 // The threads of a column phase: column c of a strip of C columns, and
 // row slot ty of ny.  The column launches take their block's (C, ny)
-// shape; the cluster kernel lays its 1-D block out by the strip's width.
+// shape; the cluster kernels lay their 1-D block out by the strip's width.
 struct Lanes {
   int C, c, ty, ny;
 };
@@ -344,8 +375,7 @@ __device__ __forceinline__ void stage_strip(float* buf, int plane,
                                             const float* ar, const float* ai,
                                             const float* br, const float* bi,
                                             int m, int n1, int n2, int c0,
-                                            int tid, int nt) {
-  const int C = blockDim.x;
+                                            int C, int tid, int nt) {
   if (C >= 4) {
     const int quads = C / 4;
     for (int ch = tid; ch < n1 * quads; ch += nt) {
@@ -385,7 +415,7 @@ __global__ void __launch_bounds__(kColThreads)
   const float* pi = previ + (size_t)s * prev_stride;
   const float* cr = curr + (size_t)s * cur_stride;
   const float* ci = curi + (size_t)s * cur_stride;
-  stage_strip(buf, plane, pr, pi, cr, ci, m, n1, n2, c0, tid, nt);
+  stage_strip(buf, plane, pr, pi, cr, ci, m, n1, n2, c0, C, tid, nt);
   for (int i = tid; i < n1; i += nt) {
     wr[i] = pl.r1r[i];
     wi[i] = pl.r1i[i];
@@ -409,13 +439,11 @@ __global__ void __launch_bounds__(kColThreads)
 // X[V * brev(l) + j] (brev over log2 LR bits).  A radix-V pass across the
 // lane's values with twiddle w^(l*j), then radix-2 decimation in
 // frequency across lanes l ^ h, h = LR / 2 .. 1 (partners stay in the
-// lane's group of LR).
-//
-// kSelectFree (the cluster kernel): each lane stage as p -+ v by one FMA
-// with a sign of +-1 and a multiply by its lane's twiddle, 1 on the lower
-// lanes, in place of both branches and a select; the same values (a
-// product by 1 is exact).
-template <int V, int LR, bool kSelectFree = false>
+// lane's group of LR).  Each lane stage is select-free: p -+ v by one FMA
+// with a sign of +-1, then a multiply by the lane's twiddle, 1 on the
+// lower lanes (a product by 1 is exact: the values of (p - v) * w on the
+// upper lanes and v + p on the lower).
+template <int V, int LR>
 __device__ __forceinline__ void row_fft(cf* v, int l, const float* wr,
                                         const float* wi) {
   constexpr int n2 = V * LR;
@@ -432,18 +460,16 @@ __device__ __forceinline__ void row_fft(cf* v, int l, const float* wr,
     for (int j = 0; j < V; ++j) {
       const cf p = {__shfl_xor_sync(0xffffffffu, v[j].r, h),
                     __shfl_xor_sync(0xffffffffu, v[j].i, h)};
-      if constexpr (kSelectFree)
-        v[j] = cmul({fmaf(sign, v[j].r, p.r), fmaf(sign, v[j].i, p.i)}, w1);
-      else
-        v[j] = upper ? cmul(p - v[j], w) : v[j] + p;
+      v[j] = cmul({fmaf(sign, v[j].r, p.r), fmaf(sign, v[j].i, p.i)}, w1);
     }
   }
 }
 
 // The inverse of row_fft (unnormalised): from X[V * brev(l) + j] in v[j]
 // to x[l + LR j], by radix-2 decimation in time across lanes, h = 1 ..
-// LR / 2, the conjugate twiddle, and the inverse radix-V pass.
-template <int V, int LR, bool kSelectFree = false>
+// LR / 2 (the upper lanes' values times the conjugate twiddle, the lower
+// lanes' times 1, then p -+ v), and the inverse radix-V pass.
+template <int V, int LR>
 __device__ __forceinline__ void row_ifft(cf* v, int l, const float* wr,
                                          const float* wi) {
   constexpr int n2 = V * LR;
@@ -455,17 +481,10 @@ __device__ __forceinline__ void row_ifft(cf* v, int l, const float* wr,
     const cf w1 = upper ? w : cf{1.f, 0.f};
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      if constexpr (kSelectFree) {
-        v[j] = cmul(v[j], w1);
-      } else {
-        if (upper) v[j] = cmul(v[j], w);
-      }
+      v[j] = cmul(v[j], w1);
       const cf p = {__shfl_xor_sync(0xffffffffu, v[j].r, h),
                     __shfl_xor_sync(0xffffffffu, v[j].i, h)};
-      if constexpr (kSelectFree)
-        v[j] = {fmaf(sign, v[j].r, p.r), fmaf(sign, v[j].i, p.i)};
-      else
-        v[j] = upper ? p - v[j] : v[j] + p;
+      v[j] = {fmaf(sign, v[j].r, p.r), fmaf(sign, v[j].i, p.i)};
     }
   }
 #pragma unroll
@@ -581,7 +600,7 @@ __global__ void __launch_bounds__(kColThreads)
   const float* sr = ar + (size_t)s * N;
   const float* si = ai + (size_t)s * N;
   // One source: with the seam at N every element comes from sr / si.
-  stage_strip(buf, plane, sr, si, sr, si, N, n1, n2, c0, tid, nt);
+  stage_strip(buf, plane, sr, si, sr, si, N, n1, n2, c0, C, tid, nt);
   for (int i = tid; i < n1; i += nt) {
     wr[i] = pl.r1r[i];
     wi[i] = pl.r1i[i];
@@ -869,16 +888,19 @@ int run_pipeline(const float* prevr, const float* previ, int prev_stride,
 // reads and writes the rows through distributed shared memory.
 
 constexpr int kClusterThreads = 256;
-constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kMaxCluster = 8;     // #5, #6: the portable cluster size
+constexpr int kFilterCluster = 4;  // #3: blocks of a stream's cluster
 // Blocks an SM may hold at once: registers capped at 80 a thread, so that
-// the 32 clusters of 8 of the receive chain's 64 streams fit the card in
-// one wave (30 at two blocks an SM).
+// the receive chain's 64 streams fit the card in one wave: 32 clusters of
+// 8 (#5, #6; 30 at two blocks an SM) or 64 of 4 (#3; 62 at two).
 constexpr int kClusterMinBlocks = 3;
 constexpr int kBatch = 4;       // elements a thread loads before it computes
 
-// Blocks of the cluster at row length n2 (ops/filter.py cluster_size).
-__host__ __device__ constexpr int cluster_blocks(int n2) {
-  return n2 < kMaxCluster ? n2 : kMaxCluster;
+// Blocks of the cluster at row length n2, at most `most` (ops/filter.py
+// cluster_size, filter_cluster_size).
+__host__ __device__ constexpr int cluster_blocks(int n2,
+                                                 int most = kMaxCluster) {
+  return n2 < most ? n2 : most;
 }
 
 // Shared bytes of a cluster block (all of them dynamic): the strip's two
@@ -888,6 +910,15 @@ size_t cluster_bytes(int n1, int n2, bool merged) {
   const size_t W = n2 / cluster_blocks(n2);
   return sizeof(float) *
          ((merged ? 8 : 4) * (size_t)n1 * W + 2 * (size_t)n1 + 2 * (size_t)n2);
+}
+
+// Shared bytes of a block of #3's cluster: two strip buffers of re and im
+// planes of n1 x W at W = n2 / min(4, n2), and the n1 column and n2 row
+// roots.
+size_t filter_cluster_bytes(int n1, int n2) {
+  const size_t W = n2 / cluster_blocks(n2, kFilterCluster);
+  return sizeof(float) *
+         (4 * (size_t)n1 * W + 2 * (size_t)n1 + 2 * (size_t)n2);
 }
 
 struct ClusterArgs {
@@ -948,18 +979,19 @@ __device__ __forceinline__ float fm_sample(cf x, cf p, int i, float fac,
   return i == 0 && have < 0.5f ? last : v;
 }
 
-// One overlap-save filter of the grids in the cluster's strips: x holds
-// kStreams grids side by side (columns s * W .. s * W + W - 1 of rows of
-// kStreams * W), y a second such buffer.  Forward column FFTs locally;
-// after a cluster barrier each warp takes whole rows (stream, k1), LR
-// lanes a row as os_rows, reads lane l's values i2 = l + LR j from the
-// block owning column i2 through distributed shared memory with the
-// twiddle, runs the row FFT, the response, the inverse row FFT and the
-// conjugate twiddle, and writes them back in place; after a second
-// barrier the inverse column FFTs run locally.  Returns the buffer (x or
-// y) holding the result.  Past the second barrier no block reads another's
-// shared memory.
-template <int V, int LR, int kStreams>
+// One overlap-save filter of the grids in the cluster's strips: block r of
+// the cluster of C blocks owns the strip of W = n2 / C columns r W .. r W
+// + W - 1 of each of its kStreams grids, side by side in x (stream s at
+// column s * W of rows of kStreams * W), and y is a second such buffer.
+// The forward column FFTs run locally; after a cluster barrier each warp
+// takes whole rows (stream, k1) across the cluster, LR lanes a row as
+// os_rows, reads lane l's values i2 = l + LR j from the block owning
+// column i2 through distributed shared memory with the twiddle, runs the
+// row FFT, the response, the inverse row FFT and the conjugate twiddle,
+// and writes them back in place; after a second barrier the inverse
+// column FFTs run locally.  Returns the buffer (x or y) holding the
+// result.  Past the second barrier no block reads another's shared memory.
+template <int V, int LR, int C, int kStreams>
 __device__ float* cluster_filter(cg::cluster_group& cluster, float* x,
                                  float* y, const Plan& pl,
                                  const float* __restrict__ gr,
@@ -969,7 +1001,7 @@ __device__ float* cluster_filter(cg::cluster_group& cluster, float* x,
                                  long long* clk, int mark) {
   constexpr int n2 = V * LR, kLog = LR == 32 ? 5 : LR == 16 ? 4 : LR == 8
       ? 3 : LR == 4 ? 2 : LR == 2 ? 1 : 0;
-  constexpr int C = cluster_blocks(n2), W = n2 / C, cols = kStreams * W;
+  constexpr int W = n2 / C, cols = kStreams * W;
   constexpr int kWarps = kClusterThreads / 32, kRowsWarp = 32 / LR;
   const int n1 = pl.n1, plane = n1 * cols;
   const Lanes ln = {cols, (int)threadIdx.x % cols, (int)threadIdx.x / cols,
@@ -1006,11 +1038,11 @@ __device__ float* cluster_filter(cg::cluster_group& cluster, float* x,
     }
 #pragma unroll
     for (int j = 0; j < V; ++j) v[j] = live ? cmul(v[j], tw[j]) : v[j];
-    row_fft<V, LR, true>(v, l, rwr, rwi);
+    row_fft<V, LR>(v, l, rwr, rwi);
 #pragma unroll
     for (int j = 0; j < V; ++j)
       v[j] = live ? cmul(v[j], g[j]) : cf{0.f, 0.f};
-    row_ifft<V, LR, true>(v, l, rwr, rwi);
+    row_ifft<V, LR>(v, l, rwr, rwi);
     if (live) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
@@ -1037,7 +1069,7 @@ __device__ float* cluster_filter(cg::cluster_group& cluster, float* x,
 template <int V, int LR, bool kMerged>
 __global__ void __launch_bounds__(kClusterThreads, kClusterMinBlocks)
     os_cluster(const ClusterArgs a) {
-  constexpr int n2 = V * LR, W = n2 / cluster_blocks(n2);
+  constexpr int n2 = V * LR, C = cluster_blocks(n2), W = n2 / C;
   constexpr int kRowsPass = kClusterThreads / W;  // strip rows a pass
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
@@ -1102,9 +1134,9 @@ __global__ void __launch_bounds__(kClusterThreads, kClusterMinBlocks)
     }
     __syncthreads();
     OS_MARK(clk, 1);
-    float* f = cluster_filter<V, LR, 2>(cluster, buf, buf + 4 * plane, pl,
-                                        a.g1r, a.g1i, cwr, cwi, rwr, rwi,
-                                        clk, 2);
+    float* f = cluster_filter<V, LR, C, 2>(cluster, buf, buf + 4 * plane,
+                                           pl, a.g1r, a.g1i, cwr, cwi, rwr,
+                                           rwi, clk, 2);
     cluster.sync();  // every block's filtered strips are whole
     OS_MARK(clk, 7);
     // Filtered sample i of stream s sits at row i / n2, column i % n2 of
@@ -1200,9 +1232,9 @@ __global__ void __launch_bounds__(kClusterThreads, kClusterMinBlocks)
   }
   __syncthreads();
   OS_MARK(clk, 8);
-  const float* r = cluster_filter<V, LR, 1>(cluster, x, x + 2 * plane, pl,
-                                            a.g2r, a.g2i, cwr, cwi, rwr, rwi,
-                                            clk, 9);
+  const float* r = cluster_filter<V, LR, C, 1>(cluster, x, x + 2 * plane,
+                                               pl, a.g2r, a.g2i, cwr, cwi, rwr,
+                                               rwi, clk, 9);
   // Output rows i1 < ho where t < n: s0 from the real, s1 from the
   // imaginary plane.
   for (int i1 = tid / W; i1 < a.ho; i1 += kRowsPass) {
@@ -1219,19 +1251,99 @@ __global__ void __launch_bounds__(kClusterThreads, kClusterMinBlocks)
 #endif
 }
 
+// #3 by the cluster route.
+struct FilterArgs {
+  const float *prevr, *previ;  // [X, m] at prev_stride
+  const float *curr, *curi;    // [X, n] at cur_stride
+  const float *gr, *gi;        // response grid [n1, n2]
+  float *outr, *outi;          // [X, n] at out_stride
+  long long* clk;              // development build: phase stamps, or null
+  int prev_stride, cur_stride, out_stride, m, n, ho;
+  Plan pl;
+};
+
+// Output rows i1 < ho of a strip r (n1 x W planes at column c0) where t =
+// i1 n2 + c0 + c < n, to yr / yi.
+__device__ __forceinline__ void store_strip(const float* r, int plane,
+                                            float* yr, float* yi, int n,
+                                            int ho, int n2, int c0, int W) {
+  const int c = threadIdx.x % W;
+  for (int i1 = threadIdx.x / W; i1 < ho; i1 += kClusterThreads / W) {
+    const int t = i1 * n2 + c0 + c;
+    if (t < n) {
+      yr[t] = r[i1 * W + c];
+      yi[t] = r[plane + i1 * W + c];
+    }
+  }
+}
+
+// #3 on stream blockIdx.y: one cluster of C = min(4, n2) blocks a stream,
+// block r owning the strip of W = n2 / C columns r W .. r W + W - 1 of the
+// stream's [prev || cur] grid, staged by 16-byte cp.async copies
+// (stage_strip); cluster_filter, then the output rows.
+// grid (C, X), cluster (C, 1, 1), block kClusterThreads, shared
+// filter_cluster_bytes(n1, n2).
+template <int V, int LR>
+__global__ void __launch_bounds__(kClusterThreads, kClusterMinBlocks)
+    os_filter_cluster(const FilterArgs a) {
+  constexpr int n2 = V * LR, C = cluster_blocks(n2, kFilterCluster);
+  constexpr int W = n2 / C;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);
+  long long* const clk = a.clk;
+  OS_TIME(clk, 16);
+  OS_MARK(clk, 0);
+  const Plan& pl = a.pl;
+  const int n1 = pl.n1, plane = n1 * W, tid = threadIdx.x;
+  const int c0 = (int)cluster.block_rank() * W, s = blockIdx.y;
+  float* cwr = buf + 4 * plane;
+  float* cwi = cwr + n1;
+  float* rwr = cwi + n1;
+  float* rwi = rwr + n2;
+  stage_strip(buf, plane, a.prevr + (size_t)s * a.prev_stride,
+              a.previ + (size_t)s * a.prev_stride,
+              a.curr + (size_t)s * a.cur_stride,
+              a.curi + (size_t)s * a.cur_stride, a.m, n1, n2, c0, W, tid,
+              kClusterThreads);
+  for (int i = tid; i < n1; i += kClusterThreads) {
+    cwr[i] = pl.r1r[i];
+    cwi[i] = pl.r1i[i];
+  }
+  for (int i = tid; i < n2; i += kClusterThreads) {
+    rwr[i] = pl.r2r[i];
+    rwi[i] = pl.r2i[i];
+  }
+  OS_MARK(clk, 15);
+  cp_async_wait_all();
+  __syncthreads();
+  OS_MARK(clk, 1);
+  const float* r = cluster_filter<V, LR, C, 1>(
+      cluster, buf, buf + 2 * plane, pl, a.gr, a.gi, cwr, cwi, rwr, rwi, clk,
+      2);
+  const size_t o = (size_t)s * a.out_stride;
+  store_strip(r, plane, a.outr + o, a.outi + o, a.n, a.ho, n2, c0, W);
+  OS_MARK(clk, 14);
+  OS_TIME(clk, 17);
+#ifdef RR_OS_CLOCKS
+  OS_STAMP(clk, 18, sm_id());
+#endif
+}
+
 // The cluster's occupancy query, once per kernel and shared size (the
 // first call of a geometry runs eagerly, before any graph captures it).
 std::mutex occupancy_mu;
 std::map<std::pair<const void*, size_t>, int> occupancy_seen;
 
+// One cluster launch of `kernel`: grid (C, rows), cluster (C, 1, 1),
+// kClusterThreads threads and `bytes` of dynamic shared memory a block.
 // With `clusters` given, only the occupancy query: the clusters of this
-// geometry the card holds at once.
-template <int V, int LR, bool kMerged>
-int launch_cluster(const ClusterArgs& a, int pairs, cudaStream_t stream,
-                   int* clusters = nullptr) {
-  const int C = cluster_blocks(V * LR);
-  const size_t bytes = cluster_bytes(a.pl.n1, V * LR, kMerged);
-  const void* fn = (const void*)os_cluster<V, LR, kMerged>;
+// geometry the card holds at once.  A geometry the card holds no cluster
+// of returns an error.
+template <typename Args>
+int launch_clusters(void (*kernel)(Args), const Args& a, int C, size_t bytes,
+                    int rows, cudaStream_t stream, int* clusters) {
+  const void* fn = (const void*)kernel;
   int err = set_smem(fn, bytes);
   if (err) return err;
   cudaLaunchAttribute attr[1];
@@ -1240,7 +1352,7 @@ int launch_cluster(const ClusterArgs& a, int pairs, cudaStream_t stream,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, pairs, 1);
+  cfg.gridDim = dim3(C, rows, 1);
   cfg.blockDim = dim3(kClusterThreads, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -1257,15 +1369,33 @@ int launch_cluster(const ClusterArgs& a, int pairs, cudaStream_t stream,
       if (seen == 0) return (int)cudaErrorInvalidConfiguration;
     }
   }
-  return (int)cudaLaunchKernelEx(&cfg, os_cluster<V, LR, kMerged>, a);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <int V, int LR, bool kMerged>
+int launch_cluster(const ClusterArgs& a, int pairs, cudaStream_t stream,
+                   int* clusters) {
+  return launch_clusters(os_cluster<V, LR, kMerged>, a,
+                         cluster_blocks(V * LR),
+                         cluster_bytes(a.pl.n1, V * LR, kMerged), pairs,
+                         stream, clusters);
+}
+
+template <int V, int LR>
+int launch_filter_cluster(const FilterArgs& a, int X, cudaStream_t stream,
+                          int* clusters) {
+  return launch_clusters(os_filter_cluster<V, LR>, a,
+                         cluster_blocks(V * LR, kFilterCluster),
+                         filter_cluster_bytes(a.pl.n1, V * LR), X, stream,
+                         clusters);
 }
 
 #ifdef RR_OS_CLOCKS
 long long* clock_out = nullptr;  // where the next launches stamp (or null)
 #endif
 
-// The cluster route at the plan's row length; an error where the geometry
-// is not one it takes (ops/filter.py cluster_size 0).
+// The cluster route of #5 / #6 at the plan's row length; an error where
+// the geometry is not one it takes (ops/filter.py cluster_size 0).
 template <bool kMerged>
 int run_cluster(ClusterArgs a, int pairs, cudaStream_t st,
                 int* clusters = nullptr) {
@@ -1285,6 +1415,31 @@ int run_cluster(ClusterArgs a, int pairs, cudaStream_t st,
     case 64: return launch_cluster<2, 32, kMerged>(a, pairs, st, clusters);
     case 128: return launch_cluster<4, 32, kMerged>(a, pairs, st, clusters);
     case 256: return launch_cluster<8, 32, kMerged>(a, pairs, st, clusters);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The cluster route of #3 at the plan's row length; an error where a
+// block's share does not fit (ops/filter.py filter_cluster_size takes it
+// only up to n1 = 96, well within).
+int run_filter_cluster(FilterArgs a, int X, cudaStream_t st,
+                       int* clusters = nullptr) {
+#ifdef RR_OS_CLOCKS
+  a.clk = clock_out;
+#endif
+  const Plan& pl = a.pl;
+  if (pl.n2 > kMaxN2 || filter_cluster_bytes(pl.n1, pl.n2) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  switch (pl.n2) {
+    case 1: return launch_filter_cluster<1, 1>(a, X, st, clusters);
+    case 2: return launch_filter_cluster<1, 2>(a, X, st, clusters);
+    case 4: return launch_filter_cluster<1, 4>(a, X, st, clusters);
+    case 8: return launch_filter_cluster<1, 8>(a, X, st, clusters);
+    case 16: return launch_filter_cluster<1, 16>(a, X, st, clusters);
+    case 32: return launch_filter_cluster<1, 32>(a, X, st, clusters);
+    case 64: return launch_filter_cluster<2, 32>(a, X, st, clusters);
+    case 128: return launch_filter_cluster<4, 32>(a, X, st, clusters);
+    case 256: return launch_filter_cluster<8, 32>(a, X, st, clusters);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1313,6 +1468,34 @@ int rr_overlap_save(const float* prevr, const float* previ, int prev_stride,
                       n, X, make_plan(tables, radix, npass, n2, n1), gr, gi,
                       scr_r, scr_i, outr, outi, out_stride, ho, tr, ti,
                       (cudaStream_t)stream);
+}
+
+// #3 by the cluster route: the arguments of rr_overlap_save without its
+// scratch (no scr_r/scr_i or column scratch).
+int rr_overlap_save_cluster(const float* prevr, const float* previ,
+                            int prev_stride, const float* curr,
+                            const float* curi, int cur_stride, int m, int n,
+                            int X, const float* tables, const int* radix,
+                            int npass, int n2, const float* gr,
+                            const float* gi, float* outr, float* outi,
+                            int out_stride, int n1, int ho, void* stream) {
+  FilterArgs a = {};
+  a.prevr = prevr;
+  a.previ = previ;
+  a.curr = curr;
+  a.curi = curi;
+  a.gr = gr;
+  a.gi = gi;
+  a.outr = outr;
+  a.outi = outi;
+  a.prev_stride = prev_stride;
+  a.cur_stride = cur_stride;
+  a.out_stride = out_stride;
+  a.m = m;
+  a.n = n;
+  a.ho = ho;
+  a.pl = make_plan(tables, radix, npass, n2, n1);
+  return run_filter_cluster(a, X, (cudaStream_t)stream);
 }
 
 // FM demod of b streams (b even) into dout [b, n] and the pair-packed
@@ -1437,20 +1620,27 @@ int rr_filter_demod_filter_cluster(
   return run_cluster<true>(a, b / 2, (cudaStream_t)stream);
 }
 
-// The clusters of the cluster route at (n1, n2) that the card holds at
-// once (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
-int rr_cluster_occupancy(int n1, int n2, int merged) {
+// The clusters of a cluster route at (n1, n2) that the card holds at
+// once (cudaOccupancyMaxActiveClusters), or a negative CUDA error; kind 0
+// is #5's route, 1 #6's and 2 #3's.
+int rr_cluster_occupancy(int n1, int n2, int kind) {
   ClusterArgs a = {};
   a.pl.n1 = n1;
   a.pl.n2 = n2;
-  int clusters = 0;
-  const int err = merged ? run_cluster<true>(a, 1, nullptr, &clusters)
-                         : run_cluster<false>(a, 1, nullptr, &clusters);
+  FilterArgs f = {};
+  f.pl = a.pl;
+  int clusters = 0, err;
+  switch (kind) {
+    case 0: err = run_cluster<false>(a, 1, nullptr, &clusters); break;
+    case 1: err = run_cluster<true>(a, 1, nullptr, &clusters); break;
+    case 2: err = run_filter_cluster(f, 1, nullptr, &clusters); break;
+    default: err = (int)cudaErrorInvalidValue;
+  }
   return err ? -err : clusters;
 }
 
 #ifdef RR_OS_CLOCKS
-// Development build only: the cluster route's launches from now on stamp
+// Development build only: the cluster routes' launches from now on stamp
 // clock64() at their phases into clk (int64, kMarks a block, block
 // blockIdx.y * C + blockIdx.x); null stops it.
 int rr_cluster_clocks(long long* clk) {

@@ -63,7 +63,11 @@ _SIGNATURES = {
     "rr_filter_demod_filter_cluster": ([_P] * 10 + [_I] + [_P] * 3
                                        + [_I] * 3 + _PLAN + [_P] * 5
                                        + [_I, _I] + [_P]),
-    "rr_cluster_occupancy": [_I, _I, _I],   # n1, n2, merged
+    # The cluster route of #3: the arguments of the stage route's entry
+    # without its scratch.
+    "rr_overlap_save_cluster": ([_P, _P, _I, _P, _P, _I, _I, _I, _I] + _PLAN
+                                + [_P] * 4 + [_I, _I, _I] + [_P]),
+    "rr_cluster_occupancy": [_I, _I, _I],   # n1, n2, kind (#5, #6, #3)
     "rr_filter_bank": ([_P] * 4 + [_I] * 4 + _PLAN + [_P] * 8 + [_I, _I]
                        + _COLUMN_SCRATCH + [_P]),
     "rr_pfb_demod": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P],

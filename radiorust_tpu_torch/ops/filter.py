@@ -34,19 +34,22 @@ values and radix-2 passes across the lanes (a row of fewer than 32
 points takes n2 lanes); every twiddle comes from the float32 root tables
 of :func:`fft_roots`.
 
-Two routes, chosen by the geometry alone.  #3 and #4 always take the
-stage route: three launches (forward columns, rows, inverse columns) over
-a device-memory scratch.  #5 and #6 take the cluster route wherever
-:func:`cluster_size` is not 0: one launch, one thread block cluster of
-C = min(8, n2) blocks per stream pair, whose shared memory holds the
-pair's grids from the input load to the output store (no scratch is
-allocated); elsewhere they run the demod prologue and the stage route.
+Two routes, chosen by the geometry alone.  The cluster route is one
+launch, one thread block cluster a stream (#3: C = min(4, n2) blocks,
+wherever :func:`filter_cluster_size` is not 0) or a stream pair (#5, #6:
+C = min(8, n2), wherever :func:`cluster_size` is not 0), whose shared
+memory holds the grids from the input load to the output store (no
+scratch is allocated).  Elsewhere (#4 always; #3 past 96 rows, where the
+stage route measured faster; #5 and #6 where a block's share is past
+shared memory) the stage route runs: three launches (forward columns,
+rows, inverse columns) over a device-memory scratch, after the demod
+prologue for #5 and #6.
 
 Each wrapper takes the JAX function's arguments as float32 tensors.  On
 CUDA it launches the kernels of ``csrc/overlap_save.cu`` and counts the
-launch in its ``launches`` attribute (#5 and #6 also count a launch of
-the cluster route in ``cluster_launches``); on the CPU it runs the plain
-``torch.fft`` version beside it (``*_plain``).  A counter counts where a
+launch in its ``launches`` attribute (#3, #5 and #6 count a launch of
+the cluster route also in ``cluster_launches``); on the CPU it runs the
+plain ``torch.fft`` version beside it (``*_plain``).  A counter counts where a
 wrapper is called: under a captured CUDA graph (``jit_step``, ``make_scan``)
 that is at capture, and a replay counts nothing.
 """
@@ -62,7 +65,7 @@ import torch
 from . import _build
 
 __all__ = ["kernel_factors", "strip_cols", "supported", "bank_supported",
-           "cluster_size", "cluster_bytes",
+           "cluster_size", "cluster_bytes", "filter_cluster_size",
            "fft_radices",
            "fft_roots", "response_grid", "fused_overlap_save",
            "fused_overlap_save_plain", "fused_filter_bank",
@@ -77,7 +80,9 @@ _MAX_N1 = 768     # the longest column of a 16-column strip; past it the
                   # plan takes 256-point rows where N allows
 _SMEM = 232448    # shared bytes a block may use (kMaxSmem in the kernels)
 _RADICES = (8, 4, 2, 3, 5)   # the kernel's specialised butterflies
-_CLUSTER = 8      # blocks of the cluster route's clusters (portable size)
+_CLUSTER = 8      # blocks of #5's and #6's clusters (the portable size)
+_FILTER_CLUSTER = 4   # blocks of #3's clusters, one a stream
+_FILTER_CLUSTER_ROWS = 96   # #3's longest column on the cluster route
 
 
 def strip_cols(n1: int, n2: int) -> int:
@@ -112,6 +117,20 @@ def cluster_size(n_total: int, merged: bool = False) -> int:
     if cluster_bytes(n1, n2, merged) > _SMEM:
         return 0
     return min(_CLUSTER, n2)
+
+
+def filter_cluster_size(n_total: int) -> int:
+    """Blocks C of the cluster that runs #3 on one stream of an
+    n_total-point transform in one launch: min(4, n2), one strip of n2 / C
+    columns a block, up to n1 = 96 rows; 0 past them, and #3 takes the
+    stage route.  The boundary is the measured crossover
+    (``tools/filter_split.py --crossover``): at batch 64 the one launch is
+    faster up to n1 = 96 and not from 100 on (A's 120 x 128 among them),
+    where each block's passes outweigh the gaps and scratch of the stage
+    route's three launches of the whole card.  The rule is the geometry's alone; a block's share at 96
+    rows (50.9 KB at n2 = 128) is far within shared memory."""
+    n1, n2 = kernel_factors(n_total)
+    return min(_FILTER_CLUSTER, n2) if n1 <= _FILTER_CLUSTER_ROWS else 0
 
 
 def kernel_factors(n_total: int):
@@ -268,14 +287,36 @@ def fused_overlap_save(prevr, previ, curr, curi, resp_gr, resp_gi):
     if not _build.on_cuda(*tensors):
         return fused_overlap_save_plain(*tensors)
     _check_geometry(n, m)
+    return _overlap_save_launch(
+        *tensors, cluster=bool(filter_cluster_size(m + n)))
+
+
+def _overlap_save_launch(prevr, previ, curr, curi, resp_gr, resp_gi,
+                         cluster: bool):
+    """#3 on CUDA tensors by the cluster route (``cluster``) or the stage
+    route: the wrapper's launch once its rule has picked the route, and
+    the tool that times both routes against each other."""
+    b, n = curr.shape
+    m = prevr.shape[1]
     dev = curr.device
     N = m + n
     n1, ho, consts = _constants(N, n, dev)
     ptr = _build.f32_ptr
-    scr_r, scr_i = (torch.empty((b, N), dtype=torch.float32, device=dev)
-                    for _ in range(2))
     outr, outi = (torch.empty((b, n), dtype=torch.float32, device=dev)
                   for _ in range(2))
+    if cluster:
+        fused_overlap_save.launches += 1
+        fused_overlap_save.cluster_launches += 1
+        err = _build.lib().rr_overlap_save_cluster(
+            ptr(prevr, "prevr"), ptr(previ, "previ"), m,
+            ptr(curr, "curr"), ptr(curi, "curi"), n, m, n, b, *consts,
+            ptr(resp_gr, "resp_gr"), ptr(resp_gi, "resp_gi"),
+            outr.data_ptr(), outi.data_ptr(), n, n1, ho,
+            _build.stream_handle(dev))
+        _build.check(err, "fused_overlap_save (cluster route)")
+        return outr, outi
+    scr_r, scr_i = (torch.empty((b, N), dtype=torch.float32, device=dev)
+                    for _ in range(2))
     tr, ti, _tmp = _column_scratch(N, b, dev)
     fused_overlap_save.launches += 1
     err = _build.lib().rr_overlap_save(
@@ -289,6 +330,7 @@ def fused_overlap_save(prevr, previ, curr, curi, resp_gr, resp_gi):
 
 
 fused_overlap_save.launches = 0
+fused_overlap_save.cluster_launches = 0
 
 
 def fused_filter_bank_plain(prevr, previ, curr, curi, resp_gr, resp_gi):

@@ -51,13 +51,14 @@ def _rel(got, want):
 
 
 class Cluster:
-    """The blocks of one stream pair's cluster: ``strips[r]`` is block r's
-    buffer, rows of ``streams * W`` columns (stream s at s W), as complex64
-    (the kernel's re and im planes)."""
+    """The blocks of one cluster: ``strips[r]`` is block r's buffer, rows
+    of ``streams * W`` columns (stream s at s W), as complex64 (the
+    kernel's re and im planes); C = min(``most``, n2) blocks (8 for #5's
+    and #6's stream pairs, 4 for #3's single streams)."""
 
-    def __init__(self, n1, n2, streams):
+    def __init__(self, n1, n2, streams, most=8):
         self.n1, self.n2, self.streams = n1, n2, streams
-        self.C = min(8, n2)
+        self.C = min(most, n2)
         self.W = n2 // self.C
         self.strips = [np.zeros((n1, streams * self.W), np.complex64)
                        for _ in range(self.C)]
@@ -376,16 +377,25 @@ def test_the_paths_geometries_take_the_cluster_route(m, n):
 
 def test_filter_split_runs_the_plain_versions_on_the_cpu(capsys):
     """``tools/filter_split.py`` on the CPU: #3, #5 and #6 at A's geometry
-    (here batch 4) through their wrappers, which run the plain versions:
-    no launch counted, no device time."""
+    (here batch 4), #4 at C's and G's, #3 at E's, F's, J's, K's and M's,
+    H's and past a one-column strip (#4 there too) through their
+    wrappers, which run the plain versions: no launch counted, no route,
+    no device time."""
     from radiorust_tpu_torch.tools import filter_split
     rows = filter_split.main(["--device", "cpu", "--batch", "4"])
     assert [r["kernel"].split()[0] for r in rows] == [
         "fused_overlap_save", "fused_demod_filter",
-        "fused_filter_demod_filter"]
+        "fused_filter_demod_filter", "fused_filter_bank",
+        "fused_filter_bank"] + ["fused_overlap_save"] * 6 + [
+        "fused_filter_bank"]
     for r in rows:
         assert r["rel"] == 0.0 and r["device_us"] is None
-        assert set(r["counters"].values()) == {0}
-    assert set(rows[1]["counters"]) == {"launches", "cluster_launches"}
+        assert set(r["counters"].values()) == {0} and r["route"] is None
+    for r in rows:   # #4 has one route and no cluster counter
+        assert set(r["counters"]) == (
+            {"launches"} if r["kernel"].startswith("fused_filter_bank")
+            else {"launches", "cluster_launches"})
+    assert "(2 x 1024 + 1024)" in rows[6]["kernel"]   # F: batch / 2
+    assert "(8 x 98304 + 98304)" in rows[9]["kernel"]
     assert capsys.readouterr().out.strip().splitlines()[-1] == \
         '{"card": "cpu"}'
