@@ -166,7 +166,24 @@
       sequential run and one group step's (or its stage's third chunk's)
       kernel calls against their plain versions, and reports its launches
       (``{"processes": ...}`` line; the kernels line gains
-      ``launches_t`` and ``held_on_path_t``).
+      ``launches_t`` and ``held_on_path_t``);
+   V. serving across recycled worker processes
+      (``radiorust_tpu_torch/runtime/recycle.py``): V1 A's chain at full
+      width, 12 chunks through ``serve_recycling`` in 3 generations of 4
+      (spawn workers of this script on CUDA, each resuming the last one's
+      checkpoint) and in one generation: warm-ups [1, 0, 0], the two
+      streams equal bit for bit, within 3e-4 of A's chain on CPU tensors,
+      every stream's tone in every generation, A's four kernels launched
+      in every generation on CUDA (as each generation reports) and one
+      generation's kernel calls in each run held against their plain
+      versions in the worker; each generation's wall, boot, start-up and
+      peak RSS, and the cost of one recycle; V2 the example
+      ``recycling_server`` and the drill ``tools/recycle_onchip.py`` (at
+      ``R_ENV``'s knobs: no retention part; ``ok``), each generation of
+      both on CUDA and launching #3, as it reports; then the card's free
+      memory back within 16 MB of its value before V
+      (``{"recycling": ...}`` line; the kernels line gains
+      ``launches_v`` and ``held_on_path_v``).
 4. Times each path and each kernel beside its plain version with CUDA
    events (the per-sample plain loops of #8 and #9 with 1 warm-up and 3
    repetitions, or one run of a 16-chunk sequence; every kernel also as
@@ -187,8 +204,8 @@ product, shuffles or reduction, stores at each wide geometry).
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before any result.  The
 JSON lines ``{"graphed": ...}``, ``{"serving": ...}``, ``{"validate":
-...}``, ``{"parallel": ...}``, ``{"tools": ...}`` and ``{"processes":
-...}`` precede the
+...}``, ``{"parallel": ...}``, ``{"tools": ...}``, ``{"processes":
+...}`` and ``{"recycling": ...}`` precede the
 second-to-last line, a JSON object of the kernels (each with the examples
 and models of paths O and P that launched it, and its launches and held
 calls on paths Q and R); the last line is
@@ -205,8 +222,10 @@ import pathlib
 import sys
 import time
 
+_STARTED = time.time()   # (a path V worker imports this script too)
 import numpy as np
 import torch
+_IMPORT_S = time.time() - _STARTED
 
 from radiorust_tpu_torch.tools._common import card
 # The one roofline model: the card's peaks, each call's bytes and bound,
@@ -1258,6 +1277,19 @@ def mixer_wide_paths(dev, tag, wrappers, graphed_rows, phase) -> dict:
     return launches_u
 
 
+def kernel_wrappers() -> list:
+    """The nine kernels' wrappers, whose ``launches`` count each launch,
+    and #1's phase-mode entry's."""
+    from radiorust_tpu_torch.ops import channelizer as och
+    from radiorust_tpu_torch.ops import filter as ofl
+    from radiorust_tpu_torch.ops import frontend as ofe
+    from radiorust_tpu_torch.ops import scan as osc
+    return [ofe.decimate, ofe.fused_mix_decimate, ofl.fused_overlap_save,
+            ofl.fused_filter_bank, ofl.fused_demod_filter,
+            ofl.fused_filter_demod_filter, och.fused_pfb_demod,
+            osc.slew_scan, osc.agc_scan, ofe.decimate_phase_complex]
+
+
 def zero_counts(wrappers) -> None:
     """Every launch counter at 0 (and the cluster-route counters of #3, #5
     and #6), once the card has finished."""
@@ -1298,11 +1330,18 @@ def read_counts(wrappers, label, want=(), route=None) -> dict:
     (``PATH_ROUTES``), unless every launch of #3 took that route."""
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
+    checked_counts(launches, cluster_counts(wrappers), label, want, route)
+    return launches
+
+
+def checked_counts(launches, routes, label, want=(), route=None) -> None:
+    """:func:`read_counts`'s checks on counts read elsewhere (a worker
+    process's): ``launches`` {wrapper name: launches}, ``routes`` {#3,
+    #5, #6: launches by the cluster route}."""
     names = [w if isinstance(w, str) else w.__name__ for w in want]
     missing = [n for n in names if launches[n] < 1]
     if missing:
         raise AssertionError(f"{label}: {missing} not launched")
-    routes = cluster_counts(wrappers)
     staged = [n for n in ("fused_demod_filter", "fused_filter_demod_filter")
               if routes[n] != launches[n]]
     if staged:
@@ -1314,7 +1353,6 @@ def read_counts(wrappers, label, want=(), route=None) -> dict:
         raise AssertionError(f"{label}: {routes[os_]} of {launches[os_]} "
                              f"launches of {os_} by the cluster route, "
                              f"where the path takes the {route} route")
-    return launches
 
 
 def _example_taps():
@@ -1578,7 +1616,7 @@ EXAMPLE_VS_CPU = {"morse": "audio", "morse_rf": "iq"}
 EXAMPLE_ATOL = 3e-4    # the paths' limit against CPU tensors
 
 
-def example_paths(tag, wrappers) -> dict:
+def example_paths(tag, wrappers, kernels=None, path="O") -> dict:
     """Path O: each example of ``radiorust_tpu_torch/examples`` that takes
     a device, in this process through ``main(device="cuda")`` (``tuner``
     with its scripted session), with the launch counters at 0 just before
@@ -1589,14 +1627,15 @@ def example_paths(tag, wrappers) -> dict:
     version; each kernel of the example must be held on a call with
     non-zero outputs or, for ``EXAMPLE_VS_CPU``, through the whole output
     against the example's run on CPU tensors.  Returns {example: wall
-    seconds, launches, held}."""
+    seconds, launches, held}.  ``kernels`` selects the examples
+    (``EXAMPLE_KERNELS`` by default) and ``path`` labels the lines."""
     import contextlib
     import importlib
     import io
 
     from radiorust_tpu_torch.examples._common import check_output
     rows = {}
-    for name, want in EXAMPLE_KERNELS.items():
+    for name, want in (kernels or EXAMPLE_KERNELS).items():
         mod = importlib.import_module(f"radiorust_tpu_torch.examples.{name}")
         kw = {"auto": True} if name == "tuner" else {}
         out = io.StringIO()
@@ -1609,7 +1648,7 @@ def example_paths(tag, wrappers) -> dict:
         for line in out.getvalue().splitlines():
             print(f"  {name}: {line}")
         check_output(name, out.getvalue())
-        agreed = held_to_plain(records, f"path O {name}", tag)
+        agreed = held_to_plain(records, f"path {path} {name}", tag)
         held = {h[k] for h in agreed if not h["zero"]
                 for k in ("kernel", "wrapper")}
         if name in EXAMPLE_VS_CPU:
@@ -1621,8 +1660,9 @@ def example_paths(tag, wrappers) -> dict:
                 raise AssertionError(f"example {name}: {key} {got.shape} "
                                      f"on CUDA, {on_cpu.shape} on CPU")
             diff = float(np.abs(got - on_cpu).max())
-            print(f"path O {name}: its {key} on CUDA vs the same example on "
-                  f"CPU tensors (plain versions): {got.size} samples, "
+            print(f"path {path} {name}: its {key} on CUDA vs the same "
+                  f"example on CPU tensors (plain versions): {got.size} "
+                  f"samples, "
                   f"max|diff|={diff:.3e} (atol {EXAMPLE_ATOL:g}), max|ref|="
                   f"{float(np.abs(on_cpu).max()):.3f} {tag}")
             if not diff <= EXAMPLE_ATOL:
@@ -1637,9 +1677,11 @@ def example_paths(tag, wrappers) -> dict:
         if any(not d.startswith("cuda") for d in devices):
             raise AssertionError(f"example {name}: actors on {devices}")
         ran = {k: v for k, v in launches.items() if v}
-        print(f"path O {name}: {wall:.2f} s wall, actors on "
+        print(f"path {path} {name}: {wall:.2f} s wall, actors on "
               f"{sorted(devices)}, launches {ran} {tag}")
         rows[name] = dict(seconds=wall, launches=ran, held=agreed)
+        if "launches" in report:  # its workers' launches, as they reported
+            rows[name]["workers"] = report["launches"]
     return rows
 
 
@@ -2308,7 +2350,8 @@ def parallel_paths(dev, tag, wrappers, k_chain) -> dict:
 
 # Path R: the measurement tools (radiorust_tpu_torch/tools) on the card,
 # through their main, at shortened repetitions.
-R_ENV = {"BENCH_REPS": "8", "SERVE_CHUNKS": "16", "SOAK_SECONDS": "30"}
+R_ENV = {"BENCH_REPS": "8", "SERVE_CHUNKS": "16", "SOAK_SECONDS": "30",
+         "RECYCLE_RETENTION": "0"}
 # The kernel wrappers each tool config launches (by name); the unfused
 # channelizer runs PyTorch calls only, as the JAX package's run is XLA.
 _STEREO_K = ("fused_mix_decimate", "fused_overlap_save", "fused_filter_bank",
@@ -2357,6 +2400,15 @@ R_FIELDS = {
     "bench": ("metric", "value", "unit", "vs_baseline",
               "flops_per_input_sample", "achieved_tflops", "mfu",
               "hbm_model_gbps", "hbm_fraction"),
+    # Path V's drill: the JAX tool's record (its retention part is not
+    # run, R_ENV), each generation's wall seconds, device and launches,
+    # the platform and the card.
+    "recycle_onchip": ("generations", "warmups_per_gen", "chunks",
+                       "chunks_per_worker", "samples_out",
+                       "max_abs_err_vs_single_gen", "bitwise_equal",
+                       "recycled_wall_s", "single_gen_wall_s", "ok",
+                       "gen_wall_s", "gen_devices", "gen_launches",
+                       "platform", "card"),
     # The JAX tool's record, its TPU peak replaced by the float32 one.
     "mfu": ("config", "batch", "chunk", "flops_per_step",
             "flops_per_input_sample", "hbm_bytes_per_step",
@@ -2396,7 +2448,8 @@ def _finite_numbers(obj) -> bool:
     return False
 
 
-def tool_paths(tag, wrappers, a_msps=None) -> dict:
+def tool_paths(tag, wrappers, a_msps=None, kernels=None,
+               path="R") -> dict:
     """Path R: each measurement tool of ``radiorust_tpu_torch/tools`` in
     this process through its ``main`` on the card (``R_ENV``: 8 timed
     replays a run, a 30 s soak, 16 chunks a serving variant; the bench at
@@ -2411,14 +2464,16 @@ def tool_paths(tag, wrappers, a_msps=None) -> dict:
     The bench's Msamples/s is printed beside ``a_msps``, path A's graphed
     rate from the same run (A binds ``tune_shift=100e3``: the same work).
     Prints the ``{"tools": ...}`` line; returns {"rows", "launches" (by
-    kernel, over R), "held", "by" (kernel: configs)}."""
+    kernel, over R), "held", "by" (kernel: configs)}.  ``kernels``
+    selects the configs (``R_KERNELS`` by default) and ``path`` labels the
+    lines; a record with an ``ok`` field must read true."""
     import importlib
     import io
 
     rows, held = {}, []
     launches_r = collections.Counter()
     by = collections.defaultdict(list)
-    for (tool, config), want in R_KERNELS.items():
+    for (tool, config), want in (kernels or R_KERNELS).items():
         mod = importlib.import_module(f"radiorust_tpu_torch.tools.{tool}")
         argv = ["--device", "cuda"]
         if tool == "mfu":
@@ -2431,7 +2486,7 @@ def tool_paths(tag, wrappers, a_msps=None) -> dict:
         with _environ(R_ENV), tapped(taps=_parallel_taps()) as records, \
                 contextlib.redirect_stdout(out):
             result = mod.main(argv)
-        launches = read_counts(wrappers, f"path R {tool} {config}", want)
+        launches = read_counts(wrappers, f"path {path} {tool} {config}", want)
         wall = time.perf_counter() - t0
         records_out = result if isinstance(result, list) else [result]
         for line in out.getvalue().splitlines():
@@ -2440,27 +2495,27 @@ def tool_paths(tag, wrappers, a_msps=None) -> dict:
         for rec in records_out:
             missing = [f for f in R_FIELDS[tool] if f not in rec]
             if missing:
-                raise AssertionError(f"path R {tool} {config}: fields "
+                raise AssertionError(f"path {path} {tool} {config}: fields "
                                      f"{missing} missing")
             if not _finite_numbers(rec):
-                raise AssertionError(f"path R {tool} {config}: a number "
+                raise AssertionError(f"path {path} {tool} {config}: a number "
                                      f"is not finite: {rec}")
             if "checksum" in rec and not rec["checksum"] > 0:
-                raise AssertionError(f"path R {tool} {config}: checksum "
+                raise AssertionError(f"path {path} {tool} {config}: checksum "
                                      f"{rec['checksum']}")
             if rec.get("platform") != "gpu":
-                raise AssertionError(f"path R {tool}: platform "
+                raise AssertionError(f"path {path} {tool}: platform "
                                      f"{rec.get('platform')}")
         if tool == "bench":
             rec = records_out[0]
             bad = {k: rec[k] for k in ("mfu", "hbm_fraction")
                    if not 0.0 < rec[k] <= SHARE_MAX}
             if bad:
-                raise AssertionError(f"path R bench: {bad} outside (0, "
+                raise AssertionError(f"path {path} bench: {bad} outside (0, "
                                      f"{SHARE_MAX}]: the count is wrong")
             a_text = ("not run" if a_msps is None
                       else f"{a_msps:.1f} Msamples/s")
-            print(f"path R bench: {rec['value']:.1f} Msamples/s, path A "
+            print(f"path {path} bench: {rec['value']:.1f} Msamples/s, path A "
                   f"graphed in this run {a_text} (A tunes 100 kHz off, the "
                   f"same work; printed, not checked); mfu "
                   f"{rec['mfu']:.4f}, hbm_fraction {rec['hbm_fraction']:.4f}"
@@ -2470,18 +2525,22 @@ def tool_paths(tag, wrappers, a_msps=None) -> dict:
             short = {k: v for k, v in rec.items() if k != "probes"}
             print(f"  soak: {json.dumps(short)}")
             if not rec["ok"]:
-                raise AssertionError(f"path R soak failed: {short}")
-        agreed = held_to_plain(records, f"path R {tool} {config}", tag)
+                raise AssertionError(f"path {path} soak failed: {short}")
+        elif any(rec.get("ok") is False for rec in records_out):
+            raise AssertionError(f"path {path} {tool} {config}: not ok")
+        agreed = held_to_plain(records, f"path {path} {tool} {config}", tag)
         unheld = set(want) - {h["kernel"] for h in agreed if not h["zero"]}
         if unheld:
-            raise AssertionError(f"path R {tool} {config}: {sorted(unheld)} "
+            raise AssertionError(f"path {path} {tool} {config}: "
+                                 f"{sorted(unheld)} "
                                  f"held on no call with non-zero outputs")
         ran = {k: v for k, v in launches.items() if v}
         for k in ran:
             by[k].append(f"{tool}/{config}")
         launches_r.update(launches)
         held += agreed
-        print(f"path R {tool} {config}: {wall:.2f} s wall, launches {ran}, "
+        print(f"path {path} {tool} {config}: {wall:.2f} s wall, launches "
+              f"{ran}, "
               f"{len(agreed)} kernel calls held {tag}")
         rows.setdefault(tool, []).extend(
             {k: v for k, v in rec.items() if k != "probes"}
@@ -2709,6 +2768,305 @@ def cluster_paths(tag, q_rows, script=None) -> dict:
     rows["elastic_drill"] = dict(elastic, seconds=time.perf_counter() - t2)
     rows["cases_seconds"] = wall
     return dict(rows=rows, launches=dict(launches), held=held)
+
+
+# Path V: serving across recycled worker processes (runtime/recycle.py).
+V_CHUNKS = 12
+V_BUDGET = 4          # chunks a generation: 3 generations
+V_HOLD = {"recycled": 2, "single": 1}   # the generation whose kernel
+                                        # calls are held, in each run
+V_MEM_MB = 16.0       # the card's free memory after V within this of before
+# V2's example and drill launch nothing in this process: their kernels
+# run in their workers, which report them (V2_KERNELS, each generation).
+V_EXAMPLES = {"recycling_server": ()}
+V_TOOLS = {("recycle_onchip", "drill"): ()}
+V2_KERNELS = ("fused_overlap_save",)
+V_KERNELS = ("fused_mix_decimate", "fused_overlap_save",
+             "fused_demod_filter", "decimate")   # A's, in every generation
+
+
+class _VSpec:
+    """Path V1's spec builder: A's chain, called once in each worker
+    generation of ``serve_recycling`` (a spawn process, which imports this
+    script as its main module).  As the generation's process exits it
+    writes ``gen-<n>.json`` into ``out``: its launches of #3, #5 and #6
+    by the cluster route (``routes``; all its launches are in its
+    ``stats`` report) and, in generation ``hold``, its kernel calls (the
+    eager warm-up steps before its capture, recorded by :func:`tapped`)
+    held against their plain versions on the card (``held``; ``held_s``
+    the seconds it took), or the ``error`` that stopped the hold.  Beside
+    them, where the generation's start-up goes: this script's import
+    (``started``, when it began, and ``import_s``, numpy's and torch's
+    part), ``called`` (when the worker called the builder), the CUDA
+    context's and the kernel library's ms (made and loaded here, ahead of
+    the actor), the binding's ms and the capture's (its two eager warm-up
+    steps and the capture, ``_Compiled.capture_ms``), and the resident
+    MB after the imports and after the context and library."""
+
+    def __init__(self, out, hold, tag):
+        self.out, self.hold, self.tag = str(out), hold, tag
+
+    def __call__(self):
+        import atexit
+
+        from radiorust_tpu_torch.models.wfm import wfm_receiver
+        from radiorust_tpu_torch.ops import _build
+        from radiorust_tpu_torch.runtime import blocks as rtb
+        from radiorust_tpu_torch.runtime.recycle import rss_mb
+        start = dict(started=_STARTED, import_s=_IMPORT_S,
+                     called=time.time(), rss_mb=[rss_mb()])
+        t0 = time.perf_counter()
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _build.lib()
+        start.update(context_ms=(t1 - t0) * 1e3,
+                     library_ms=(time.perf_counter() - t1) * 1e3)
+        start["rss_mb"].append(rss_mb())
+        spec, steps, binds = wfm_receiver(**CHAIN), [], []
+        bind, jit = spec.bind, rtb.jit_step
+
+        def timed_bind(sig):
+            t = time.perf_counter()
+            bound = bind(sig)
+            binds.append((time.perf_counter() - t) * 1e3)
+            return bound
+
+        def kept_jit(bound):
+            steps.append(jit(bound))
+            return steps[-1]
+
+        spec.bind, rtb.jit_step = timed_bind, kept_jit
+        out = pathlib.Path(self.out)
+        gen = 1 + len(list(out.glob("gen-*.json")))
+        wrappers = kernel_wrappers()
+        records = None
+        if gen == self.hold:
+            # Left open (and referenced, so that no collection closes it):
+            # the taps end with the process.
+            self._taps = tapped(taps=_parallel_taps())
+            records = self._taps.__enter__()
+
+        def report():
+            row = dict(gen=gen, routes=cluster_counts(wrappers),
+                       bind_ms=binds,
+                       capture_ms=[c.capture_ms for c in steps
+                                   if c.captures], **start)
+            t0 = time.perf_counter()
+            try:
+                if records is not None:
+                    row["held"] = held_to_plain(
+                        records, f"path V1 generation {gen}", self.tag)
+            except Exception as err:
+                row["error"] = repr(err)
+            row["held_s"] = time.perf_counter() - t0
+            (out / f"gen-{gen}.json").write_text(json.dumps(row))
+
+        atexit.register(report)
+        return spec
+
+
+def recycling_paths(tag, wrappers) -> dict:
+    """Path V: ``serve_recycling`` on the card.
+
+    V1: A's chain at full width, ``V_CHUNKS`` chunks of FM tones served
+    by generations of ``V_BUDGET`` chunks (3) and by one generation, the
+    workers on CUDA.  Fails unless the warm-ups are [1, 0, 0] and [1],
+    the stitched stream equals the one generation's bit for bit and A's
+    chain on CPU tensors within ``CPU_ATOL`` (2 streams, from
+    ``valid_from``), every stream's tone is there in every generation,
+    every generation launched A's kernels on CUDA, as it reports (#5 by
+    the cluster route, #3 by the stage route, as :class:`_VSpec` reads
+    them when its process exits), the held generation's kernel calls
+    agree with their plain versions,
+    and this process launched nothing.  V2: the example
+    ``recycling_server`` (as path O runs the others) and the drill
+    ``tools/recycle_onchip.py`` (as path R runs the tools, at
+    ``R_ENV``'s knobs), each of their generations on CUDA and launching
+    ``V2_KERNELS``, as the generation reports.  Then the card's free
+    memory must be back within ``V_MEM_MB`` of its value before V.
+    Returns {"rows" (the ``{"recycling": ...}`` line), "launches" (by
+    kernel, over the recycled run), "held"}."""
+    import multiprocessing
+    import shutil
+
+    from radiorust_tpu_torch.blocks.base import StreamSig, scan
+    from radiorust_tpu_torch.convert import tree_to_torch
+    from radiorust_tpu_torch.models.wfm import wfm_receiver
+    from radiorust_tpu_torch.runtime import serve_recycling
+
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+    tones = 400.0 + 190.0 * np.arange(BATCH)
+    xs = fm_tones(tones, V_CHUNKS, CHUNK, offset=-100e3)
+    # The input's transport alone: each chunk through a spawn queue, put
+    # and got in this process (pickled by its feeder thread).
+    q = multiprocessing.get_context("spawn").Queue()
+    t0 = time.perf_counter()
+    for x in xs:
+        q.put(x)
+        q.get()
+    transport_ms = (time.perf_counter() - t0) * 1e3 / V_CHUNKS
+    q.close()
+    print(f"path V1: one {xs[0].nbytes / 1e6:.1f} MB input chunk through a "
+          f"spawn queue (put, pickle, pipe, get) {transport_ms:.2f} ms "
+          f"{tag}")
+
+    work = HERE / "build" / "chip_smoke" / "v1"
+    shutil.rmtree(work, ignore_errors=True)
+    runs, rows, held = {}, {}, []
+    launches_v = collections.Counter()
+    for label, budget in (("recycled", V_BUDGET), ("single", V_CHUNKS + 1)):
+        out = work / label
+        out.mkdir(parents=True)
+        stats = []
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        outs, gens, warmups = serve_recycling(
+            _VSpec(out, V_HOLD[label], tag), list(xs), RATE,
+            chunks_per_worker=budget, ckpt_path=str(out / "state.npz"),
+            device="cuda", timeout=300.0, stats=stats)
+        wall = time.perf_counter() - t0
+        here = read_counts(wrappers, f"path V1 {label} (the supervisor)")
+        if any(here.values()):
+            raise AssertionError(f"path V1 {label}: the supervisor "
+                                 f"launched {here}")
+        want_gens = -(-V_CHUNKS // budget)
+        if gens != want_gens or warmups != [1] + [0] * (gens - 1):
+            raise AssertionError(f"path V1 {label}: {gens} generations, "
+                                 f"warm-ups {warmups}")
+        reports = [json.loads((out / f"gen-{g}.json").read_text())
+                   for g in range(1, gens + 1)]
+        for g, (rep, st) in enumerate(zip(reports, stats), 1):
+            name = f"path V1 {label} generation {g}"
+            if "error" in rep:
+                raise AssertionError(f"{name}: {rep['error']}")
+            if not st["device"].startswith("cuda"):
+                raise AssertionError(f"{name}: on {st['device']}")
+            ran = st["launches"]
+            checked_counts({w.__name__: ran.get(w.__name__, 0)
+                            for w in wrappers}, rep["routes"], name,
+                           V_KERNELS, PATH_ROUTES["A"])
+            if label == "recycled":
+                launches_v.update(ran)
+            if g == V_HOLD[label]:
+                agreed = rep.get("held", [])
+                unheld = set(V_KERNELS) - {h["kernel"] for h in agreed
+                                           if not h["zero"]}
+                if unheld:
+                    raise AssertionError(f"{name}: {sorted(unheld)} held on "
+                                         f"no call with non-zero outputs")
+                held += agreed
+            into = rep["called"] - rep["started"]
+            setup = (rep["context_ms"] + rep["library_ms"]
+                     + sum(rep["bind_ms"]) + sum(rep["capture_ms"]))
+            rows[f"{label} gen {g}"] = dict(
+                st, launches=ran, held_calls=len(rep.get("held", [])),
+                held_s=rep["held_s"], spawn_s=st["boot_s"] - into,
+                import_s=rep["import_s"], other_imports_s=into
+                - rep["import_s"], context_ms=rep["context_ms"],
+                library_ms=rep["library_ms"], bind_ms=rep["bind_ms"],
+                capture_ms=rep["capture_ms"],
+                first_chunk_ms=st["first_output_s"] * 1e3 - setup,
+                rss_mb_after_imports=rep["rss_mb"][0],
+                rss_mb_after_context=rep["rss_mb"][1])
+        runs[label] = dict(outs=np.stack(outs), wall=wall, stats=stats)
+
+    got, ref = runs["recycled"]["outs"], runs["single"]["outs"]
+    same = bool(np.array_equal(got, ref))
+    small = wfm_receiver(**CHAIN).bind(StreamSig(2, CHUNK, RATE))
+    v, rate = small.valid_from, small.out_sig.sample_rate
+    _, ys_cpu = scan(small, tree_to_torch(small.params, "cpu"),
+                     tree_to_torch(small.init_state(), "cpu"),
+                     torch.from_numpy(xs[:, :2]))
+    diff = float(np.abs(got[v:, :2] - ys_cpu.numpy()[v:]).max())
+    print(f"path V1: {V_CHUNKS} chunks of {BATCH} x {CHUNK} across 3 "
+          f"generations {tuple(got.shape)}: equal to one generation bit for "
+          f"bit: {same}; streams 0-1 vs CPU tensors from chunk {v} "
+          f"max|diff|={diff:.3e} (atol {CPU_ATOL:g}) {tag}")
+    if not same:
+        raise AssertionError("path V1: the recycled stream differs from one "
+                             "generation's")
+    if not diff <= CPU_ATOL:
+        raise AssertionError("path V1 disagrees with the CPU run")
+    off = []
+    for g in range(-(-V_CHUNKS // V_BUDGET)):
+        lo, hi = max(v, g * V_BUDGET), (g + 1) * V_BUDGET
+        peaks = [peak_hz(got[lo:hi, s].real.reshape(-1), rate)
+                 for s in range(BATCH)]
+        bad = [(g + 1, s, p) for s, p in enumerate(peaks)
+               if abs(p - tones[s]) > TONE_HZ]
+        off += bad
+        print(f"path V1 generation {g + 1} (chunks {lo}-{hi - 1}): every "
+              f"stream's audio peak within {TONE_HZ:g} Hz of its tone: "
+              f"{not bad}; stream 0 {peaks[0]:.1f} Hz ({tones[0]:.1f})")
+    if off:
+        raise AssertionError(f"path V1: tones missing after a seam "
+                             f"(generation, stream, peak): {off[:8]}")
+
+    one = runs["single"]["stats"][0]
+    steady = (one["seconds"] - one["first_output_s"]) / (V_CHUNKS - 1)
+    rec = runs["recycled"]
+    recycles = len(rec["stats"]) - 1
+    cost_ms = (rec["wall"] - runs["single"]["wall"]) / recycles * 1e3
+    for key, row in rows.items():
+        row["startup_ms"] = (row["boot_s"] + row["first_output_s"]
+                             - steady) * 1e3
+        print(f"path V1 {key}: wall {row['wall_s']:.2f} s; boot "
+              f"{row['boot_s']:.2f} s (spawn to this script's import "
+              f"{row['spawn_s']:.2f}, numpy and torch {row['import_s']:.2f}, "
+              f"the other imports {row['other_imports_s']:.2f}); first "
+              f"output {row['first_output_s']:.2f} s after entry (CUDA "
+              f"context {row['context_ms']:.0f} ms, library "
+              f"{row['library_ms']:.0f}, bind {sum(row['bind_ms']):.0f}, "
+              f"warm-ups and capture {sum(row['capture_ms']):.0f}, the "
+              f"first chunk's transport, step and fetch "
+              f"{row['first_chunk_ms']:.0f}); start-up "
+              f"{row['startup_ms']:.0f} ms; input wait "
+              f"{row['input_wait_s']:.3f} s, checkpoint "
+              f"{row['checkpoint_s'] * 1e3:.1f} ms, sentinel peek "
+              f"{row['peek_s']:.2f} s; RSS {row['rss_mb_after_imports']:.0f} "
+              f"MB after the imports, {row['rss_mb_after_context']:.0f} "
+              f"after the context and library, peak {row['maxrss_mb']:.1f};"
+              f" launches {row['launches']}, {row['held_calls']} calls held "
+              f"in {row['held_s']:.2f} s {tag}")
+    print(f"path V1: recycled {rec['wall']:.2f} s, one generation "
+          f"{runs['single']['wall']:.2f} s, one recycle {cost_ms:.0f} ms "
+          f"(a chunk step in a warm generation {steady * 1e3:.1f} ms) {tag}")
+    torch.cuda.synchronize()
+    free_v1 = torch.cuda.mem_get_info()[0]
+
+    examples = example_paths(tag, wrappers, V_EXAMPLES, path="V2")
+    tools = tool_paths(tag, wrappers, kernels=V_TOOLS, path="V2")
+    drill = tools["rows"]["recycle_onchip"][0]
+    if any(not d.startswith("cuda") for d in drill["gen_devices"]):
+        raise AssertionError(f"path V2 drill: on {drill['gen_devices']}")
+    for what, per_gen in (
+            ("recycling_server", examples["recycling_server"]["workers"]),
+            ("recycle_onchip", drill["gen_launches"])):
+        for g, ran in enumerate(per_gen, 1):
+            missing = [k for k in V2_KERNELS if not ran.get(k)]
+            if missing:
+                raise AssertionError(f"path V2 {what} generation {g}: "
+                                     f"{missing} not launched")
+        print(f"path V2 {what}: launches in its generations {per_gen} "
+              f"{tag}")
+    torch.cuda.synchronize()
+    free_after = torch.cuda.mem_get_info()[0]
+    mb = lambda b: b / 2 ** 20
+    print(f"path V: the card's free memory {mb(free_before):.1f} MB before, "
+          f"{mb(free_v1):.1f} after V1, {mb(free_after):.1f} after V2 "
+          f"(limit {V_MEM_MB:g} MB off) {tag}")
+    if abs(mb(free_after) - mb(free_before)) > V_MEM_MB:
+        raise AssertionError("path V: the card's memory did not return")
+    result = dict(card=tag[1:-1], transport_ms=transport_ms,
+                  generations=rows, recycled_s=rec["wall"],
+                  single_s=runs["single"]["wall"], recycle_ms=cost_ms,
+                  steady_chunk_ms=steady * 1e3, max_abs_diff_cpu=diff,
+                  free_mb=[mb(free_before), mb(free_v1), mb(free_after)],
+                  example=examples["recycling_server"]["seconds"],
+                  drill=drill)
+    return dict(rows=result, launches=dict(launches_v), held=held)
 
 
 def main() -> None:
@@ -3607,11 +3965,7 @@ def main() -> None:
     t0 = phase("kernel checks", t0)
 
     # -- the paths ------------------------------------------------------------
-    # The nine kernels' counters, and that of #1's phase-mode entry.
-    wrappers = [ofe.decimate, ofe.fused_mix_decimate, ofl.fused_overlap_save,
-                ofl.fused_filter_bank, ofl.fused_demod_filter,
-                ofl.fused_filter_demod_filter, och.fused_pfb_demod,
-                osc.slew_scan, osc.agc_scan, ofe.decimate_phase_complex]
+    wrappers = kernel_wrappers()
 
     routes = {}   # path: {#5 / #6: launches by the cluster route}
 
@@ -4342,6 +4696,10 @@ def main() -> None:
     processes = cluster_paths(tag, parallel["rows"])
     t0 = phase("path T", t0)
 
+    # Path V: serving across recycled worker processes.
+    recycling = recycling_paths(tag, wrappers)
+    t0 = phase("path V", t0)
+
     # Each kernel's launches are those of the path it was checked at.
     path_of = {"decimate": launches_a, "fused_mix_decimate": launches_a,
                "fused_overlap_save": launches_a,
@@ -4399,6 +4757,14 @@ def main() -> None:
             rel=max((h["rel"] for h in on_t), default=None))
         print(f"  {k['name']}: {k['launches_t']} launches on path T "
               f"({len(on_t)} held)")
+        on_v = [h for h in recycling["held"] if h["kernel"] == k["name"]]
+        k["launches_v"] = recycling["launches"].get(k["name"], 0)
+        k["held_on_path_v"] = dict(
+            calls=len(on_v),
+            max_abs_err=max((h["max_abs_err"] for h in on_v), default=None),
+            rel=max((h["rel"] for h in on_v), default=None))
+        print(f"  {k['name']}: {k['launches_v']} launches on path V's "
+              f"recycled run, over its 3 generations ({len(on_v)} held)")
         on_r = [h for h in tools["held"] if h["kernel"] == k["name"]]
         k["launched_on_r"] = dict(
             launches=tools["launches"].get(k["name"], 0),
@@ -4427,6 +4793,7 @@ def main() -> None:
     print(json.dumps({"tools": {"card": tag[1:-1], **tools["rows"]}}))
     print(json.dumps({"processes": {"card": tag[1:-1],
                                     **processes["rows"]}}))
+    print(json.dumps({"recycling": recycling["rows"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,6 +119,9 @@ _CHECKS = {
     "audiopipe": [_has("piped", "real audio", any_of=True)],
     "fleet_receiver": [_has("fleet: 16/16", "wideband: 3/3",
                             "Hz recovered (ok")],
+    "recycling_server": [_has("across 3 worker generations",
+                              "warmups per gen: [1, 0, 0]"),
+                         _near(r"dominant tone (\d+) Hz", 1000.0, 5)],
 }
 
 def check_output(name: str, out: str) -> None:

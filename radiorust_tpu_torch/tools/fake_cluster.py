@@ -70,6 +70,8 @@ import time
 
 import numpy as np
 
+from ..ops import kernel_wrappers
+
 SCRIPT = "-m radiorust_tpu_torch.tools.fake_cluster"
 CASES = ("wfm_time_sharded_t8_with_retune", "wfm_ch_across_hosts_x_t_within",
          "channelizer_c8_cross_process_all_gather",
@@ -161,18 +163,6 @@ def _maybe_die(case: str, rank: int) -> None:
     if case and os.environ.get("FAKE_CLUSTER_KILL") == case and rank == 1:
         print(f"[p{rank}] SIGKILL drill: dying mid-{case}", flush=True)
         os.kill(os.getpid(), signal.SIGKILL)
-
-
-def kernel_wrappers() -> list:
-    """The nine kernels' wrappers (each counts its launches)."""
-    from ..ops import channelizer as och
-    from ..ops import filter as ofl
-    from ..ops import frontend as ofe
-    from ..ops import scan as osc
-    return [ofe.decimate, ofe.fused_mix_decimate, ofl.fused_overlap_save,
-            ofl.fused_filter_bank, ofl.fused_demod_filter,
-            ofl.fused_filter_demod_filter, och.fused_pfb_demod,
-            osc.slew_scan, osc.agc_scan]
 
 
 class Hold:

@@ -43,12 +43,8 @@ import time
 
 import torch
 
+from ..runtime.recycle import rss_mb
 from ._common import device_label, parse_args, port_lib
-
-def rss_mb() -> float:
-    with open("/proc/self/statm") as f:
-        pages = int(f.read().split()[1])
-    return pages * os.sysconf("SC_PAGE_SIZE") / 1e6
 
 
 def device_mb(device):

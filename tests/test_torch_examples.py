@@ -1,7 +1,8 @@
 """The port's receiver examples (``radiorust_tpu_torch/examples``) run as
 subprocesses on the CPU (``--device cpu``) and pass the assertions of the
 JAX package's smoke tests of its examples (``tests/test_io.py``,
-``tests/test_tuner_example.py``); without a card and without
+``tests/test_tuner_example.py``; ``recycling_server`` across three
+spawned worker generations); without a card and without
 ``--device`` an example raises.  The graph and transmit examples are in
 ``test_torch_examples_graphs.py`` and ``test_torch_examples_tx.py``."""
 
@@ -17,6 +18,7 @@ from torch_examples import run_example
     ("tuner", ("--auto",)),
     ("audio_44k_receiver", ()),
     ("bandwidth_meter", ()),
+    ("recycling_server", ()),
 ])
 def test_example_runs_on_the_cpu(name, args):
     r = run_example(name, *args, "--device", "cpu")
