@@ -26,7 +26,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import threading
-import time
 from dataclasses import dataclass
 from typing import Any, Sequence
 
@@ -35,6 +34,8 @@ import torch
 
 from ..convert import _map
 from ..convert import tree_to_torch
+from ..utils import profiling
+from ..utils.profiling import tracing
 
 __all__ = ["StreamSig", "Block", "BoundBlock", "Chain", "scan",
            "expand_reset", "no_reset", "jit_step", "make_scan",
@@ -321,7 +322,10 @@ class _Capture:
         self.state, self.x, self.reset = state, x, reset
         self.out_state, self.out_y = out_state, out_y
 
-    def replay(self, state, x, reset):
+    def copy_in(self, state, x, reset) -> int:
+        """Copy the given leaves that are not the static buffers into
+        them; returns the bytes copied."""
+        nbytes = 0
         for tree, given in ((self.state, state), (self.x, x),
                             (self.reset, reset)):
             if given is None:
@@ -329,7 +333,8 @@ class _Capture:
             own, new = _leaves(tree), _leaves(given)
             for i in foreign_leaves(own, new):
                 own[i].copy_(new[i])
-        self.graph.replay()
+                nbytes += own[i].nbytes
+        return nbytes
 
 
 _WARMUP_STEPS = 2
@@ -351,6 +356,18 @@ class _Compiled:
     time (warm-up included); :meth:`free` drops every graph.  The kernel
     wrappers' ``launches`` counters count while a step is captured (and
     in the eager warm-up before it), not on a replay.
+
+    While :func:`~radiorust_tpu_torch.utils.profiling.tracing` is on (a
+    profiler records, or ``profiling.enable(True)``), a call records the
+    spans ``rr.entry`` and, inside it, ``rr.entry.key`` (the graph's
+    key and the params check), ``rr.entry.copy_in``, ``rr.entry.replay``
+    and ``rr.entry.clone_out`` (or ``rr.entry.eager``), the device span
+    ``rr.entry.device`` (first copy in to last clone), and the counters
+    ``entry.calls``, ``entry.steps``, ``entry.copy_in_bytes`` and
+    ``entry.clone_out_bytes``.  A capture is always recorded:
+    ``rr.entry.capture`` and ``entry.captures``, and
+    ``entry.recaptures`` where it replaces a graph whose params changed.
+    Off, a call checks once and its span sites open a shared no-op.
 
     ``process`` (default: the bound's own) is the step to run, a sharded
     one for the parallel layer; ``capturable=False`` keeps CUDA tensors
@@ -383,25 +400,60 @@ class _Compiled:
         return scan(self.bound, params, state, x, reset)
 
     def __call__(self, params, state, x, reset=None):
-        device = _leaves(x)[0].device
-        if device.type != "cuda" or not self.capturable:
-            return self._eager(params, state, x, reset)
-        key = (_spec(state), _spec(x), _spec(reset))
-        cap = self._captured.get(key)
-        if cap is None or params_changed(cap.held, params):
-            with _CAPTURE_LOCK:
-                if cap is not None:
-                    # Free the old graph first, once no replay of it is
-                    # queued.
-                    torch.cuda.synchronize(device)
-                    del self._captured[key], cap
+        on = tracing()
+        span = profiling.span if on else profiling.no_span
+        with span("rr.entry"):
+            lead = _leaves(x)[0]
+            if on:
+                profiling.count("entry.calls")
+                profiling.count("entry.steps",
+                                lead.shape[0] if self._whole else 1)
+            device = lead.device
+            if device.type != "cuda" or not self.capturable:
+                with span("rr.entry.eager"):
+                    return self._eager(params, state, x, reset)
+            with span("rr.entry.key"):
+                key = (_spec(state), _spec(x), _spec(reset))
+                cap = self._captured.get(key)
+                stale = cap is None or params_changed(cap.held, params)
+            if stale:
+                cap = self._recapture(key, cap, params, state, x, reset,
+                                      device)
+            start = profiling.device_start(device) if on else None
+            with span("rr.entry.copy_in"):
+                copied = cap.copy_in(state, x, reset)
+            with span("rr.entry.replay"):
+                cap.graph.replay()
+            with span("rr.entry.clone_out"):
+                # A whole run returns clones of its state; one step its
+                # own buffers.
+                out_state = (_map(cap.out_state, torch.clone)
+                             if self._whole else cap.state)
+                out_y = _map(cap.out_y, torch.clone)
+            if on:
+                profiling.device_stop("rr.entry.device", start, device)
+                cloned = _leaves(out_y) + (_leaves(out_state)
+                                           if self._whole else [])
+                profiling.count("entry.copy_in_bytes", copied)
+                profiling.count("entry.clone_out_bytes",
+                                sum(t.nbytes for t in cloned))
+            return out_state, out_y
+
+    def _recapture(self, key, cap, params, state, x, reset, device):
+        with _CAPTURE_LOCK:
+            if cap is not None:
+                # Free the old graph first, once no replay of it is
+                # queued.
+                torch.cuda.synchronize(device)
+                del self._captured[key], cap
+                profiling.count("entry.recaptures")
+            with profiling.span("rr.entry.capture", always=True) as timed:
                 cap = self._capture(params, state, x, reset, device)
-            self._captured[key] = cap
-        cap.replay(state, x, reset)
-        if self._whole:
-            return (_map(cap.out_state, torch.clone),
-                    _map(cap.out_y, torch.clone))
-        return cap.state, _map(cap.out_y, torch.clone)
+        self.captures += 1
+        self.capture_ms = timed.ns / 1e6
+        profiling.count("entry.captures")
+        self._captured[key] = cap
+        return cap
 
     def _steps(self, x, reset):
         """(x, reset) of each step the capture runs."""
@@ -412,7 +464,6 @@ class _Compiled:
                 for i in range(t)]
 
     def _capture(self, params, state, x, reset, device) -> _Capture:
-        t0 = time.perf_counter()
         lead = (_leaves(x)[0].shape[0],) if self._whole else ()
         static_reset = (_default_reset(self.bound, lead, device)
                         if reset is None else _map(reset, torch.clone))
@@ -455,8 +506,6 @@ class _Compiled:
             if collecting:
                 gc.enable()
         torch.cuda.synchronize(device)
-        self.captures += 1
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
         return _Capture(graph, _hold(params), s_state, s_x,
                         None if reset is None else static_reset,
                         out_state, out_y)

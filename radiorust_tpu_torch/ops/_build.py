@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["lib", "check", "stream_handle", "build_dir", "on_cuda",
            "f32_ptr"]
 
@@ -158,19 +160,22 @@ def lib(defines=()) -> ctypes.CDLL:
     """The loaded kernel library, built first if needed.  ``defines``
     (e.g. ``("RR_SCAN_CLOCKS",)``) selects a development build with those
     preprocessor macros set, in its own build directory; the kernels'
-    wrappers use the build without."""
+    wrappers use the build without.  A load (and build) is the span
+    ``rr.ops.load`` (``utils/profiling.py``); a cached return is not."""
     defines = tuple(defines)
     if defines not in _libs:
-        so = build_dir(defines) / "libradiorust_kernels.so"
-        if not so.exists():
-            _build(so, defines)
-        handle = ctypes.CDLL(str(so))
-        for name, argtypes in {**_SIGNATURES, **_DEV_SIGNATURES}.items():
-            if name in _DEV_SIGNATURES and not hasattr(handle, name):
-                continue
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with span("rr.ops.load", always=True):
+            so = build_dir(defines) / "libradiorust_kernels.so"
+            if not so.exists():
+                _build(so, defines)
+            handle = ctypes.CDLL(str(so))
+            for name, argtypes in {**_SIGNATURES,
+                                   **_DEV_SIGNATURES}.items():
+                if name in _DEV_SIGNATURES and not hasattr(handle, name):
+                    continue
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _libs[defines] = handle
     return _libs[defines]
 
